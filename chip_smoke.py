@@ -3,29 +3,45 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernel from scale_letkf_torch/csrc, checks it
-against its plain PyTorch version, and drives the port's main path — the
-LETKF analysis — once at the full size of the 18-km Japan configuration
-(configs/18km_japan.toml: 480×360×36, K = 50, the synthetic conventional
-network of ~24k obs):
+Builds the three hand-written CUDA kernels from scale_letkf_torch/csrc,
+checks each against its plain PyTorch version, and drives the port's two
+paths once each at the full size of the 18-km Japan configuration
+(configs/18km_japan.toml, unchanged: 480×360×36 stretched levels, K = 50):
+the ensemble forecast (split-explicit core, dt 30 s, 10 acoustic substeps,
+2 steps) and the LETKF analysis (the synthetic conventional network of
+~24k obs):
 
-  1. device   — the card, and nvidia-smi's name and power limit
-  2. build    — nvcc build of the kernel (seconds, ptxas report)
-  3. random   — kernel vs invsqrt_ns_plain on B = 4096 random LETKF-shaped
-                Grams at K = 20, 50, 100 and cond 1e2-1e4, with C = s·I rows
-  4. slice    — restart generated on the card → state_trans →
-                build_obs_context → analyze → state_trans_inv, with timer
-                sections, chunk size, peak memory and kernel launches
-  5. real     — kernel vs invsqrt_ns_plain on the Gram matrices of one
-                level chunk of phase 4
-  6. small    — the analysis of a coarsened configuration on the card
-                against the same analysis on the CPU
+  1. device         — the card, and nvidia-smi's name and power limit
+  2. build          — nvcc builds of the three kernels, all started
+                      together (seconds, ptxas reports)
+  3. random         — invsqrt_ns kernel vs plain on B = 4096 random
+                      LETKF-shaped Grams at K = 20, 50, 100, cond 1e2-1e4
+  4. tendency       — dyn_tendency kernel vs plain on random states at
+                      480×360×36, batch 4, uniform and 18-km metrics,
+                      divdmp 0 and 0.05
+  5. stencil        — adv_ud3 kernel vs plain on all 6 tracers of the same
+                      states, kdiff4 0 and 1e-3
+  6. forecast       — synthetic restart ensemble made on the card →
+                      make_driver → CycleDriver.forecast (2 steps), with
+                      timer sections, member batch, peak memory, kernel
+                      launches, finiteness and mass conservation
+  7. forecast_real  — both stencil kernels vs plain on the operands of one
+                      launch of phase 6 (the main path's shapes)
+  8. forecast_small — the coarsened forecast on the card against the CPU
+  9. slice          — restart generated on the card → state_trans →
+                      build_obs_context → analyze → state_trans_inv, with
+                      timer sections, chunk size, peak memory and launches
+ 10. real           — invsqrt_ns kernel vs plain on the Gram matrices of
+                      one level chunk of phase 9
+ 11. small          — the coarsened analysis on the card against the CPU
 
 Each phase prints one JSON line; any failed check raises, so the script
 exits non-zero. Kernel and plain versions are timed with CUDA events, in
-turns (plain, kernel, kernel, plain), after a warm-up. The last line is
-{"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
-no result.
+turns (plain, kernel, kernel, plain), after a warm-up. The line before the
+last lists every kernel (route, source, the TPU kernel it replaces, its
+launches on the main path, its error and time against the plain version);
+the last line is {"ok": true, "device": {...}}. Without a CUDA device it
+exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -48,6 +64,20 @@ RANDOM_B = 4096
 # cond 1e3 and 1e-3 at cond 1e4.
 TOL_RANDOM = {1e2: 1e-4, 1e3: 1e-4, 1e4: 1e-3}
 TOL_REAL = 1e-4
+# Stencil kernels vs plain, per field relative to max|plain|: the bounds the
+# reference holds its Pallas kernels to against its XLA path
+# (tests/test_pallas_tendency.py:53, tests/test_pallas_stencil.py:43).
+TOL_TENDENCY = 2e-5
+TOL_STENCIL = 1e-5
+STENCIL_BATCH = 4
+FCST_STEPS = 2
+FCST_U0 = 10.0
+KERNELS = ("invsqrt_ns", "dyn_tendency", "adv_ud3")
+REPLACES = {
+    "invsqrt_ns": "scale_letkf_tpu/ops/invsqrt.py:183",
+    "dyn_tendency": "scale_letkf_tpu/ops/pallas_tendency.py:257",
+    "adv_ud3": "scale_letkf_tpu/ops/pallas_stencil.py:111",
+}
 
 
 def emit(obj) -> None:
@@ -127,13 +157,14 @@ def phase_device():
 def phase_build():
     from scale_letkf_torch.utils import kernels
     t0 = time.perf_counter()
-    kernels.load("invsqrt_ns")
-    log = kernels.BUILD_LOG["invsqrt_ns"]
-    ptxas = [ln.strip() for ln in log["ptxas"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "kernel": "invsqrt_ns",
-          "seconds": time.perf_counter() - t0, "nvcc_seconds": log["seconds"],
-          "ptxas": ptxas})
+    kernels.build_all(KERNELS)
+    wall = time.perf_counter() - t0
+    for name in KERNELS:
+        log = kernels.BUILD_LOG[name]
+        ptxas = [ln.strip() for ln in log["ptxas"].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit({"phase": "build", "kernel": name, "seconds": wall,
+              "nvcc_seconds": log["seconds"], "ptxas": ptxas})
 
 
 def phase_random(device):
@@ -185,7 +216,7 @@ def phase_slice(device, capture):
     from scale_letkf_torch.utils import kernels
     from scale_letkf_torch.utils.timing import Timer
 
-    cfg, grid, dom = load_config_and_grid(str(CONFIG))
+    cfg, grid, _, _ = load_config_and_grid(str(CONFIG))
     K = cfg.ensemble.member
     nz, ny, nx = grid.nz, grid.ny, grid.nx
     timer = Timer(device)
@@ -292,6 +323,246 @@ def phase_small(device):
         raise AssertionError(f"GPU analysis disagrees with the CPU one: {res}")
 
 
+def timed_turns(kernel, plain, reps: int = 5) -> dict:
+    """Kernel and plain version timed in turns (plain, kernel, kernel,
+    plain) with CUDA events, each called once first as a warm-up."""
+    kernel()
+    plain()
+    p1 = cuda_ms(plain, reps)
+    k1 = cuda_ms(kernel, reps)
+    k2 = cuda_ms(kernel, reps)
+    p2 = cuda_ms(plain, reps)
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
+
+
+def field_errors(out, ref, names) -> dict:
+    """Per field: max|Δ| and max|Δ| / max|plain|."""
+    res = {}
+    for name, a, b in zip(names, out, ref):
+        err = float((a - b).abs().max())
+        res[name] = {"max_abs_err": err,
+                     "rel_err": err / max(float(b.abs().max()), 1e-30)}
+    return res
+
+
+def random_dyn_state(gen, B: int, nz: int, ny: int, nx: int, device):
+    """tests/test_pallas_tendency.py's random states on the card: a
+    hydrostatic column with 1% noise, winds ≈ 5 m/s, ρw zero at the rigid
+    faces, tracers ≈ 1e-3 of ρ. Returns (DycoreState, rho_ref, p_ref)."""
+    from scale_letkf_torch.model.dycore import (
+        DycoreState, hydrostatic_reference)
+    theta = 300.0 + 10.0 * np.linspace(0, 1, nz)
+    rho1d, p1d = hydrostatic_reference(theta, 500.0)
+
+    def col(a):
+        return torch.as_tensor(np.asarray(a, np.float32)[:, None, None],
+                               device=device)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    rho = col(rho1d) * (1.0 + 0.01 * randn(B, nz, ny, nx))
+    rhow = 0.5 * randn(B, nz + 1, ny, nx)
+    rhow[:, 0] = 0.0
+    rhow[:, -1] = 0.0
+    s = DycoreState(
+        rho=rho, rhou=5.0 * randn(B, nz, ny, nx) * rho,
+        rhov=5.0 * randn(B, nz, ny, nx) * rho, rhow=rhow,
+        rhot=rho * col(theta) * (1.0 + 0.01 * randn(B, nz, ny, nx)),
+        rhoq=(1e-3 * randn(B, 6, nz, ny, nx)).abs_() * rho[:, None])
+    return s, col(rho1d), col(p1d)
+
+
+def stencil_operands(s, rho_ref, p_ref, vg, dycfg, divdmp=None):
+    """The two kernels' operands as dycore.tendencies forms them: p′ in plain
+    torch, the metric per level."""
+    from scale_letkf_torch.model.dycore import mixing_ratios, moist_pressure
+    p_pert = moist_pressure(s.rhot, mixing_ratios(s)) - p_ref
+    dyn = (s.rho, s.rhou, s.rhov, s.rhow, s.rhot, p_pert, rho_ref, vg.dzc,
+           vg.dzf, dycfg.dx, dycfg.dy, dycfg.kdiff4,
+           dycfg.divdmp if divdmp is None else divdmp, dycfg.dt)
+    adv = (s.rhoq, s.rho, s.rhou, s.rhov, s.rhow, vg.dzc, dycfg.dx,
+           dycfg.dy, dycfg.kdiff4)
+    return dyn, adv
+
+
+def check_dyn(args, tol, label) -> dict:
+    """dyn_tendency kernel vs plain on one operand tuple, timed."""
+    from scale_letkf_torch.ops.tendency import (
+        dyn_tendencies_kernel, dyn_tendencies_plain)
+    out = dyn_tendencies_kernel(*args)
+    ref = dyn_tendencies_plain(*args)
+    torch.cuda.synchronize()
+    errs = field_errors(out, ref, ("rho", "rhou", "rhov", "rhow", "rhot"))
+    finite = all(bool(torch.isfinite(o).all()) for o in out)
+    del out, ref
+    row = {"fields": errs, "finite": finite, "tol": tol,
+           "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+           "rel_err": max(e["rel_err"] for e in errs.values()),
+           **timed_turns(lambda: dyn_tendencies_kernel(*args),
+                         lambda: dyn_tendencies_plain(*args))}
+    if not (finite and row["rel_err"] <= tol):
+        raise AssertionError(f"dyn_tendency kernel disagrees with its plain "
+                             f"version ({label}): {row}")
+    return row
+
+
+def check_adv(args, tol, label) -> dict:
+    """adv_ud3 kernel vs plain on one operand tuple, timed."""
+    from scale_letkf_torch.ops.stencil import (
+        adv_flux_divergence_kernel, adv_flux_divergence_plain)
+    out = adv_flux_divergence_kernel(*args)
+    ref = adv_flux_divergence_plain(*args)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    row = {"max_abs_err": err, "tol": tol,
+           "rel_err": err / max(float(ref.abs().max()), 1e-30),
+           "finite": bool(torch.isfinite(out).all())}
+    del out, ref
+    row.update(timed_turns(lambda: adv_flux_divergence_kernel(*args),
+                           lambda: adv_flux_divergence_plain(*args)))
+    if not (row["finite"] and row["rel_err"] <= tol):
+        raise AssertionError(f"adv_ud3 kernel disagrees with its plain "
+                             f"version ({label}): {row}")
+    return row
+
+
+def metrics_18km(device):
+    """(dycfg, {'uniform': VGrid, 'stretched': VGrid}, grid) of the 18-km
+    configuration: its own stretched levels, and uniform levels of its
+    lowest thickness."""
+    from scale_letkf_torch.cli.main import load_config_and_grid
+    from scale_letkf_torch.model.dycore import make_vgrid, uniform_vgrid
+    _, grid, dycfg, _ = load_config_and_grid(str(CONFIG))
+    return dycfg, {"uniform": uniform_vgrid(grid.nz, dycfg.dz, device),
+                   "stretched": make_vgrid(grid.cz, grid.fz, device)}, grid
+
+
+def phase_tendency(device):
+    dycfg, vgs, grid = metrics_18km(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    s, rho_ref, p_ref = random_dyn_state(gen, STENCIL_BATCH, grid.nz,
+                                         grid.ny, grid.nx, device)
+    for metric, vg in vgs.items():
+        for divdmp in (0.0, 0.05):
+            dyn, _ = stencil_operands(s, rho_ref, p_ref, vg, dycfg, divdmp)
+            row = check_dyn(dyn, TOL_TENDENCY, f"{metric}, divdmp {divdmp}")
+            emit({"phase": "tendency", "metric": metric, "divdmp": divdmp,
+                  "batch": STENCIL_BATCH,
+                  "grid": f"{grid.nx}x{grid.ny}x{grid.nz}", **row})
+    return s
+
+
+def phase_stencil(device, s):
+    dycfg, vgs, grid = metrics_18km(device)
+    for metric, vg in vgs.items():
+        for kdiff4 in (0.0, dycfg.kdiff4):
+            args = (s.rhoq, s.rho, s.rhou, s.rhov, s.rhow, vg.dzc, dycfg.dx,
+                    dycfg.dy, kdiff4)
+            row = check_adv(args, TOL_STENCIL, f"{metric}, kdiff4 {kdiff4}")
+            emit({"phase": "stencil", "metric": metric, "kdiff4": kdiff4,
+                  "batch": STENCIL_BATCH, "tracers": int(s.rhoq.shape[1]),
+                  "grid": f"{grid.nx}x{grid.ny}x{grid.nz}", **row})
+
+
+def phase_forecast(device):
+    """The forecast slice at full size. Returns the phase's row and a copy of
+    the first member batch of the forecast (the main path's kernel shapes,
+    with the flow of two steps) for phase forecast_real."""
+    from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
+    from scale_letkf_torch.synthetic import synthetic_ens_dycore_device
+    from scale_letkf_torch.utils import kernels
+
+    cfg, grid, dycfg, dom = load_config_and_grid(str(CONFIG))
+    K = cfg.ensemble.member
+    nz, ny, nx = grid.nz, grid.ny, grid.nx
+    t0 = time.perf_counter()
+    ens, _, _ = synthetic_ens_dycore_device(SEED, K, grid, dom, device,
+                                            u0=FCST_U0)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    driver = make_driver(cfg, grid, dycfg, dom, device)
+    dzc = torch.as_tensor(np.diff(grid.fz), dtype=torch.float64,
+                          device=device)[:, None, None]
+
+    def mass(rho):
+        return sum(float((rho[m].double() * dzc).sum())
+                   for m in range(rho.shape[0]))
+
+    mass0 = mass(ens.rho)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = driver.forecast(ens, FCST_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in ("dyn_tendency", "adv_ud3")}
+    peak = torch.cuda.max_memory_allocated(device)
+
+    batches = -(-K // driver.batch)
+    expected = 3 * FCST_STEPS * batches
+    finite = all(bool(torch.isfinite(f).all()) for f in out)
+    mass1 = mass(out.rho)
+    mass_rel = abs(mass1 - mass0) / mass0
+    incr = {name: float((a - b).abs().max())
+            for name, a, b in zip(out._fields, out, ens)}
+    fcst_s = driver.timer.records["forecast"]
+    pts = nz * ny * nx
+    res = {"phase": "forecast", "config": CONFIG.name,
+           "grid": f"{nx}x{ny}x{nz}", "members": K, "steps": FCST_STEPS,
+           "core": driver.core, "n_small": driver.n_small, "dt": dycfg.dt,
+           "u0": FCST_U0, "generate_s": generate_s, "wall_s": wall,
+           "forecast_s": fcst_s,
+           "member_steps_per_s": K * FCST_STEPS / fcst_s,
+           "gridpoint_steps_per_s": K * pts * FCST_STEPS / fcst_s,
+           "sections_s": dict(driver.timer.records),
+           "section_counts": dict(driver.timer.counts),
+           "member_batch": driver.batch, "batches": batches,
+           "peak_mem_gb": peak / 2 ** 30, "kernel_launches": launches,
+           "expected_launches": expected, "finite": finite,
+           "mass_rel_change": mass_rel, "max_abs_increment": incr}
+    emit(res)
+    if not finite:
+        raise AssertionError("forecast is not finite")
+    if any(n != expected for n in launches.values()):
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{expected} each")
+    if not incr["rhow"] > 0:
+        raise AssertionError("the forecast's ρw is zero")
+    if not mass_rel <= 1e-5:
+        raise AssertionError(f"mass changed by {mass_rel:.3e} (> 1e-5)")
+    sample = type(out)(*(f[:driver.batch].clone() for f in out))
+    del ens, out
+    return res, (sample, driver.rho_ref, driver.p_ref, driver.vg, dycfg)
+
+
+def phase_forecast_real(sample) -> dict:
+    s, rho_ref, p_ref, vg, dycfg = sample
+    dyn, adv = stencil_operands(s, rho_ref, p_ref, vg, dycfg)
+    rows = {"dyn_tendency": check_dyn(dyn, TOL_TENDENCY, "forecast batch"),
+            "adv_ud3": check_adv(adv, TOL_STENCIL, "forecast batch")}
+    for name, row in rows.items():
+        emit({"phase": "forecast_real", "kernel": name,
+              "batch": int(s.rho.shape[0]), **row})
+    return rows
+
+
+def phase_forecast_small(device):
+    """The coarsened 18-km forecast on the card (kernel path) against the
+    same forecast on the CPU (scale_letkf_torch/gpu_check.py)."""
+    from scale_letkf_torch.gpu_check import coarse_forecast_vs_cpu
+    res = coarse_forecast_vs_cpu(device, str(CONFIG), SEED)
+    emit({"phase": "forecast_small", **res})
+    cuda = res["kernel_launches"]["cuda"]
+    expected = 3 * res["steps"]
+    if not (res["finite"] and all(n == expected for n in cuda.values())
+            and all(e <= 1 for e in res["max_err_over_tol"].values())):
+        raise AssertionError(f"GPU forecast disagrees with the CPU one: {res}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the GPU smoke run cannot run here",
@@ -300,23 +571,38 @@ def main() -> int:
     from scale_letkf_torch.utils.device import require_cuda
     device = require_cuda()
     # run as a caller that chose TF32 for float32 products: the analysis and
-    # the kernel's plain version must pin full FP32 themselves, or phases 3,
-    # 5 and 6 see TF32-sized errors
+    # the kernels' plain versions must pin full FP32 themselves, or the
+    # phases that compare them see TF32-sized errors
     torch.backends.cuda.matmul.fp32_precision = "tf32"
+    t_start = time.perf_counter()
     phase_device()
     phase_build()
     phase_random(device)
+    s = phase_tendency(device)
+    phase_stencil(device, s)
+    del s
+    fc, sample = phase_forecast(device)
+    rows = phase_forecast_real(sample)
+    del sample
+    for name in ("dyn_tendency", "adv_ud3"):
+        rows[name]["launches"] = fc["kernel_launches"][name]
+    phase_forecast_small(device)
+    torch.cuda.empty_cache()
     capture: dict = {}
     sl = phase_slice(device, capture)
-    real = phase_real(capture)
+    rows["invsqrt_ns"] = phase_real(capture)
+    rows["invsqrt_ns"]["launches"] = sl["kernel_launches"]
     del capture
     phase_small(device)
-    emit({"kernels": [{"name": "invsqrt_ns", "route": "cuda",
-                       "source": "scale_letkf_torch/csrc/invsqrt_ns.cu",
-                       "replaces": "scale_letkf_tpu/ops/invsqrt.py:183",
-                       "launches": sl["kernel_launches"],
-                       "max_abs_err": real["max_abs_err"], "ms": real["ms"],
-                       "plain_ms": real["plain_ms"]}]})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit({"kernels": [{"name": name, "route": "cuda",
+                       "source": f"scale_letkf_torch/csrc/{name}.cu",
+                       "replaces": REPLACES[name],
+                       "launches": rows[name]["launches"],
+                       "max_abs_err": rows[name]["max_abs_err"],
+                       "ms": rows[name]["ms"],
+                       "plain_ms": rows[name]["plain_ms"]}
+                      for name in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,9 +3,11 @@
 The numpy helpers are copies of the reference's full-size bench generators
 (scale_letkf_tpu/bench_fullsize.py _smooth_noise, _synthetic_gues,
 _synthetic_conv_network), so both packages can be fed the same numbers.
-`synthetic_gues_device` builds the same kind of ensemble on a device from a
-seeded torch.Generator: a full-size ensemble (13.7 GB at 18 km, K = 50)
-never crosses the host link and skips hundreds of host smoothing passes.
+`synthetic_gues_device` and `synthetic_ens_dycore_device` build the same
+kinds of ensemble (analysis variables; the forecast's staggered restart
+state) on a device from a seeded torch.Generator: a full-size ensemble
+(13.7 GB at 18 km, K = 50) never crosses the host link and skips hundreds
+of host smoothing passes.
 """
 
 from __future__ import annotations
@@ -13,10 +15,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from scale_letkf_tpu.constants import RD, GRAV
+from scale_letkf_tpu.constants import CVDRY, GRAV, PRE00, RD
 from scale_letkf_tpu.obs.types import Observations, ID_U, ID_V, ID_T, ID_Q, ID_PS
 
-from scale_letkf_torch.state import NV3D, IA_U, IA_V, IA_W, IA_T, IA_P, IA_Q0
+from scale_letkf_torch.model.dycore import DycoreState, hydrostatic_reference
+from scale_letkf_torch.model.ideal import standard_theta_profile
+from scale_letkf_torch.state import (
+    NQ, NV3D, IA_U, IA_V, IA_W, IA_T, IA_P, IA_Q0,
+)
 
 _BASE = {IA_U: 5.0, IA_V: 0.0, IA_W: 0.0}
 _AMP = {IA_U: 1.0, IA_V: 1.0, IA_W: 0.1, IA_T: 0.5, IA_P: 50.0}
@@ -85,6 +91,58 @@ def synthetic_gues_device(seed: int, K: int, nz: int, ny: int, nx: int,
         if v == IA_Q0:
             field.abs_().add_(1e-3)
     return out
+
+
+def synthetic_ens_dycore_device(seed: int, K: int, grid, dom: dict,
+                                device: torch.device, u0: float = 0.0):
+    """A K-member restart ensemble of the dynamical core on `device`: the
+    reference's bench_fullsize._synthetic_ens_dycore construction from a
+    torch.Generator seeded with `seed` — the hydrostatic base column of the
+    standard θ profile, ρθ perturbed by 0.5 K·(1-2-1 smoothed noise)
+    tapered to zero over 8 cells at the lateral edges, and the [domain]
+    qv profile (qv_surface, qv_scale_height) in ρq[0]. u0 adds a uniform
+    wind, ρu = ρ·u0, so the advection terms are not zero (a uniform wind
+    over flat periodic terrain is a steady solution). Returns (DycoreState
+    with K leading, rho_ref, p_ref), the columns (nz, 1, 1)."""
+    nz, ny, nx = grid.nz, grid.ny, grid.nx
+    cz = np.asarray(grid.cz)
+    dz0 = float(np.asarray(grid.fz)[1] - np.asarray(grid.fz)[0])
+    theta = standard_theta_profile(nz, dz0, cz=cz)
+    rho1d, _ = hydrostatic_reference(theta, dz0, cz=cz)
+    theta, rho1d = theta.astype(np.float32), rho1d.astype(np.float32)
+    qv0 = dom.get("qv_surface", 0.0)
+    qv = (qv0 * np.exp(-cz / dom.get("qv_scale_height", 3000.0))
+          if qv0 > 0 else np.zeros(nz)).astype(np.float32)
+    p_ref = PRE00 * (rho1d * theta * RD / PRE00) ** ((RD + CVDRY) / CVDRY)
+    tx = np.minimum(np.arange(nx), nx - 1 - np.arange(nx))
+    ty = np.minimum(np.arange(ny), ny - 1 - np.arange(ny))
+    taper = (np.minimum(1.0, tx / 8.0)[None, :]
+             * np.minimum(1.0, ty / 8.0)[:, None]).astype(np.float32)
+
+    def col(prof):
+        return torch.as_tensor(np.asarray(prof, np.float32)[:, None, None],
+                               device=device)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    shape = (K, nz, ny, nx)
+    rho = col(rho1d).expand(shape).contiguous()
+    noise = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device)
+    for dim in (-1, -2):
+        noise = 0.5 * noise + 0.25 * (torch.roll(noise, 1, dim)
+                                      + torch.roll(noise, -1, dim))
+    noise.mul_(torch.as_tensor(taper, device=device)).mul_(0.5)   # 0.5 K
+    rhot = noise.mul_(rho).add_(col(rho1d * theta))
+    rhoq = torch.zeros((K, NQ, nz, ny, nx), dtype=torch.float32,
+                       device=device)
+    rhoq[:, 0] = col(qv * rho1d)
+    ens = DycoreState(
+        rho=rho, rhou=rho * u0, rhov=torch.zeros_like(rho),
+        rhow=torch.zeros((K, nz + 1, ny, nx), dtype=torch.float32,
+                         device=device),
+        rhot=rhot, rhoq=rhoq)
+    return ens, col(rho1d), col(p_ref)
 
 
 def synthetic_conv_network(cfg, grid, rng: np.random.Generator,

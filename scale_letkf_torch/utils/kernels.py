@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one file `scale_letkf_torch/csrc/<name>.cu` with a plain C
-entry point. At first use it is compiled by nvcc for sm_90a into a shared
-library under `build/kernels/` at the repository root (gitignored), named
-by a hash of its source so an edited source is rebuilt, and loaded with
+entry point (it may include the shared headers `csrc/*.cuh`). At first use
+it is compiled by nvcc for sm_90a into a shared library under
+`build/kernels/` at the repository root (gitignored), named by a hash of
+its source and the headers so an edited source is rebuilt, and loaded with
 ctypes. A missing nvcc or a failed build raises: there is no fallback.
 
 LAUNCHES counts, per kernel, the launches its wrapper made; callers that
@@ -27,11 +28,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # argtypes of each kernel's C entry point (pointers and the stream as
-# c_void_p, so ctypes passes them whole and not cut to 32 bits)
+# c_void_p, so ctypes passes them whole and not cut to 32 bits; floats as
+# c_float, not the double ctypes would pass for a Python float; the sizes
+# of the stencil grids as c_int64)
 _SIGNATURES = {
     "invsqrt_ns": ("invsqrt_ns_launch",
                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p]),
+    # rho, rhou, rhov, rhow, rhot, p_pert, rho_ref, dzc, dzf, 5 outputs;
+    # B, nz, ny, nx; dx, dy, kdiff4, alpha_h, divdmp, dt, grav; stream
+    "dyn_tendency": ("dyn_tendency_launch",
+                     [ctypes.c_void_p] * 14 + [ctypes.c_int64] * 4
+                     + [ctypes.c_float] * 7 + [ctypes.c_void_p]),
+    # q, rho, fx, fy, fw, dzc, out; B, nq, nz, ny, nx; dx, dy, kdiff4; stream
+    "adv_ud3": ("adv_ud3_launch",
+                [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 5
+                + [ctypes.c_float] * 3 + [ctypes.c_void_p]),
 }
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}
@@ -54,30 +66,52 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): cannot build the CUDA kernels")
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu into build/kernels (unless already built from
-    the same source) and return the library's path. Records the seconds
-    taken and nvcc's ptxas report (registers, shared memory, spills) in
+def _library(name: str) -> Path:
+    """Where csrc/<name>.cu, built from its current source and headers,
+    lives."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> dict[str, Path]:
+    """Compile each csrc/<name>.cu into build/kernels (unless already built
+    from the same source), one nvcc process per source, all started
+    together, and return the libraries' paths. Records each build's seconds
+    and nvcc's ptxas report (registers, shared memory, spills) in
     BUILD_LOG[name]."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{name}_{digest}.so"
-    if so.exists():
-        BUILD_LOG.setdefault(name, {"seconds": 0.0, "cached": True,
-                                    "ptxas": ""})
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    out, running = {}, {}
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {src.name} "
-                           f"(exit {res.returncode}):\n{res.stderr}")
-    tmp.replace(so)
-    BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "cached": False,
-                       "ptxas": res.stderr}
-    return so
+    for name in names:
+        so = out[name] = _library(name)
+        if so.exists():
+            BUILD_LOG.setdefault(name, {"seconds": 0.0, "cached": True,
+                                        "ptxas": ""})
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        running[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in running.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {name}.cu "
+                          f"(exit {proc.returncode}):\n{err}")
+            continue
+        tmp.replace(out[name])
+        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
+                           "cached": False, "ptxas": err}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+def build(name: str) -> Path:
+    """build_all for one kernel."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

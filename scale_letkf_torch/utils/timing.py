@@ -39,6 +39,15 @@ class Timer:
             self.counts[full] = self.counts.get(full, 0) + 1
             self._stack.pop()
 
+    def report(self) -> str:
+        """Sections as an indented table: seconds and calls."""
+        lines = ["== timing =="]
+        for k in sorted(self.records):
+            depth = k.count("/")
+            lines.append(f"{'  ' * depth}{k.split('/')[-1]:<32s} "
+                         f"{self.records[k]:10.3f} s  x{self.counts[k]}")
+        return "\n".join(lines)
+
 
 @contextmanager
 def maybe_section(timer: Timer | None, name: str):

@@ -72,7 +72,7 @@ CASES = {"rtpp": None, "rtps_adaptive": _rtps_adaptive,
 def _configs(case):
     over = {"nx": 24, "ny": 20, "nz": 4}
     cfg_r, grid_r, _, _ = ref_load(CONFIG, over)
-    cfg, grid, _ = load_config_and_grid(CONFIG, over)
+    cfg, grid, _, _ = load_config_and_grid(CONFIG, over)
     for c in (cfg_r, cfg):
         c.ensemble.member = K
         c.letkf.eigh_impl = "ns_pallas"

@@ -5,18 +5,24 @@ a GPU machine without jax, with the jax-configuring conftest left out:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-The CUDA kernel is held against its plain PyTorch version on the card, and
-the analysis on the card against the same analysis on the CPU (which the
-parity tests hold against the reference package).
+The CUDA kernels are held against their plain PyTorch versions on the
+card, and the analysis and the forecast on the card against the same runs
+on the CPU (which the parity tests hold against the reference package).
+Stencil bounds per field, relative to max|plain|: 2e-5 for the whole
+tendency, 1e-5 for the tracers (the reference's bounds for its Pallas
+kernels).
 """
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from scale_letkf_torch.ops import invsqrt
+from scale_letkf_torch.model import dycore
+from scale_letkf_torch.ops import invsqrt, stencil, tendency
+from scale_letkf_torch.utils import kernels
 
 CONFIG = str(Path(__file__).resolve().parents[1] / "configs" / "18km_japan.toml")
 CASES = [(K, cond) for K in (20, 50, 100) for cond in (1e2, 1e3, 1e4)]
@@ -25,7 +31,7 @@ CASES = [(K, cond) for K in (20, 50, 100) for cond in (1e2, 1e3, 1e4)]
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the hand-written kernel runs only there")
+        pytest.skip("needs a CUDA GPU: the hand-written kernels run only there")
     from scale_letkf_torch.utils.device import require_cuda
     return require_cuda()
 
@@ -77,5 +83,90 @@ def test_cuda_analysis_matches_cpu(cuda_device):
     from scale_letkf_torch.gpu_check import coarse_analysis_vs_cpu
     res = coarse_analysis_vs_cpu(cuda_device, CONFIG)
     assert res["kernel_launches"] == {"cuda": res["levels"], "cpu": 0}
+    assert res["finite"]
+    assert all(e <= 1 for e in res["max_err_over_tol"].values()), res
+
+
+def _dyn_state(device, B=2, nz=12, ny=40, nx=64, seed=0):
+    """Random states of the tests/test_pallas_tendency.py construction
+    (numpy, seeded), with a stretched metric and p′ from the moist
+    pressure. Returns (state, rho_ref, p_pert, vg)."""
+    rng = np.random.default_rng(seed)
+    theta = 300.0 + 10.0 * np.linspace(0, 1, nz)
+    rho1d, p1d = dycore.hydrostatic_reference(theta, 500.0)
+    shape = (B, nz, ny, nx)
+    rho = rho1d[:, None, None] * (1.0 + 0.01 * rng.standard_normal(shape))
+    rhow = 0.5 * rng.standard_normal((B, nz + 1, ny, nx))
+    rhow[:, 0] = rhow[:, -1] = 0.0
+    fields = (rho, 5.0 * rng.standard_normal(shape) * rho,
+              5.0 * rng.standard_normal(shape) * rho, rhow,
+              rho * theta[:, None, None] * (1 + 0.01 * rng.standard_normal(shape)),
+              np.abs(1e-3 * rng.standard_normal((B, 6) + shape[1:]))
+              * rho[:, None])
+    s = dycore.DycoreState(*(torch.as_tensor(f, dtype=torch.float32,
+                                             device=device) for f in fields))
+    fz = np.concatenate([[0.0], np.cumsum(300.0 * 1.04 ** np.arange(nz))])
+    vg = dycore.make_vgrid(0.5 * (fz[1:] + fz[:-1]), fz, device)
+    col = torch.as_tensor(rho1d[:, None, None], dtype=torch.float32,
+                          device=device)
+    p_ref = torch.as_tensor(p1d[:, None, None], dtype=torch.float32,
+                            device=device)
+    p_pert = dycore.moist_pressure(s.rhot, dycore.mixing_ratios(s)) - p_ref
+    return s, col, p_pert, vg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("divdmp", [0.0, 0.05])
+def test_cuda_dyn_tendency_matches_plain(cuda_device, divdmp):
+    s, rho_ref, p_pert, vg = _dyn_state(cuda_device)
+    args = (s.rho, s.rhou, s.rhov, s.rhow, s.rhot, p_pert, rho_ref, vg.dzc,
+            vg.dzf, 18000.0, 18000.0, 1e-3, divdmp, 30.0)
+    out = tendency.dyn_tendencies_kernel(*args)
+    ref = tendency.dyn_tendencies_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert float((a - b).abs().max()) <= 2e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kdiff4", [0.0, 1e-3])
+def test_cuda_adv_ud3_matches_plain(cuda_device, kdiff4):
+    s, _, _, vg = _dyn_state(cuda_device, seed=1)
+    args = (s.rhoq, s.rho, s.rhou, s.rhov, s.rhow, vg.dzc, 18000.0,
+            18000.0, kdiff4)
+    out = stencil.adv_flux_divergence_kernel(*args)
+    ref = stencil.adv_flux_divergence_plain(*args)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_tendencies_launch_both_kernels(cuda_device):
+    """dycore.tendencies on CUDA tensors goes through both kernels, once
+    each, batched or single-member; open lateral boundaries raise."""
+    s, rho_ref, _, vg = _dyn_state(cuda_device, seed=2)
+    p_ref = torch.zeros_like(rho_ref)
+    cfg = dycore.DycoreConfig(dx=18000.0, dy=18000.0, dz=300.0, dt=30.0)
+    for state in (s, dycore.DycoreState(*(f[0] for f in s))):
+        before = dict(kernels.LAUNCHES)
+        out = dycore.tendencies(state, cfg, rho_ref, p_ref, vg)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["dyn_tendency"] == before["dyn_tendency"] + 1
+        assert kernels.LAUNCHES["adv_ud3"] == before["adv_ud3"] + 1
+        assert all(a.shape == b.shape for a, b in zip(out, state))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        dycore.tendencies(s, dataclasses.replace(cfg, lateral="open"),
+                          rho_ref, p_ref, vg)
+
+
+@pytest.mark.cuda
+def test_cuda_forecast_matches_cpu(cuda_device):
+    """The coarsened 18-km forecast (K = 4, 3 steps) on the card against
+    the CPU, per field within 1e-4·max|increment| plus twice the CPU run's
+    own rounding floor (scale_letkf_torch/gpu_check.py)."""
+    from scale_letkf_torch.gpu_check import coarse_forecast_vs_cpu
+    res = coarse_forecast_vs_cpu(cuda_device, CONFIG)
+    assert res["kernel_launches"]["cuda"] == {
+        "dyn_tendency": 3 * res["steps"], "adv_ud3": 3 * res["steps"]}
     assert res["finite"]
     assert all(e <= 1 for e in res["max_err_over_tol"].values()), res

@@ -54,7 +54,7 @@ def test_conventional_context_matches_reference(full_size):
     host-side context is small even there."""
     over = None if full_size else {"nx": 24, "ny": 20, "nz": 4}
     cfg_r, grid_r, _, _ = ref_load(CONFIG, over)
-    cfg, grid, _ = load_config_and_grid(CONFIG, over)
+    cfg, grid, _, _ = load_config_and_grid(CONFIG, over)
     K = 50 if full_size else 20
     kw = {} if full_size else dict(n_sonde=30, n_ps=60)
     obs = _synthetic_conv_network(cfg_r, grid_r, np.random.default_rng(0),

@@ -18,8 +18,12 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "scale_letkf_torch.da.letkf" in mods
-    assert "scale_letkf_torch.ops.invsqrt" in mods
+    for m in ("da.letkf", "ops.invsqrt", "model.dycore", "model.dycore_si",
+              "model.ideal", "ops.finite_diff", "ops.tendency", "ops.stencil",
+              "cycle",
+              "io.checkpoint", "io.convert", "cli.main", "synthetic",
+              "gpu_check", "__main__"):
+        assert f"scale_letkf_torch.{m}" in mods, m
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -39,3 +43,15 @@ def test_no_jax_import_lines():
         for line in path.read_text().splitlines():
             s = line.strip()
             assert not s.startswith(("import jax", "from jax")), (path, line)
+
+
+def test_fcst_verb_runs_without_jax():
+    """`python -m scale_letkf_torch fcst --help` with jax unimportable."""
+    code = ("import sys, runpy\n"
+            "sys.modules['jax'] = None\n"
+            "sys.argv = ['scale_letkf_torch', 'fcst', '--help']\n"
+            "runpy.run_module('scale_letkf_torch', run_name='__main__')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "--steps" in res.stdout and "--device" in res.stdout

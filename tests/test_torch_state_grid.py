@@ -1,6 +1,7 @@
 """PyTorch port of grid.py, state.py and cli/main.py's loader against the
 reference package (float32, rtol 1e-6)."""
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -14,6 +15,7 @@ from scale_letkf_tpu.cli.main import load_config_and_grid as ref_load
 from scale_letkf_torch import grid as port_grid
 from scale_letkf_torch import state as port_state
 from scale_letkf_torch.cli.main import load_config_and_grid
+from scale_letkf_torch.io.convert import dycore_config_from_dict
 from scale_letkf_torch.synthetic import synthetic_gues
 
 torch.set_num_threads(1)
@@ -64,9 +66,10 @@ def test_grid_geometry_matches_reference(kind, stretched):
 def test_load_config_and_grid_matches_reference():
     path = str(CONFIGS / "18km_japan.toml")
     over = {"nx": 24, "ny": 20, "nz": 4}
-    cfg_r, g_r, _, dom_r = ref_load(path, over)
-    cfg, g, dom = load_config_and_grid(path, over)
+    cfg_r, g_r, dycfg_r, dom_r = ref_load(path, over)
+    cfg, g, dycfg, dom = load_config_and_grid(path, over)
     assert cfg == cfg_r and dom == dom_r
+    assert dycfg == dycore_config_from_dict(dataclasses.asdict(dycfg_r))
     assert (g.nx, g.ny, g.nz, g.dx, g.dy, g.proj.kind) == \
         (g_r.nx, g_r.ny, g_r.nz, g_r.dx, g_r.dy, g_r.proj.kind)
     np.testing.assert_array_equal(g.fz, g_r.fz)
