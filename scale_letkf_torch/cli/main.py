@@ -18,8 +18,7 @@ import tomllib
 import numpy as np
 import torch
 
-from scale_letkf_tpu.config import Config
-
+from scale_letkf_torch.config import Config
 from scale_letkf_torch.grid import Grid, Projection
 from scale_letkf_torch.model.dycore import DycoreConfig
 

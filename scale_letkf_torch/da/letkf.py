@@ -29,8 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from scale_letkf_tpu.config import Config
-
+from scale_letkf_torch.config import Config
 from scale_letkf_torch.da.letkf_obs import ObsContext
 from scale_letkf_torch.grid import Grid
 from scale_letkf_torch.io.convert import DeviceObsContext, obs_context_to_device

@@ -17,14 +17,13 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from scale_letkf_tpu.config import Config
-from scale_letkf_tpu.obs.types import (
+from scale_letkf_torch.config import Config
+from scale_letkf_torch.obs.types import (
     Observations, ID_RADAR_REF, ID_RADAR_REF_ZERO, ID_RADAR_VR, ID_RAIN,
     ID_PS, ID_H08IR, QC_GOOD, QC_GROSS_ERR, QC_OTYPE, QC_OBS_BAD,
     QC_REF_MEM, uid_obs, uid_obs_varlocal, TYP_PHARAD, ELEM_UID,
     OBTYPE_NAMES, OBELM_NAMES,
 )
-
 from scale_letkf_torch.grid import Grid
 from scale_letkf_torch.ops.localization import DIST_ZERO_FAC
 from scale_letkf_torch.ops.obs_select import BucketGrid, build_buckets

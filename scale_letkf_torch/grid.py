@@ -14,7 +14,7 @@ from functools import cached_property
 import numpy as np
 import torch
 
-from scale_letkf_tpu.constants import RE, D2R, R2D
+from scale_letkf_torch.constants import RE, D2R, R2D
 
 
 @dataclass(frozen=True)

@@ -29,8 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from scale_letkf_tpu.constants import RD, CVDRY, PRE00, GRAV
-
+from scale_letkf_torch.constants import RD, CVDRY, PRE00, GRAV
 from scale_letkf_torch.ops.finite_diff import roll_x, roll_y, zsl
 from scale_letkf_torch.ops.stencil import adv_flux_divergence
 from scale_letkf_torch.ops.tendency import dyn_tendencies

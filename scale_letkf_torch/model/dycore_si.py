@@ -21,8 +21,7 @@ from dataclasses import dataclass
 
 import torch
 
-from scale_letkf_tpu.constants import RD, CVDRY, GRAV
-
+from scale_letkf_torch.constants import RD, CVDRY, GRAV
 from scale_letkf_torch.model.dycore import (
     DycoreConfig, DycoreState, VGrid, metric, mixing_ratios, moist_pressure,
     rayleigh_sponge, roll_x, roll_y, tendencies, zsl,

@@ -14,8 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from scale_letkf_tpu.constants import RD, CVDRY, PRE00
-
+from scale_letkf_torch.constants import RD, CVDRY, PRE00
 from scale_letkf_torch.model.dycore import DycoreState, hydrostatic_reference
 from scale_letkf_torch.state import NQ
 

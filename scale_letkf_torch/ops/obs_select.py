@@ -48,7 +48,7 @@ def bucket_sort_backend() -> str:
     """Which counting sort build_buckets runs: 'native' (the C++ library,
     built at first use) or 'numpy' (its fallback when no toolchain is
     available)."""
-    from scale_letkf_tpu.utils import native
+    from scale_letkf_torch.utils import native
     return "native" if native.load() is not None else "numpy"
 
 
@@ -111,7 +111,7 @@ def build_buckets(
                         index_map[np.clip(table, 0, None)], -1).astype(
             np.int32)
 
-    from scale_letkf_tpu.utils import native
+    from scale_letkf_torch.utils import native
     lib = native.load()
     if lib is not None and len(x):
         import ctypes

@@ -21,8 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from scale_letkf_tpu.constants import GRAV
-
+from scale_letkf_torch.constants import GRAV
 from scale_letkf_torch.ops.finite_diff import hyperdiff4, roll_x, roll_y, zsl
 from scale_letkf_torch.ops.stencil import (
     _check_cuda_f32, require_periodic, scalar_tendency,

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from scale_letkf_tpu.constants import RD, RV, CVDRY, PRE00, TRACER_CV
+from scale_letkf_torch.constants import RD, RV, CVDRY, PRE00, TRACER_CV
 
 # Restart (prognostic) stacking order: ρ, ρu, ρv, ρw, ρθ, q×6
 IR_RHO, IR_RHOU, IR_RHOV, IR_RHOW, IR_RHOT = 0, 1, 2, 3, 4

@@ -15,9 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from scale_letkf_tpu.constants import CVDRY, GRAV, PRE00, RD
-from scale_letkf_tpu.obs.types import Observations, ID_U, ID_V, ID_T, ID_Q, ID_PS
-
+from scale_letkf_torch.constants import CVDRY, GRAV, PRE00, RD
+from scale_letkf_torch.obs.types import Observations, ID_U, ID_V, ID_T, ID_Q, ID_PS
 from scale_letkf_torch.model.dycore import DycoreState, hydrostatic_reference
 from scale_letkf_torch.model.ideal import standard_theta_profile
 from scale_letkf_torch.state import (

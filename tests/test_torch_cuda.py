@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from scale_letkf_torch import gpu_check
 from scale_letkf_torch.model import dycore
 from scale_letkf_torch.ops import invsqrt, stencil, tendency
 from scale_letkf_torch.utils import kernels
@@ -88,31 +89,12 @@ def test_cuda_analysis_matches_cpu(cuda_device):
 
 
 def _dyn_state(device, B=2, nz=12, ny=40, nx=64, seed=0):
-    """Random states of the tests/test_pallas_tendency.py construction
-    (numpy, seeded), with a stretched metric and p′ from the moist
-    pressure. Returns (state, rho_ref, p_pert, vg)."""
-    rng = np.random.default_rng(seed)
-    theta = 300.0 + 10.0 * np.linspace(0, 1, nz)
-    rho1d, p1d = dycore.hydrostatic_reference(theta, 500.0)
-    shape = (B, nz, ny, nx)
-    rho = rho1d[:, None, None] * (1.0 + 0.01 * rng.standard_normal(shape))
-    rhow = 0.5 * rng.standard_normal((B, nz + 1, ny, nx))
-    rhow[:, 0] = rhow[:, -1] = 0.0
-    fields = (rho, 5.0 * rng.standard_normal(shape) * rho,
-              5.0 * rng.standard_normal(shape) * rho, rhow,
-              rho * theta[:, None, None] * (1 + 0.01 * rng.standard_normal(shape)),
-              np.abs(1e-3 * rng.standard_normal((B, 6) + shape[1:]))
-              * rho[:, None])
-    s = dycore.DycoreState(*(torch.as_tensor(f, dtype=torch.float32,
-                                             device=device) for f in fields))
-    fz = np.concatenate([[0.0], np.cumsum(300.0 * 1.04 ** np.arange(nz))])
-    vg = dycore.make_vgrid(0.5 * (fz[1:] + fz[:-1]), fz, device)
-    col = torch.as_tensor(rho1d[:, None, None], dtype=torch.float32,
-                          device=device)
-    p_ref = torch.as_tensor(p1d[:, None, None], dtype=torch.float32,
-                            device=device)
-    p_pert = dycore.moist_pressure(s.rhot, dycore.mixing_ratios(s)) - p_ref
-    return s, col, p_pert, vg
+    """Random states (seeded numpy, scale_letkf_torch/gpu_check.py) with the
+    18-km stretched metric and p′ from the moist pressure. Returns (state,
+    rho_ref, p_pert, vg)."""
+    s, rho_ref, p_pert = gpu_check.random_dyn_state(seed, B, nz, ny, nx,
+                                                    device)
+    return s, rho_ref, p_pert, gpu_check.metrics(nz, device)["stretched"]
 
 
 @pytest.mark.cuda
@@ -138,6 +120,19 @@ def test_cuda_adv_ud3_matches_plain(cuda_device, kdiff4):
     ref = stencil.adv_flux_divergence_plain(*args)
     torch.cuda.synchronize()
     assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", gpu_check.RAGGED_SHAPES)
+@pytest.mark.parametrize("name", ["dyn_tendency", "adv_ud3"])
+def test_cuda_stencil_kernel_ragged_shapes(cuda_device, name, shape):
+    """Tiles cut by the domain's edge and axes narrower than a tile and its
+    halo, under both metrics, divdmp 0 / 0.05, kdiff4 0 / 1e-3 and 1 or 6
+    tracers; each kernel run twice, both runs within the bound."""
+    rows = gpu_check.ragged_kernels_vs_plain(cuda_device, name, [shape])
+    assert len(rows) == 8
+    for row in rows:
+        assert row["finite"] and row["rel_err"] <= row["tol"], row
 
 
 @pytest.mark.cuda

@@ -10,14 +10,16 @@ import torch
 
 from scale_letkf_tpu.bench_fullsize import _synthetic_conv_network
 from scale_letkf_tpu.cli.main import load_config_and_grid as ref_load
-from scale_letkf_tpu.config import Config, EnsembleConfig, LetkfConfig
+from scale_letkf_tpu import config as ref_config
 from scale_letkf_tpu.da import letkf_obs as ref
 from scale_letkf_tpu.grid import Grid as RefGrid, Projection as RefProjection
 from scale_letkf_tpu.obs.types import Observations, ID_RADAR_REF, TYP_PHARAD
+from scale_letkf_torch import config as port_config
 from scale_letkf_torch.cli.main import load_config_and_grid
 from scale_letkf_torch.da import letkf_obs as port
 from scale_letkf_torch.grid import Grid, Projection
 from scale_letkf_torch.io.convert import obs_context_to_device
+from scale_letkf_torch.obs.types import Observations as PortObservations
 from scale_letkf_torch.synthetic import synthetic_conv_network
 
 torch.set_num_threads(1)
@@ -69,7 +71,7 @@ def test_conventional_context_matches_reference(full_size):
     ensval[:, :5] += 100.0         # gross-error rejects
     qc0 = np.zeros(obs.nobs, np.int32)
     c_ref = ref.build_obs_context(obs, ensval, qc0, cfg_r, grid_r)
-    c = port.build_obs_context(obs, ensval, qc0, cfg, grid)
+    c = port.build_obs_context(obs_p, ensval, qc0, cfg, grid)
     _assert_same_context(c, c_ref)
     assert (c.qc[:5] != 0).all()
     if full_size:
@@ -93,26 +95,34 @@ def test_radar_context_matches_reference():
     lon, lat = grid.ij_to_lonlat(rng.uniform(1, NX - 2, nobs),
                                  rng.uniform(1, NY - 2, nobs))
     dbz = rng.uniform(-5.0, 45.0, nobs)
-    obs = Observations(
+    arrays = dict(
         elem=np.full(nobs, ID_RADAR_REF, np.int32), lon=lon, lat=lat,
         lev=rng.uniform(200.0, 800.0, nobs), dat=10.0 ** (0.1 * dbz),
         err=np.full(nobs, 5.0), typ=np.full(nobs, TYP_PHARAD, np.int32),
         dif=np.zeros(nobs), meta=np.asarray([135.0, 35.0, 0.0]))
-    cfg = Config(ensemble=EnsembleConfig(member=K),
-                 letkf=LetkfConfig(infl_mul=1.0))
+    obs = Observations(**arrays)
+    obs_p = PortObservations(**arrays)
     hl = [500.0e3] + [-1.0] * 23
     hl[TYP_PHARAD] = 1.0e3
-    cfg.letkf_obs.hori_local = tuple(hl)
     mx = [0] + [-1] * 23
     mx[TYP_PHARAD] = 30
-    cfg.letkf_obs.max_nobs_per_grid = tuple(mx)
-    vl = list(cfg.letkf_obs.vert_local)
-    vl[TYP_PHARAD] = 1000.0
-    cfg.letkf_obs.vert_local = tuple(vl)
+
+    def radar_cfg(m):
+        """The same radar settings in config module m of either package."""
+        cfg = m.Config(ensemble=m.EnsembleConfig(member=K),
+                       letkf=m.LetkfConfig(infl_mul=1.0))
+        cfg.letkf_obs.hori_local = tuple(hl)
+        cfg.letkf_obs.max_nobs_per_grid = tuple(mx)
+        vl = list(cfg.letkf_obs.vert_local)
+        vl[TYP_PHARAD] = 1000.0
+        cfg.letkf_obs.vert_local = tuple(vl)
+        return cfg
+
+    cfg_r, cfg = radar_cfg(ref_config), radar_cfg(port_config)
     ensval = 20.0 + 8.0 * rng.standard_normal((K, nobs))
     qc0 = np.zeros(nobs, np.int32)
-    c_ref = ref.build_obs_context(obs, ensval, qc0, cfg, grid_r)
-    c = port.build_obs_context(obs, ensval, qc0, cfg, grid)
+    c_ref = ref.build_obs_context(obs, ensval, qc0, cfg_r, grid_r)
+    c = port.build_obs_context(obs_p, ensval, qc0, cfg, grid)
     _assert_same_context(c, c_ref)
     assert any(ct.buckets.n_dropped > 0 for ct in c.ctypes)
     assert {ct.elem for ct in c.ctypes} >= {ID_RADAR_REF}

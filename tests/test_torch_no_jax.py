@@ -1,6 +1,9 @@
-"""The PyTorch port imports no jax: every scale_letkf_torch module imports in
-a fresh interpreter where `import jax` fails."""
+"""The PyTorch port imports no jax and nothing of the JAX package: every
+scale_letkf_torch module imports in a fresh interpreter where `import jax`
+and `import scale_letkf_tpu` fail, and no import statement of the port or of
+chip_smoke.py names scale_letkf_tpu."""
 
+import ast
 import pkgutil
 import subprocess
 import sys
@@ -55,3 +58,44 @@ def test_fcst_verb_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "--steps" in res.stdout and "--device" in res.stdout
+
+
+def test_every_module_imports_without_the_jax_package():
+    mods = _modules()
+    for m in ("constants", "config", "obs.types", "utils.native"):
+        assert f"scale_letkf_torch.{m}" in mods, m
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['scale_letkf_tpu'] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from scale_letkf_torch.ops.obs_select import bucket_sort_backend\n"
+        "assert bucket_sort_backend() in ('native', 'numpy')\n"
+        "loaded = [k for k, v in sys.modules.items()\n"
+        "          if k.startswith('scale_letkf_tpu') and v is not None]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_no_jax_package_import_statements():
+    """Every import statement, at top level or inside a function; comments
+    and docstrings may name the reference's files."""
+    paths = [*(ROOT / "scale_letkf_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    for path in paths:
+        for mod in _imported_modules(path):
+            assert mod.split(".")[0] not in ("jax", "scale_letkf_tpu"), \
+                (path, mod)

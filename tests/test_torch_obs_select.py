@@ -10,9 +10,10 @@ import jax.numpy as jnp
 
 from scale_letkf_tpu.ops import localization as ref_loc
 from scale_letkf_tpu.ops import obs_select as ref
-from scale_letkf_tpu.utils import native
+from scale_letkf_tpu.utils import native as ref_native
 from scale_letkf_torch.ops import localization as loc
 from scale_letkf_torch.ops import obs_select as port
+from scale_letkf_torch.utils import native
 
 torch.set_num_threads(1)
 
@@ -48,7 +49,8 @@ def _buckets(x, y, nsch=1, max_capacity=0, fallback=False, monkeypatch=None):
     kw = dict(max_capacity=max_capacity, nsch=nsch,
               index_map=np.arange(len(x), dtype=np.int32))
     if fallback:
-        monkeypatch.setattr(native, "load", lambda: None)
+        for lib in (ref_native, native):
+            monkeypatch.setattr(lib, "load", lambda: None)
     return ref.build_buckets(*args, **kw), port.build_buckets(*args, **kw)
 
 

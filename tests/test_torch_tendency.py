@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from scale_letkf_tpu.model import dycore as ref
 from scale_letkf_tpu.ops import pallas_tendency as ref_pallas
+from scale_letkf_torch.gpu_check import RAGGED_SHAPES
 from scale_letkf_torch.io.convert import (
     dycore_config_from_dict, dycore_state_to_numpy, dycore_state_to_torch,
     vgrid_to_torch,
@@ -108,3 +109,20 @@ def test_open_lateral_raises_only_on_the_gpu_path():
                             dataclasses.replace(cfg, lateral="open"),
                             torch.from_numpy(rho_ref), torch.from_numpy(p_ref))
     assert all(bool(torch.isfinite(f).all()) for f in out)
+
+
+@pytest.mark.parametrize("nz,ny,nx", [s[1:] for s in RAGGED_SHAPES])
+def test_tendencies_at_ragged_shapes_match_reference(nz, ny, nx):
+    """The shapes at which the card holds both kernels against these plain
+    versions (gpu_check.RAGGED_SHAPES: axes narrower than a kernel tile
+    and its halo, tiles cut by the edge), stretched levels, damping and ∇⁴
+    on: the plain versions themselves agree with the reference there."""
+    fields, rho_ref, p_ref, cfg_r, cfg = _case(5, nz, ny, nx, 0.05)
+    vg_r = ref.make_vgrid(*stretched_levels(nz))
+    expect = ref.tendencies(ref.DycoreState(*(jnp.asarray(f) for f in fields)),
+                            cfg_r, jnp.asarray(rho_ref), jnp.asarray(p_ref),
+                            vg_r)
+    out = dycore.tendencies(dycore_state_to_torch(fields, CPU), cfg,
+                            torch.from_numpy(rho_ref), torch.from_numpy(p_ref),
+                            vgrid_to_torch(vg_r, CPU))
+    assert_fields_close(dycore_state_to_numpy(out), expect, 2e-5)
