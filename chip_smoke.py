@@ -14,9 +14,11 @@ the ensemble forecast (split-explicit core, dt 30 s, 10 acoustic substeps,
   1. device         — the card, and nvidia-smi's name and power limit
   2. build          — nvcc builds of the three kernels, all started
                       together (seconds, ptxas reports, and each kernel's
-                      SASS instruction count and opcode mix by cuobjdump)
+                      SASS instruction count and opcode mix by cuobjdump);
+                      fails if invsqrt_ns holds no tensor-core HMMA
   3. random         — invsqrt_ns kernel vs plain on B = 4096 random
-                      LETKF-shaped Grams at K = 20, 50, 100, cond 1e2-1e4
+                      LETKF-shaped Grams at K = 20, 50, 100, cond 1e2-1e4,
+                      and against float64 eigh on a few of them
   4. tendency       — dyn_tendency kernel vs plain on random states at
                       480×360×36, batch 4, uniform and 18-km metrics,
                       divdmp 0 and 0.05; then at the ragged and tiny
@@ -41,14 +43,18 @@ the ensemble forecast (split-explicit core, dt 30 s, 10 acoustic substeps,
 
 Each phase prints one JSON line; any failed check raises, so the script
 exits non-zero. Every kernel-vs-plain check runs the kernel twice and holds
-both runs to the bound. Kernel and plain versions are timed with CUDA
-events, in turns (plain, kernel, kernel, plain), after a warm-up. The line
-before the last lists every kernel (route, source, the TPU kernel it
-replaces, its launches on the main path, its error and time against the
-plain version on the main path's operands, and its bound: the larger of
-the bytes it must move over 3.35 TB/s and its operations over 67 TFLOP/s
-FP32, computed from those operands); the last line is {"ok": true,
-"device": {...}}. Without a CUDA device it exits 1 and prints no result.
+both runs to the bound (invsqrt_ns, which has no atomics, must also give
+bit-identical runs). Kernel and plain versions are timed with CUDA events,
+in turns (plain, kernel, kernel, plain), after a warm-up. The line before
+the last lists every kernel (route, source, the TPU kernel it replaces,
+its launches on the main path, its error and time against the plain
+version on the main path's operands, and its bound: the larger of the
+bytes it must move over 3.35 TB/s and its operations over the rate of the
+units that do them, computed from those operands — 67 TFLOP/s FP32 for
+the stencils, and for invsqrt_ns's 3xTF32 tensor-core products three TF32
+passes at 495 TFLOP/s, with its FP32 bound beside it as bound_fp32_ms);
+the last line is {"ok": true, "device": {...}}. Without a CUDA device it
+exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -68,12 +74,16 @@ import torch
 CONFIG = Path(__file__).resolve().parent / "configs" / "18km_japan.toml"
 SEED = 0
 RANDOM_B = 4096
-# Kernel vs plain, relative to max|isq|. Both run the same FP32 algorithm in
-# different summation orders; on the CPU two such orders differed by 4.8e-7,
-# 1.2e-6 and 1.1e-5 at cond 11, 108 and 1006 (K = 50), so 1e-4 holds up to
-# cond 1e3 and 1e-3 at cond 1e4.
+# Kernel vs plain, relative to max|isq|. The kernel runs the plain version's
+# algorithm with 3xTF32 tensor-core products; their emulation on the CPU
+# (tests/test_torch_invsqrt_tf32.py, 8 matrices a case) differed from the
+# plain FP32 version by at most 2.4e-6, 1.5e-5 and 1.5e-4 at cond 1e2, 1e3
+# and 1e4 (K = 20, 50, 100), so 1e-4 holds up to cond 1e3 and 1e-3 at 1e4.
 TOL_RANDOM = {1e2: 1e-4, 1e3: 1e-4, 1e4: 1e-3}
 TOL_REAL = 1e-4
+# Kernel vs float64 eigh, relative to max|isq|: the bounds of
+# tests/test_torch_invsqrt.py and tests/test_torch_invsqrt_tf32.py
+TOL_F64 = {1e2: 2e-5, 1e3: 1e-4, 1e4: 1e-3}
 # Stencil kernels vs plain: gpu_check.TOL_TENDENCY (2e-5) and TOL_STENCIL
 # (1e-5) per field, relative to max|plain|.
 STENCIL_BATCH = 4
@@ -105,11 +115,15 @@ def cuda_ms(fn, reps: int = 5) -> float:
 
 def kernel_vs_plain(a, areg, reps: int = 5) -> dict:
     """Kernel and plain versions on the same operands: errors relative to
-    max|isq| of the plain version, and both times in turns."""
+    max|isq| of the plain version, whether two kernel runs are
+    bit-identical, and both times in turns."""
     from scale_letkf_torch.ops.invsqrt import invsqrt_ns_kernel, invsqrt_ns_plain
     isq_k, inv_k = invsqrt_ns_kernel(a, areg)
+    isq_2, inv_2 = invsqrt_ns_kernel(a, areg)
     isq_p, inv_p = invsqrt_ns_plain(a, areg)
     torch.cuda.synchronize()
+    same = bool(torch.equal(isq_k, isq_2) and torch.equal(inv_k, inv_2))
+    del isq_2, inv_2
     scale = float(isq_p.abs().max())
     err = float((isq_k - isq_p).abs().max())
     err_inv = float((inv_k - inv_p).abs().max()) / float(inv_p.abs().max())
@@ -126,7 +140,8 @@ def kernel_vs_plain(a, areg, reps: int = 5) -> dict:
     k2 = cuda_ms(kern, reps)
     p2 = cuda_ms(plain, reps)
     return {"max_abs_err": err, "rel_err": err / scale, "rel_err_inv": err_inv,
-            "finite": finite, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "finite": finite, "bit_identical_runs": same,
+            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
 
 
@@ -193,9 +208,14 @@ def phase_build():
         log = kernels.BUILD_LOG[name]
         ptxas = [ln.strip() for ln in log["ptxas"].splitlines()
                  if "registers" in ln or "spill" in ln]
+        sass = sass_mix(libs[name])
         emit({"phase": "build", "kernel": name, "seconds": wall,
-              "nvcc_seconds": log["seconds"], "ptxas": ptxas,
-              "sass": sass_mix(libs[name])})
+              "nvcc_seconds": log["seconds"], "ptxas": ptxas, "sass": sass})
+        # the solver's products must run on the tensor cores: an FMA-only
+        # build of it does not pass
+        if name == "invsqrt_ns" and not (sass and all(
+                mix.get("HMMA", 0) > 0 for mix in sass.values())):
+            raise AssertionError(f"invsqrt_ns SASS holds no HMMA: {sass}")
 
 
 def phase_random(device):
@@ -229,9 +249,11 @@ def phase_random(device):
                        np.abs(isq_k - isq_ref).max() / np.abs(isq_ref).max()),
                    "identity_rel_err": eye_err, **r}
             emit({"phase": "random", **row})
-            if not (r["finite"] and r["rel_err"] <= tol and eye_err <= 1e-6):
+            if not (r["finite"] and r["bit_identical_runs"]
+                    and r["rel_err"] <= tol and eye_err <= 1e-6
+                    and row["err_vs_f64"] <= TOL_F64[cond]):
                 raise AssertionError(f"kernel disagrees with its plain "
-                                     f"version: {row}")
+                                     f"version or with float64: {row}")
 
 
 def phase_slice(device, capture):
@@ -337,12 +359,14 @@ def phase_real(capture):
     a = capture["a"]
     B, kp = int(a.shape[0]), int(a.shape[-1])
     r = kernel_vs_plain(a, capture["areg"])
-    # reads a and areg, writes C^{-1/2} and C^{-1}, all (B, kp, kp)
+    # reads a and areg, writes C^{-1/2} and C^{-1}, all (B, kp, kp); the
+    # products take three TF32 tensor-core passes each
     r.update(roofline(4 * nbytes(a), NS_PRODUCTS * 2.0 * kp ** 3 * B,
-                      r["ms"]))
+                      r["ms"], TF32_FLOP_PER_S / 3))
     row = {"phase": "real", "B": B, "kp": kp, "tol": TOL_REAL, **r}
     emit(row)
-    if not (r["finite"] and r["rel_err"] <= TOL_REAL):
+    if not (r["finite"] and r["bit_identical_runs"]
+            and r["rel_err"] <= TOL_REAL):
         raise AssertionError(f"kernel disagrees on real Grams: {row}")
     return row
 
@@ -422,10 +446,12 @@ def stencil_operands(s, rho_ref, p_ref, vg, dycfg, divdmp=None):
     return dyn, adv
 
 
-# Roofline of one NVIDIA H100 SXM (NVIDIA's data sheet): HBM rate, and the
-# FP32 rate outside the tensor cores (all three kernels compute in FP32 FMA)
+# Roofline of one NVIDIA H100 SXM (NVIDIA's data sheet): HBM rate, the FP32
+# rate outside the tensor cores (the stencil kernels compute in FP32 FMA),
+# and the dense TF32 tensor-core rate (invsqrt_ns: 3xTF32 products)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 # Operations per output point, counted from the plain versions' expressions
 # (an IEEE division counted as one; the ∇⁴ terms 13 each): dyn_tendency
 # 224 with ∇⁴ on its four fields, 172 without; adv_ud3 62 per tracer point
@@ -436,13 +462,16 @@ ADV_FLOPS = {True: 62, False: 49}
 NS_PRODUCTS = 3 * (18 + 2) + 2
 
 
-def roofline(nbytes: float, flops: float, ms: float) -> dict:
+def roofline(nbytes: float, flops: float, ms: float,
+             flop_per_s: float = FP32_FLOP_PER_S) -> dict:
     """The least time the card could take for work that moves nbytes and
-    does flops, which of the two sets it, and the kernel's share of it."""
+    does flops at flop_per_s, which of the two sets it, and the kernel's
+    share of it; bound_fp32_ms is the same bound at the FP32 rate."""
     mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOP_PER_S * 1e3
+    ops_ms = flops / flop_per_s * 1e3
     bound = max(mem_ms, ops_ms)
     return {"bound_ms": bound,
+            "bound_fp32_ms": max(mem_ms, flops / FP32_FLOP_PER_S * 1e3),
             "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
             "bytes": nbytes, "flops": flops, "bound_share": bound / ms,
             "gb_per_s": nbytes / ms / 1e6, "tflops": flops / ms / 1e9}
@@ -697,7 +726,7 @@ def main() -> int:
     # no single PyTorch call computes any of the three functions (no matrix
     # inverse square root, no such stencil), so library_ms is null
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "bound_share", "gb_per_s", "tflops")
+            "bound_fp32_ms", "bound_by", "bound_share", "gb_per_s", "tflops")
     emit({"kernels": [{"name": name, "route": "cuda",
                        "source": f"scale_letkf_torch/csrc/{name}.cu",
                        "replaces": REPLACES[name],

@@ -112,8 +112,9 @@ def invsqrt_ns_plain(a: torch.Tensor, areg: torch.Tensor,
       re-anchor Y = a·Z on the true matrix
       phase 2: it_hi polish iterations
 
-    Its products run in full FP32 (full_fp32, no TF32 on CUDA): the kernel
-    multiplies in FP32 FMA, and so must its yardstick."""
+    Its products run in full FP32 (full_fp32, no TF32 on CUDA): the kernel's
+    3xTF32 tensor-core products keep FP32 accuracy, and its yardstick must
+    not lose it to one-pass TF32."""
     eye = _eye(a.shape[-1], a)
 
     def step(y, z):

@@ -27,6 +27,8 @@ from scale_letkf_torch.utils import kernels
 
 CONFIG = str(Path(__file__).resolve().parents[1] / "configs" / "18km_japan.toml")
 CASES = [(K, cond) for K in (20, 50, 100) for cond in (1e2, 1e3, 1e4)]
+# kernel vs float64 eigh, relative to max|isq| (tests/test_torch_invsqrt.py)
+TOL_F64 = {1e2: 2e-5, 1e3: 1e-4, 1e4: 1e-3}
 
 
 @pytest.fixture
@@ -48,7 +50,9 @@ def _spd_batch(rng, B, K, cond):
 @pytest.mark.parametrize("K,cond", CASES)
 def test_cuda_kernel_matches_plain(cuda_device, K, cond):
     """The kernel against invsqrt_ns_plain: 1e-4·max|isq| up to cond 1e3,
-    1e-3 at cond 1e4 (the same FP32 algorithm in two summation orders)."""
+    1e-3 at cond 1e4 (the same algorithm with 3xTF32 tensor-core products
+    against FP32 ones; tests/test_torch_invsqrt_tf32.py predicts ≤ 1.5e-5
+    and ≤ 1.5e-4)."""
     rng = np.random.default_rng(K)
     c = torch.as_tensor(_spd_batch(rng, 512, K, cond), dtype=torch.float32,
                         device=cuda_device)
@@ -60,6 +64,27 @@ def test_cuda_kernel_matches_plain(cuda_device, K, cond):
     tol = 1e-3 if cond > 1e3 else 1e-4
     assert float((isq_k - isq_p).abs().max()) <= tol * float(isq_p.abs().max())
     assert float((inv_k - inv_p).abs().max()) <= tol * float(inv_p.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,cond", CASES)
+def test_cuda_kernel_matches_eigh_bit_repeatable(cuda_device, K, cond):
+    """The kernel against float64 eigh at test_torch_invsqrt.py's bounds, and
+    two launches on the same operands bit-identical (it has no atomics)."""
+    rng = np.random.default_rng(100 + K)
+    c = _spd_batch(rng, 64, K, cond)
+    w, v = np.linalg.eigh(c)
+    isq_ref = np.einsum("bik,bk,bjk->bij", v, 1.0 / np.sqrt(w), v)
+    a, areg, cn = invsqrt.ns_operands(
+        torch.as_tensor(c, dtype=torch.float32, device=cuda_device),
+        torch.full((64,), K - 1.0, device=cuda_device))
+    z1, zz1 = invsqrt.invsqrt_ns_kernel(a, areg)
+    z2, zz2 = invsqrt.invsqrt_ns_kernel(a, areg)
+    torch.cuda.synchronize()
+    assert torch.equal(z1, z2) and torch.equal(zz1, zz2)
+    isq = (z1[:, :K, :K] * torch.rsqrt(cn)[:, None, None]).double().cpu()
+    err = np.abs(isq.numpy() - isq_ref).max() / np.abs(isq_ref).max()
+    assert err <= TOL_F64[cond], err
 
 
 @pytest.mark.cuda
