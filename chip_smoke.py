@@ -4,12 +4,12 @@
     python3 chip_smoke.py
 
 Builds the three hand-written CUDA kernels from scale_letkf_torch/csrc,
-checks each against its plain PyTorch version, and drives the port's two
-paths once each at the full size of the 18-km Japan configuration
+checks each against its plain PyTorch version, and drives the port's
+three paths once each at the full size of the 18-km Japan configuration
 (configs/18km_japan.toml, unchanged: 480×360×36 stretched levels, K = 50):
 the ensemble forecast (split-explicit core, dt 30 s, 10 acoustic substeps,
-2 steps) and the LETKF analysis (the synthetic conventional network of
-~24k obs):
+2 steps), the LETKF analysis (the synthetic conventional network of ~24k
+obs) and the DA cycle that joins them (CycleDriver.run_osse):
 
   1. device         — the card, and nvidia-smi's name and power limit
   2. build          — nvcc builds of the three kernels, all started
@@ -40,21 +40,40 @@ the ensemble forecast (split-explicit core, dt 30 s, 10 acoustic substeps,
  10. real           — invsqrt_ns kernel vs plain on the Gram matrices of
                       one level chunk of phase 9
  11. small          — the coarsened analysis on the card against the CPU
+ 12. cycle          — restart ensemble and nature run made on the card →
+                      make_driver → CycleDriver.run_osse, one cycle of 2
+                      steps: nature forecast, ensemble forecast, obsmake
+                      from the nature run, H(x), build_obs_context,
+                      analyze, state_trans_inv, O−A monitor; with timer
+                      sections, obs kept, launches of all three kernels,
+                      peak memory, O−B / O−A RMSE, RMSE against the nature
+                      run and spreads; then the nature run's obsmake twice
+                      more, timed (a first-call cost shows as the gap)
+ 13. cycle_real     — every kernel vs plain on the operands of phase 12:
+                      invsqrt_ns on one level chunk of the cycle's Grams,
+                      the stencil kernels at the ensemble forecast's member
+                      batch and at the nature run's batch of one
+ 14. cycle_small    — the coarsened cycle on the card against the CPU, the
+                      4-D obs operator on a 3-slot window and radar H(x)
+                      with every reflectivity method
 
 Each phase prints one JSON line; any failed check raises, so the script
 exits non-zero. Every kernel-vs-plain check runs the kernel twice and holds
 both runs to the bound (invsqrt_ns, which has no atomics, must also give
 bit-identical runs). Kernel and plain versions are timed with CUDA events,
 in turns (plain, kernel, kernel, plain), after a warm-up. The line before
-the last lists every kernel (route, source, the TPU kernel it replaces,
-its launches on the main path, its error and time against the plain
-version on the main path's operands, and its bound: the larger of the
-bytes it must move over 3.35 TB/s and its operations over the rate of the
-units that do them, computed from those operands — 67 TFLOP/s FP32 for
-the stencils, and for invsqrt_ns's 3xTF32 tensor-core products three TF32
-passes at 495 TFLOP/s, with its FP32 bound beside it as bound_fp32_ms);
-the last line is {"ok": true, "device": {...}}. Without a CUDA device it
-exits 1 and prints no result.
+the last lists every kernel of the main path, the cycle, which runs all
+three: route, source, the TPU kernel it replaces, its launches in phase 12
+(each path's own beside them), its error and time against the plain
+version on phase 12's operands (phase 13; for the stencil kernels the mean
+over the two batch sizes weighted by their launches, so launches × ms is
+the kernel's time in the cycle, each size under `shapes`), and its bound:
+the larger of the bytes it must move over 3.35 TB/s and its operations
+over the rate of the units that do them, computed from those operands —
+67 TFLOP/s FP32 for the stencils, and for invsqrt_ns's 3xTF32 tensor-core
+products three TF32 passes at 495 TFLOP/s, with its FP32 bound beside it
+as bound_fp32_ms. The last line is {"ok": true, "device": {...}}. Without
+a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -89,6 +108,13 @@ TOL_F64 = {1e2: 2e-5, 1e3: 1e-4, 1e4: 1e-3}
 STENCIL_BATCH = 4
 FCST_STEPS = 2
 FCST_U0 = 10.0
+CYCLE_STEPS = 2
+# The cycle's ensemble and nature run: ρθ noise of amplitude CYCLE_AMP_THETA
+# K (the forecast phase's is 0.5 K; a standard deviation of 0.375 of it)
+# smoothed by CYCLE_SMOOTH_PASSES 1-2-1 passes along x, y and z (σ ≈ 5.7
+# cells ≈ 100 km), so that the obs, ~16 cells apart, see correlated errors
+CYCLE_AMP_THETA = 4.0
+CYCLE_SMOOTH_PASSES = 64
 KERNELS = ("invsqrt_ns", "dyn_tendency", "adv_ud3")
 REPLACES = {
     "invsqrt_ns": "scale_letkf_tpu/ops/invsqrt.py:183",
@@ -355,20 +381,26 @@ def phase_slice(device, capture):
     return res
 
 
-def phase_real(capture):
-    a = capture["a"]
+def check_invsqrt(a, areg, phase: str) -> dict:
+    """invsqrt_ns kernel vs plain on one level chunk of real Grams, timed,
+    with its roofline on these operands; emits the row as `phase`."""
     B, kp = int(a.shape[0]), int(a.shape[-1])
-    r = kernel_vs_plain(a, capture["areg"])
+    r = kernel_vs_plain(a, areg)
     # reads a and areg, writes C^{-1/2} and C^{-1}, all (B, kp, kp); the
     # products take three TF32 tensor-core passes each
     r.update(roofline(4 * nbytes(a), NS_PRODUCTS * 2.0 * kp ** 3 * B,
                       r["ms"], TF32_FLOP_PER_S / 3))
-    row = {"phase": "real", "B": B, "kp": kp, "tol": TOL_REAL, **r}
+    row = {"phase": phase, "kernel": "invsqrt_ns", "B": B, "kp": kp,
+           "tol": TOL_REAL, **r}
     emit(row)
     if not (r["finite"] and r["bit_identical_runs"]
             and r["rel_err"] <= TOL_REAL):
         raise AssertionError(f"kernel disagrees on real Grams: {row}")
     return row
+
+
+def phase_real(capture):
+    return check_invsqrt(capture["a"], capture["areg"], "real")
 
 
 def phase_small(device):
@@ -380,6 +412,189 @@ def phase_small(device):
     if not (res["finite"] and res["kernel_launches"]["cuda"] == res["levels"]
             and all(e <= 1 for e in res["max_err_over_tol"].values())):
         raise AssertionError(f"GPU analysis disagrees with the CPU one: {res}")
+
+
+def phase_cycle(device):
+    """The DA cycle at full size: CycleDriver.run_osse, one cycle of
+    CYCLE_STEPS steps, from synthetic ensemble and nature states made on the
+    card and the synthetic conventional network (obsmake gives the obs
+    their values from the nature run). Returns the phase's row and the
+    operands of the path's kernels for phase cycle_real: one level chunk of
+    the analysis's Grams (copied at kernel #1's first launch), the final
+    ensemble at the forecast's member batch and the final nature state as a
+    batch of one, with the driver's reference column and metric."""
+    from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
+    from scale_letkf_torch.da.obsmake import obsmake
+    from scale_letkf_torch.gpu_check import expected_launches
+    from scale_letkf_torch.model.dycore import to_collocated
+    from scale_letkf_torch.ops import invsqrt as invsqrt_mod
+    from scale_letkf_torch.state import (
+        V3D_ANAL_NAMES, state_to_history, state_trans)
+    from scale_letkf_torch.synthetic import (
+        synthetic_conv_network, synthetic_ens_dycore_device)
+    from scale_letkf_torch.utils import kernels
+
+    cfg, grid, dycfg, dom = load_config_and_grid(str(CONFIG))
+    K = cfg.ensemble.member
+    t0 = time.perf_counter()
+    kw = {"u0": FCST_U0, "amp_theta": CYCLE_AMP_THETA,
+          "smooth_passes": CYCLE_SMOOTH_PASSES}
+    ens0, _, _ = synthetic_ens_dycore_device(SEED, K, grid, dom, device, **kw)
+    nat, _, _ = synthetic_ens_dycore_device(SEED + 1, 1, grid, dom, device,
+                                            **kw)
+    # handed to run_osse with no reference kept here, so that each
+    # ensemble is freed once the next one exists
+    states = [type(nat)(*(f[0] for f in nat)), ens0]
+    del nat, ens0
+    template = synthetic_conv_network(cfg, grid, np.random.default_rng(SEED))
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    driver = make_driver(cfg, grid, dycfg, dom, device)
+
+    launch = invsqrt_mod.invsqrt_ns_kernel
+    grams: dict = {}
+
+    def recording(a, areg, *args):
+        if not grams:
+            grams["a"], grams["areg"] = a.clone(), areg.clone()
+        return launch(a, areg, *args)
+
+    invsqrt_mod.invsqrt_ns_kernel = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        truth, ens, res = driver.run_osse(
+            states.pop(0), states.pop(0), template, n_cycles=1,
+            steps_per_cycle=CYCLE_STEPS, seed=SEED)
+        torch.cuda.synchronize()
+    finally:
+        invsqrt_mod.invsqrt_ns_kernel = launch
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device)
+    info = res.info
+
+    # the section obsmake again, twice, on the final nature state: whether
+    # its time in the run is a cost of the first call in the process
+    obsmake_repeat_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        obsmake(state_to_history(state_trans(to_collocated(truth)),
+                                 driver.z_full, driver.topo),
+                template, grid, cfg, driver.z_full,
+                np.random.default_rng(SEED))
+        torch.cuda.synchronize()
+        obsmake_repeat_s.append(time.perf_counter() - t1)
+
+    batches = -(-K // driver.batch)
+    expected = expected_launches(cfg, grid, CYCLE_STEPS, batches,
+                                 info["diag"].chunk)
+    finite = all(bool(torch.isfinite(f).all()) for f in (*ens, *truth)) \
+        and all(bool(torch.isfinite(info[k]).all()) for k in (
+            "gues_mean", "gues_sprd", "anal_mean", "anal_sprd"))
+    sprd_g = {n: float(info["gues_sprd"][v].mean())
+              for v, n in enumerate(V3D_ANAL_NAMES)}
+    sprd_a = {n: float(info["anal_sprd"][v].mean())
+              for v, n in enumerate(V3D_ANAL_NAMES)}
+    st_g, st_a = res.stats_gues[0], res.stats_anal[0]
+    omb = {n: r for n, r in st_g.rmse.items() if st_g.nobs[n]}
+    oma = {n: r for n, r in st_a.rmse.items() if st_a.nobs[n]}
+    row = {"phase": "cycle", "config": CONFIG.name,
+           "grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members": K,
+           "cycles": 1, "steps_per_cycle": CYCLE_STEPS, **kw,
+           "generate_s": generate_s, "wall_s": wall,
+           "sections_s": dict(driver.timer.records),
+           "section_counts": dict(driver.timer.counts),
+           "obsmake_repeat_s": obsmake_repeat_s,
+           "template_obs": int(template.nobs), "obs_kept": res.nobs[0],
+           "nobs_by_element": st_g.nobs,
+           "member_batch": driver.batch, "batches": batches,
+           "chunk": info["diag"].chunk,
+           "chunks_per_level": -(-grid.ny * grid.nx // info["diag"].chunk),
+           "kernel_launches": {k: launches[k] for k in KERNELS},
+           "expected_launches": expected, "peak_mem_gb": peak / 2 ** 30,
+           "omb_rmse": omb, "oma_rmse": oma,
+           "rmse_vs_nature_gues": res.rmse_gues[0],
+           "rmse_vs_nature_anal": res.rmse_anal[0],
+           "mean_spread_gues": sprd_g, "mean_spread_anal": sprd_a,
+           "finite": finite,
+           "note": "spread and O-A < O-B are required of T, PRES and PS: "
+                   "the perturbations are in rho-theta only, so U, V and W "
+                   "carry the little spread 2 steps give them and may sit "
+                   "flat"}
+    emit(row)
+    if not finite:
+        raise AssertionError("the cycle's forecast or analysis is not finite")
+    if row["kernel_launches"] != expected:
+        raise AssertionError(f"kernel launches {row['kernel_launches']}, "
+                             f"expected {expected}")
+    if not row["peak_mem_gb"] < 80:
+        raise AssertionError(f"peak memory {row['peak_mem_gb']:.2f} GB")
+    if not all(sprd_a[n] < sprd_g[n] for n in ("T", "PRES")):
+        raise AssertionError("analysis spread not below guess spread")
+    if not all(oma[n] < omb[n] for n in ("T", "PS")):
+        raise AssertionError(f"O-A RMSE above O-B RMSE: {oma} vs {omb}")
+    operands = {"grams": (grams["a"], grams["areg"]),
+                "ensemble": type(ens)(*(f[:driver.batch] for f in ens)),
+                "nature": type(truth)(*(f[None] for f in truth)),
+                "column": (driver.rho_ref, driver.p_ref, driver.vg, dycfg)}
+    return row, operands
+
+
+def phase_cycle_real(cy, operands) -> dict:
+    """Every kernel of the cycle against its plain version on the cycle's
+    own operands (phase_cycle): kernel #1 on one level chunk of its Grams;
+    #2 and #3 at the ensemble forecast's member batch and at the nature
+    run's batch of one. Returns per kernel one row for the path: the
+    per-launch mean of the time, the plain version's time, the bytes and
+    the operations over the shapes the cycle launched it at (weighted by
+    those launches, so launches × ms is the kernel's time in the cycle), the
+    roofline of that mean launch and the worst error; `shapes` lists each."""
+    rho_ref, p_ref, vg, dycfg = operands["column"]
+    rows = {"invsqrt_ns": check_invsqrt(*operands["grams"], "cycle_real")}
+    rows["invsqrt_ns"]["shapes"] = [{"B": rows["invsqrt_ns"]["B"],
+                                     "launches": cy["kernel_launches"][
+                                         "invsqrt_ns"]}]
+    per_stage = 3 * cy["steps_per_cycle"]
+    parts = {"dyn_tendency": [], "adv_ud3": []}
+    for label, n in (("ensemble", per_stage * cy["batches"]),
+                     ("nature", per_stage)):
+        s = operands[label]
+        dyn, adv = stencil_operands(s, rho_ref, p_ref, vg, dycfg)
+        for name, row in (("dyn_tendency", check_dyn(dyn, f"cycle {label}")),
+                          ("adv_ud3", check_adv(adv, f"cycle {label}"))):
+            emit({"phase": "cycle_real", "kernel": name, "run": label,
+                  "batch": int(s.rho.shape[0]), "launches": n, **row})
+            parts[name].append((n, int(s.rho.shape[0]), row))
+        del dyn, adv
+    for name, ps in parts.items():
+        n = sum(k for k, _, _ in ps)
+
+        def mean(key):
+            return sum(k * r[key] for k, _, r in ps) / n
+
+        ms = mean("ms")
+        rows[name] = {"max_abs_err": max(r["max_abs_err"] for _, _, r in ps),
+                      "ms": ms, "plain_ms": mean("plain_ms"),
+                      **roofline(mean("bytes"), mean("flops"), ms),
+                      "shapes": [{"batch": b, "launches": k, "ms": r["ms"],
+                                  "plain_ms": r["plain_ms"],
+                                  "bound_ms": r["bound_ms"]}
+                                 for k, b, r in ps]}
+    return rows
+
+
+def phase_cycle_small(device):
+    """The coarsened cycle on the card against the CPU: run_osse, the 4-D
+    obs operator and radar H(x) (scale_letkf_torch/gpu_check.py)."""
+    from scale_letkf_torch.gpu_check import coarse_cycle_vs_cpu, cycle_check_passes
+    res = coarse_cycle_vs_cpu(device, str(CONFIG), SEED)
+    emit({"phase": "cycle_small", **res})
+    if not cycle_check_passes(res):
+        raise AssertionError(f"GPU cycle disagrees with the CPU one: {res}")
 
 
 def timed_turns(kernel, plain, reps: int = 5) -> dict:
@@ -710,27 +925,40 @@ def main() -> int:
     phase_stencil(device, s)
     del s
     fc, sample = phase_forecast(device)
-    rows = phase_forecast_real(sample)
+    phase_forecast_real(sample)
     del sample
-    for name in ("dyn_tendency", "adv_ud3"):
-        rows[name]["launches"] = fc["kernel_launches"][name]
     phase_forecast_small(device)
     torch.cuda.empty_cache()
     capture: dict = {}
     sl = phase_slice(device, capture)
-    rows["invsqrt_ns"] = phase_real(capture)
-    rows["invsqrt_ns"]["launches"] = sl["kernel_launches"]
+    phase_real(capture)
     del capture
     phase_small(device)
+    torch.cuda.empty_cache()
+    cy, operands = phase_cycle(device)
+    cy_rows = phase_cycle_real(cy, operands)
+    del operands
+    torch.cuda.empty_cache()
+    phase_cycle_small(device)
+    # the kernels line is this slice's main path, the cycle, which runs all
+    # three: its launches, and times on its own operands (phase cycle_real);
+    # launches_by_path: each path's own run, counts reset before it
+    for name in KERNELS:
+        cy_rows[name]["launches"] = cy["kernel_launches"][name]
+        cy_rows[name]["launches_by_path"] = {
+            "forecast": fc["kernel_launches"].get(name, 0),
+            "analysis": sl["kernel_launches"] if name == "invsqrt_ns" else 0,
+            "cycle": cy["kernel_launches"][name]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     # no single PyTorch call computes any of the three functions (no matrix
     # inverse square root, no such stencil), so library_ms is null
-    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_fp32_ms", "bound_by", "bound_share", "gb_per_s", "tflops")
+    keys = ("launches", "launches_by_path", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_fp32_ms", "bound_by", "bound_share",
+            "gb_per_s", "tflops", "shapes")
     emit({"kernels": [{"name": name, "route": "cuda",
                        "source": f"scale_letkf_torch/csrc/{name}.cu",
                        "replaces": REPLACES[name],
-                       **{k: rows[name][k] for k in keys},
+                       **{k: cy_rows[name][k] for k in keys},
                        "library_ms": None}
                       for name in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",

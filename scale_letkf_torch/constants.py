@@ -22,6 +22,7 @@ RD = 287.04           # gas constant dry air [J/kg/K]     (CONST_Rdry)
 RV = 461.50           # gas constant water vapor [J/kg/K] (CONST_Rvap)
 CVDRY = 717.60        # specific heat dry air, const volume [J/kg/K] (CONST_CVdry)
 PRE00 = 1.0e5         # reference pressure [Pa]           (CONST_PRE00)
+T00 = 273.15
 
 # Water category specific heats (const volume), SCALE TRACER_CV for the
 # Tomita08 6-category set (qv, qc, qr, qi, qs, qg): vapour CV_vapor,
@@ -30,3 +31,11 @@ CV_VAPOR = 1390.0     # CONST_CVvap
 CL_WATER = 4218.0     # CONST_CL
 CI_ICE = 2106.0       # CONST_CI
 TRACER_CV = np.array([CV_VAPOR, CL_WATER, CL_WATER, CI_ICE, CI_ICE, CI_ICE])
+
+# Virtual temperature factor (common/common.f90: fvirt)
+FVIRT = RV / RD - 1.0
+
+# Saturation vapour pressure over liquid water (Tetens)
+PSAT0 = 610.78        # [Pa] at T00
+TETENS_A_LIQ = 17.269
+TETENS_B_LIQ = 35.86

@@ -228,16 +228,16 @@ def analyze(
     FP32 whatever matmul precision the caller set (full_fp32)."""
     if gues_det is not None:
         raise NotImplementedError(
-            "deterministic member: not ported yet (ROADMAP queue 1, "
-            "still open inside the analysis slice)")
+            "deterministic member: not ported yet (ROADMAP queue 1, the "
+            "deterministic member and da/inflation.py)")
     if addi_ens is not None or cfg.letkf.infl_add > 0:
         raise NotImplementedError(
-            "additive inflation: not ported yet (ROADMAP queue 1, "
-            "still open inside the analysis slice)")
+            "additive inflation: not ported yet (ROADMAP queue 1, the "
+            "deterministic member and da/inflation.py)")
     if mesh is not None:
         raise NotImplementedError(
             "multi-device mesh: not ported yet (ROADMAP queue 1, "
-            "remaining module 9: parallel/)")
+            "parallel/)")
     if gues.device != device:
         raise ValueError(f"gues is on {gues.device}, analysis on {device}")
     if cfg.letkf.relax_spread_out and cfg.letkf.relax_alpha_spread == 0.0:

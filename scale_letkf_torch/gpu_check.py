@@ -29,9 +29,23 @@ hold against the reference package.
   1e-4·max|increment| plus twice that rounding floor, measured in the same
   call: the card must agree with the CPU as closely as the CPU agrees with
   itself.
+- Cycle: CycleDriver.run_osse, 1 cycle of STEPS_CYCLE steps, at the
+  forecast's coarsened sizes with K = 20 (so the analysis solver is the
+  CUDA kernel too), from synthetic ensemble and nature states made on the
+  CPU and a synthetic conventional network; the same bound as the forecast
+  per field of the final ensemble and nature state, and the obs QC equal.
+  Then the ensemble H(x) alone, on seeded analysis ensembles with
+  hydrometeors (half zero, up to ~4 g/kg) and a mix of conventional and
+  radar obs (a site at the domain's center, 20-200 km away): a 3-slot 4-D
+  window (obsope_slots) and every METHOD_REF_CALC with and without the
+  terminal velocity (obsope_ensemble). H(x) per element within 2e-5 of its
+  range over the obs plus 4 float32 ulp of its largest magnitude (12 for
+  PS), the bound of the CPU parity tests; QC equal.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -39,11 +53,21 @@ import torch
 from scale_letkf_torch.cli.main import load_config_and_grid
 from scale_letkf_torch.da.letkf import analyze
 from scale_letkf_torch.da.letkf_obs import build_obs_context
+from scale_letkf_torch.da.obsope import (
+    assign_slots, obsope_ensemble, obsope_slots,
+)
 from scale_letkf_torch.model import dycore
+from scale_letkf_torch.obs.types import (
+    ID_PS, ID_RADAR_REF, ID_RADAR_VR, OBELM_NAMES, TYP_PHARAD, Observations,
+    uid_obs,
+)
 from scale_letkf_torch.ops import stencil, tendency
-from scale_letkf_torch.state import V3D_ANAL_NAMES
+from scale_letkf_torch.state import (
+    IA_Q0, NQ, NV3D, V3D_ANAL_NAMES, state_to_history, state_trans,
+)
 from scale_letkf_torch.synthetic import (
-    synthetic_conv_network, synthetic_ens_dycore_device, synthetic_gues,
+    smooth_noise, synthetic_conv_network, synthetic_ens_dycore_device,
+    synthetic_gues,
 )
 from scale_letkf_torch.utils import kernels
 
@@ -56,6 +80,9 @@ MEMBERS = 20
 COARSE_FCST = {"nx": 32, "ny": 24, "nz": 12}
 MEMBERS_FCST = 4
 STEPS_FCST = 3
+MEMBERS_CYCLE = 20
+STEPS_CYCLE = 2
+KERNELS = ("invsqrt_ns", "dyn_tendency", "adv_ud3")
 
 
 def random_dyn_state(seed: int, B: int, nz: int, ny: int, nx: int,
@@ -235,3 +262,218 @@ def coarse_forecast_vs_cpu(device: torch.device, config: str,
             "finite": all(bool(np.isfinite(f).all())
                           for f in out[device.type]),
             "max_err_over_tol": err}
+
+
+def var_local_groups(cfg) -> int:
+    """The analysis's var-local groups: each is one solver launch per level
+    chunk."""
+    return len(dict.fromkeys(
+        tuple(col) for col in cfg.var_local.table(NV3D).T.tolist()))
+
+
+def expected_launches(cfg, grid, steps: int, batches: int,
+                      chunk: int) -> dict:
+    """Launches of each kernel in one run_osse cycle on the card: 3 RK
+    stages × steps × (the ensemble's member batches + the nature run's
+    one) for both stencil kernels; levels × chunks per level × var-local
+    groups for the solver."""
+    fcst = 3 * steps * (batches + 1)
+    return {"invsqrt_ns": grid.nz * -(-grid.ny * grid.nx // chunk)
+            * var_local_groups(cfg),
+            "dyn_tendency": fcst, "adv_ud3": fcst}
+
+
+def osse_vs_cpu(device: torch.device, config: str, seed: int = 0) -> dict:
+    """One run_osse cycle at the coarsened sizes on `device` and twice on
+    the CPU (from the inputs and from the inputs perturbed by one
+    rounding). Returns the worst |Δ| over its tolerance per field of the
+    final ensemble and nature state (≤ 1 passes), the rounding floor, the
+    launches of each kernel against the expected ones, whether the obs QC
+    is equal and whether the run on `device` is finite."""
+    from scale_letkf_torch.cli.main import make_driver
+    cfg, grid, dycfg, dom = load_config_and_grid(config, COARSE_FCST)
+    cfg.ensemble.member = K = MEMBERS_CYCLE
+    cpu = torch.device("cpu")
+    ens0, _, _ = synthetic_ens_dycore_device(seed, K, grid, dom, cpu,
+                                             u0=10.0)
+    nat, _, _ = synthetic_ens_dycore_device(seed + 1, 1, grid, dom, cpu,
+                                            u0=10.0)
+    truth0 = type(nat)(*(f[0] for f in nat))
+    template = synthetic_conv_network(cfg, grid, np.random.default_rng(seed),
+                                      n_sonde=30, n_ps=60)
+    gen = torch.Generator().manual_seed(seed + 2)
+
+    def rounded(s):
+        return type(s)(*(f * (1.0 + 2.0 ** -24 * torch.randn(
+            f.shape, generator=gen)) for f in s))
+
+    runs = {}
+    for key, dev, t0, e0 in (("device", device, truth0, ens0),
+                             ("cpu", cpu, truth0, ens0),
+                             ("cpu_rounded", cpu, rounded(truth0),
+                              rounded(ens0))):
+        driver = make_driver(cfg, grid, dycfg, dom, dev)
+        before = dict(kernels.LAUNCHES)
+        truth, ens, res = driver.run_osse(
+            type(t0)(*(f.to(dev) for f in t0)),
+            type(e0)(*(f.to(dev) for f in e0)), template, n_cycles=1,
+            steps_per_cycle=STEPS_CYCLE, seed=seed)
+        runs[key] = {
+            "state": [f.cpu().numpy() for f in (*ens, *truth)],
+            "qc": res.info["obsdep"].qc, "nobs": res.nobs[0],
+            "launches": {k: kernels.LAUNCHES[k] - before[k]
+                         for k in KERNELS},
+            "expected": expected_launches(cfg, grid, STEPS_CYCLE,
+                                          -(-K // driver.batch),
+                                          res.info["diag"].chunk)}
+    names = ([f"ens.{n}" for n in ens0._fields]
+             + [f"nature.{n}" for n in truth0._fields])
+    err, floor = {}, {}
+    for name, a, b, c, f0 in zip(names, runs["device"]["state"],
+                                 runs["cpu"]["state"],
+                                 runs["cpu_rounded"]["state"],
+                                 (*ens0, *truth0)):
+        scale = 1e-4 * np.abs(b - f0.numpy()).max()
+        floor[name] = float(np.abs(c - b).max() / scale)
+        err[name] = float(np.abs(a - b).max() / (scale * (1 + 2 * floor[name])))
+    return {"grid": "{nx}x{ny}x{nz}".format(**COARSE_FCST), "members": K,
+            "steps": STEPS_CYCLE, "nobs": runs["device"]["nobs"],
+            "kernel_launches": {k: runs[k]["launches"]
+                                for k in ("device", "cpu")},
+            "expected_launches": runs["device"]["expected"],
+            "qc_equal": bool(np.array_equal(runs["device"]["qc"],
+                                            runs["cpu"]["qc"])),
+            "rounding_floor_over_1e-4_increment": floor,
+            "finite": all(bool(np.isfinite(f).all())
+                          for f in runs["device"]["state"]),
+            "max_err_over_tol": err}
+
+
+def hydrometeor_analysis(seed: int, K: int, grid, dom) -> torch.Tensor:
+    """(K, NV3D, nz, ny, nx) analysis variables on the CPU: the synthetic
+    restart ensemble (u0 = 10 m/s) with hydrometeors qc..qg of smoothed
+    seeded noise, half zero, up to ~4 g/kg."""
+    ens, _, _ = synthetic_ens_dycore_device(seed, K, grid, dom,
+                                            torch.device("cpu"), u0=10.0)
+    anal = state_trans(dycore.to_collocated(ens))
+    rng = np.random.default_rng(seed)
+    for v in range(IA_Q0 + 1, IA_Q0 + NQ):
+        anal[:, v] = torch.from_numpy(np.maximum(smooth_noise(
+            rng, (K, grid.nz, grid.ny, grid.nx)), 0.0) * 2e-3)
+    return anal
+
+
+def mixed_obs(cfg, grid, seed: int, n_radar: int = 200,
+              dif_span: float = 0.0) -> Observations:
+    """A synthetic conventional network (20 sondes, 40 PS) and radar
+    reflectivity and radial velocity obs 20-200 km from a site at the
+    domain's center, 300 m - 6 km high; dif uniform in ±dif_span."""
+    rng = np.random.default_rng(seed)
+    conv = synthetic_conv_network(cfg, grid, rng, n_sonde=20, n_ps=40)
+    site = (grid.proj.basepoint_lon, grid.proj.basepoint_lat, 0.0)
+    dist = rng.uniform(20e3, 200e3, n_radar)
+    ang = rng.uniform(0.0, 2 * np.pi, n_radar)
+    radar = Observations(
+        elem=np.where(np.arange(n_radar) % 2 == 0, ID_RADAR_REF, ID_RADAR_VR),
+        lon=site[0] + dist * np.sin(ang) / (111e3 * np.cos(np.radians(
+            site[1]))),
+        lat=site[1] + dist * np.cos(ang) / 111e3,
+        lev=rng.uniform(300.0, 6e3, n_radar), dat=np.zeros(n_radar),
+        err=np.ones(n_radar), typ=np.full(n_radar, TYP_PHARAD),
+        dif=np.zeros(n_radar), meta=np.asarray(site))
+    obs = Observations.concatenate([conv, radar])
+    obs.dif = rng.uniform(-dif_span, dif_span, obs.nobs)
+    return obs
+
+
+def hx_vs_cpu(hx, hx_cpu, elem) -> dict:
+    """One ensemble H(x) against the CPU's: whether the QC is equal and, per
+    element of the obs the CPU passes, max|Δ| over 2e-5 of the element's
+    range plus 4 float32 ulp of its largest magnitude (12 for PS)."""
+    y, y_cpu = hx.ensval.cpu().numpy(), hx_cpu.ensval.numpy()
+    good = hx_cpu.qc == 0
+    err = {}
+    for e in np.unique(elem[good]):
+        m = good & (elem == e)
+        a, b = y[:, m], y_cpu[:, m]
+        tol = (2e-5 * np.ptp(b) + (12 if e == ID_PS else 4)
+               * np.spacing(np.float32(np.abs(b).max())))
+        err[OBELM_NAMES[int(uid_obs(e)[0])]] = float(np.abs(a - b).max()
+                                                      / tol)
+    return {"qc_equal": bool(np.array_equal(hx.qc, hx_cpu.qc)),
+            "good_obs": int(good.sum()),
+            "finite": bool(np.isfinite(y[:, good]).all()),
+            "max_err_over_tol": err}
+
+
+def hx_slots_vs_cpu(device: torch.device, config: str, seed: int = 0,
+                    members: int = 4) -> dict:
+    """obsope_slots on a 3-slot window (600-s slots, base 2; obs dif within
+    ±1200 s, so some fall outside it) at the coarsened sizes, the history
+    on the host as forecast_slots keeps it, on `device` against the CPU."""
+    cfg, grid, _, dom = load_config_and_grid(config, COARSE_FCST)
+    for k, v in dict(slot_start=1, slot_end=3, slot_base=2,
+                     slot_tinterval=600.0).items():
+        setattr(cfg.obsope, k, v)
+    hist = torch.stack([hydrometeor_analysis(seed + 10 + s, members, grid,
+                                             dom) for s in range(3)], dim=1)
+    obs = mixed_obs(cfg, grid, seed, dif_span=1200.0)
+    slots = assign_slots(obs.dif, cfg)
+    out = {}
+    for key, dev in (("device", device), ("cpu", torch.device("cpu"))):
+        z = grid.calc_z(torch.zeros((grid.ny, grid.nx), device=dev))
+        out[key] = obsope_slots(hist, obs, grid, cfg, z, None, slots)
+    return {"slots": 3, "members": members, "nobs": obs.nobs,
+            "outside_window": int(((slots < 1) | (slots > 3)).sum()),
+            **hx_vs_cpu(out["device"], out["cpu"], obs.elem)}
+
+
+def radar_hx_vs_cpu(device: torch.device, config: str, seed: int = 0,
+                    members: int = 4) -> list:
+    """Ensemble H(x) of the mixed obs with every METHOD_REF_CALC, with and
+    without the terminal velocity, at the coarsened sizes on `device`
+    against the CPU. One row per case."""
+    cfg, grid, _, dom = load_config_and_grid(config, COARSE_FCST)
+    anal = hydrometeor_analysis(seed, members, grid, dom)
+    obs = mixed_obs(cfg, grid, seed + 1)
+    fields, z = {}, {}
+    for key, dev in (("device", device), ("cpu", torch.device("cpu"))):
+        z[key] = grid.calc_z(torch.zeros((grid.ny, grid.nx), device=dev))
+        fields[key] = state_to_history(anal.to(dev), z[key])
+    rows = []
+    for method in (1, 2, 3):
+        for tv in (False, True):
+            cfg.radar = dataclasses.replace(cfg.radar, method_ref_calc=method,
+                                            use_terminal_velocity=tv)
+            hx = {k: obsope_ensemble(fields[k], obs, grid, cfg, z[k])
+                  for k in fields}
+            rows.append({"method": method, "terminal_velocity": tv,
+                         **hx_vs_cpu(hx["device"], hx["cpu"], obs.elem)})
+    return rows
+
+
+def coarse_cycle_vs_cpu(device: torch.device, config: str,
+                        seed: int = 0) -> dict:
+    """The coarsened cycle on `device` against the CPU: run_osse
+    (osse_vs_cpu), the 4-D obs operator (hx_slots_vs_cpu) and radar H(x)
+    with every reflectivity method (radar_hx_vs_cpu)."""
+    return {"osse": osse_vs_cpu(device, config, seed),
+            "slots": hx_slots_vs_cpu(device, config, seed),
+            "radar": radar_hx_vs_cpu(device, config, seed)}
+
+
+def cycle_check_passes(res: dict) -> bool:
+    """Whether coarse_cycle_vs_cpu's result passes: finite, every kernel
+    launched as expected on the device and never on the CPU, every error
+    within its bound, the QC equal and radar obs assimilable."""
+    osse = res["osse"]
+    launches = osse["kernel_launches"]
+    hx = [res["slots"], *res["radar"]]
+    return (osse["finite"] and osse["qc_equal"]
+            and launches["device"] == osse["expected_launches"]
+            and not any(launches["cpu"].values())
+            and all(e <= 1 for e in osse["max_err_over_tol"].values())
+            and all(r["finite"] and r["qc_equal"] and r["good_obs"] > 0
+                    and {"REF", "Vr"} <= set(r["max_err_over_tol"])
+                    and all(e <= 1 for e in r["max_err_over_tol"].values())
+                    for r in hx))

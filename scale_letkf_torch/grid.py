@@ -2,8 +2,10 @@
 
 Port of scale_letkf_tpu/grid.py (reference: common_scale.f90:117-129 grid
 sizes, scale_calc_z at common_scale.f90:1434-1495, SCALE MPRJ phys2ij).
-Geometry is host work and stays in numpy; only `calc_z` builds a tensor,
-on the device it is given.
+Geometry is host work and stays in numpy, in float64 (the obs coordinates
+of H(x), `lonlat_to_ij` and the wind rotation `rotcoef`, are cast to the
+field dtype on the device by their caller); only `calc_z` and `calc_z_faces`
+build tensors, on the device of the topography they are given.
 """
 
 from __future__ import annotations
@@ -101,6 +103,19 @@ class Projection:
             raise ValueError(self.kind)
         return lon, lat
 
+    def rotcoef(self, lon, lat):
+        """(cosθ, sinθ) rotating true-north winds to grid-relative, as
+        MPRJ_rotcoef (used at common_obs_scale.f90:294): u_grid = u·c - v·s.
+        Float64 numpy."""
+        lam = (np.asarray(lon, np.float64) - self.basepoint_lon) * D2R
+        if self.kind in ("EQ", "MER"):
+            return np.ones_like(lam), np.zeros_like(lam)
+        if self.kind == "LC":
+            ang = self._lc[0] * lam
+        else:  # PS
+            ang = (np.sign(self.basepoint_lat) or 1.0) * lam
+        return np.cos(ang), np.sin(ang)
+
 
 @dataclass(frozen=True)
 class Grid:
@@ -157,8 +172,15 @@ class Grid:
         """Terrain-following height of cell centers, (nz, ny, nx), on topo's
         device and in its dtype: z = (ztop - topo)/ztop · cz + topo, the
         reference's BTF coordinate (common_scale.f90:1434-1459)."""
-        cz = torch.as_tensor(self.cz, dtype=topo.dtype, device=topo.device)
-        return ((self.ztop - topo)[None] / self.ztop * cz[:, None, None]
+        return self._btf(topo, self.cz)
+
+    def calc_z_faces(self, topo: torch.Tensor) -> torch.Tensor:
+        """Terrain-following height of cell faces, (nz+1, ny, nx)."""
+        return self._btf(topo, self.fz)
+
+    def _btf(self, topo: torch.Tensor, levels: np.ndarray) -> torch.Tensor:
+        lv = torch.as_tensor(levels, dtype=topo.dtype, device=topo.device)
+        return ((self.ztop - topo)[None] / self.ztop * lv[:, None, None]
                 + topo[None])
 
     def ij_to_lonlat(self, ri, rj):
@@ -166,3 +188,10 @@ class Grid:
         x = (np.asarray(ri) + 0.5 - self.nx / 2) * self.dx
         y = (np.asarray(rj) + 0.5 - self.ny / 2) * self.dy
         return self.proj.xy_to_lonlat(x, y)
+
+    def lonlat_to_ij(self, lon, lat):
+        """Lon/lat [deg] → fractional 0-based gridpoint (ri, rj), float64
+        numpy (phys2ij analogue, common_obs_scale.f90:1241)."""
+        x, y = self.proj.lonlat_to_xy(np.asarray(lon, np.float64),
+                                      np.asarray(lat, np.float64))
+        return x / self.dx + self.nx / 2 - 0.5, y / self.dy + self.ny / 2 - 0.5

@@ -6,7 +6,7 @@ directory written by either package loads in the other: member files
 rhoq; the deterministic member under the 'mdet' name; auxiliary fields as
 `<name>.npz` with key `data`; history snapshots as `hist.@@@@.npz` with
 `hist.json`. Tensors are written from any device; loading returns numpy
-arrays (io/convert.py dycore_state_to_torch puts them on a device).
+arrays (io/convert.py puts them on a device).
 """
 
 from __future__ import annotations
@@ -109,3 +109,15 @@ def save_history(dirpath: str | Path, hist, basename: str = "hist.@@@@",
     (d / "hist.json").write_text(json.dumps({
         "members": K, "slots": int(hist.shape[1]), "basename": basename,
         "slot_ids": slot_ids or list(range(1, hist.shape[1] + 1))}))
+
+
+def load_history(dirpath: str | Path) -> np.ndarray | None:
+    """The per-slot history snapshots of save_history, (K, S, NV3D, nz, ny,
+    nx) numpy; None when the checkpoint has none."""
+    d = Path(dirpath)
+    if not (d / "hist.json").exists():
+        return None
+    meta = json.loads((d / "hist.json").read_text())
+    return np.stack([
+        np.load(d / (filename_replace_mem(meta["basename"], m) + ".npz"))
+        ["hist"] for m in range(meta["members"])])

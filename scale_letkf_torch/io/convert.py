@@ -2,10 +2,11 @@
 
 The system has no learned weights. What crosses between the two packages is
 data: the ensemble (K, NV3D, nz, ny, nx), the inflation field, the obs
-context (numpy arrays plus bucket tables), and the forecast's staggered
-dycore states, configuration and vertical metric. These helpers turn those numpy
-arrays into tensors on a given device, so both packages compute from the
-same numbers.
+context (numpy arrays plus bucket tables), the forecast's staggered dycore
+states, configuration and vertical metric, and the cycle's history-field
+dicts, ensemble H(x) (ObsOpeResult) and slot history stacks. These helpers
+turn those numpy arrays into tensors on a given device, so both packages
+compute from the same numbers.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from scale_letkf_torch.da.letkf_obs import CtypeContext, ObsContext
+from scale_letkf_torch.da.obsope import ObsOpeResult
 from scale_letkf_torch.model.dycore import DycoreConfig, DycoreState, VGrid
 
 
@@ -88,3 +90,23 @@ def vgrid_to_torch(vg, device: torch.device,
     VGrid, as numpy)."""
     return VGrid(*(ensemble_to_torch(np.asarray(a), device, dtype)
                    for a in (vg.dzc, vg.dzf)))
+
+
+def fields_to_torch(fields: dict, device: torch.device,
+                    dtype: torch.dtype = torch.float32) -> dict:
+    """A history-field dict (state_to_history of either package) as
+    tensors on `device`."""
+    return {k: ensemble_to_torch(np.asarray(v), device, dtype)
+            for k, v in fields.items()}
+
+
+def obsope_result_to_torch(res, device: torch.device,
+                           dtype: torch.dtype = torch.float32) -> ObsOpeResult:
+    """The port's ObsOpeResult from any result with ensval (K, nobs), qc and
+    optional lev, val2 (the reference's, as numpy): ensval on `device`."""
+    def host(a):
+        return None if a is None else np.asarray(a)
+    return ObsOpeResult(ensval=ensemble_to_torch(np.asarray(res.ensval),
+                                                 device, dtype),
+                        qc=np.asarray(res.qc, np.int32), lev=host(res.lev),
+                        val2=host(res.val2))

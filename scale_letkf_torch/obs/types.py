@@ -47,12 +47,20 @@ OBTYPE_NAMES = ("ADPUPA", "AIRCAR", "AIRCFT", "SATWND", "PROFLR",
 NOBTYPE = len(OBTYPE_NAMES)
 TYP_PHARAD = 21   # 0-based index of the phased-array radar report type (22 in 1-based)
 
-# QC codes (common_obs_scale.f90:139-151) that the host obs context sets
+# QC codes (common_obs_scale.f90:139-151) that the obs operators and the
+# host obs context set
 QC_GOOD = 0
 QC_GROSS_ERR = 5
+QC_PS_TER = 10
+QC_REF_LOW = 11
 QC_REF_MEM = 12
+QC_RADAR_VHI = 19
+QC_OUT_VHI = 20
+QC_OUT_VLO = 21
 QC_OBS_BAD = 50
 QC_OTYPE = 90
+QC_TIME = 97
+QC_OUT_H = 98
 
 
 def uid_obs(elem: np.ndarray) -> np.ndarray:

@@ -1,8 +1,10 @@
-"""Model state contract: restart variables ↔ analysis variables.
+"""Model state contract: restart variables ↔ analysis variables ↔ the
+history view of the observation operators.
 
 Port of scale_letkf_tpu/state.py (reference: common_scale.f90:36-51 variable
-sets, state_trans at :1181-1226, state_trans_inv at :1229-1289). Layout
-(..., NV3D, nz, ny, nx), variables stacked on the fourth axis from the end.
+sets, state_trans at :1181-1226, state_trans_inv at :1229-1289,
+state_to_history at :1292-1404). Layout (..., NV3D, nz, ny, nx), variables
+stacked on the fourth axis from the end.
 
 The transforms write into one preallocated output and accumulate the moist
 sums tracer by tracer, so a full-size ensemble costs one extra copy of
@@ -11,9 +13,13 @@ itself plus a few single-variable temporaries, never a stacked copy.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from scale_letkf_torch.constants import RD, RV, CVDRY, PRE00, TRACER_CV
+from scale_letkf_torch.constants import (
+    CVDRY, FVIRT, GRAV, PRE00, PSAT0, RD, RV, T00, TETENS_A_LIQ, TETENS_B_LIQ,
+    TRACER_CV,
+)
 
 # Restart (prognostic) stacking order: ρ, ρu, ρv, ρw, ρθ, q×6
 IR_RHO, IR_RHOU, IR_RHOV, IR_RHOW, IR_RHOT = 0, 1, 2, 3, 4
@@ -85,6 +91,62 @@ def state_trans_inv(anal: torch.Tensor, *, positive_definite_q: bool = False,
     for ir, ia in ((IR_RHOU, IA_U), (IR_RHOV, IA_V), (IR_RHOW, IA_W)):
         torch.mul(_var(anal, ia), rho, out=_var(out, ir))
     return out
+
+
+def relative_humidity(temp: torch.Tensor, pres: torch.Tensor,
+                      qv: torch.Tensor) -> torch.Tensor:
+    """RH [%] over liquid water (Tetens). The reference model leaves the
+    history RH unfilled (common_scale.f90:1330 is commented out); the
+    reference package diagnoses it so RH obs are assimilable."""
+    es = PSAT0 * torch.exp(TETENS_A_LIQ * (temp - T00) / (temp - TETENS_B_LIQ))
+    qs = 0.622 * es / torch.clamp(pres - 0.378 * es, min=1.0)
+    return 100.0 * qv / qs
+
+
+def state_to_history(anal: torch.Tensor, z_full: torch.Tensor,
+                     topo: torch.Tensor | None = None, z0: float = 1.0e-2,
+                     tsfc=None) -> dict[str, torch.Tensor]:
+    """Analysis variables (..., NV3D, nz, ny, nx) → the obs operators' field
+    view. 3-D: u, v, w, t, p, q, qc, qr, qi, qs, qg (views of anal), rh (the
+    one new full field), hgt (z_full expanded); 2-D: topo (expanded; None is
+    flat) and the surface diagnostics from the lowest level — ps
+    (hydrostatic, level-1 virtual temperature), t2m (θ-conserving reduction
+    to 2 m), u10m/v10m (neutral log profile), q2m (level-1 qv). The
+    stability-corrected diagnostics from a slab skin temperature (tsfc)
+    need model/surface.py, which is not ported."""
+    if tsfc is not None:
+        raise NotImplementedError(
+            "screen diagnostics from a slab skin temperature (tsfc, "
+            "model/surface.py) are not ported yet (ROADMAP queue 1, physics)")
+    names3d = ("u", "v", "w", "t", "p", "q", "qc", "qr", "qi", "qs", "qg")
+    lead = anal.shape[:-4]
+    f = {n: anal[..., i, :, :, :] for i, n in enumerate(names3d)}
+    f["rh"] = relative_humidity(f["t"], f["p"], f["q"])
+    f["hgt"] = z_full.expand(lead + z_full.shape)
+    if topo is None:
+        topo = z_full.new_zeros(z_full.shape[-2:])
+    else:
+        topo = torch.as_tensor(topo, dtype=z_full.dtype, device=z_full.device)
+    f["topo"] = topo.expand(lead + topo.shape)
+
+    t1 = f["t"][..., 0, :, :]
+    p1 = f["p"][..., 0, :, :]
+    qv1 = torch.clamp(f["q"][..., 0, :, :], min=0.0)
+    z1 = torch.clamp(z_full[0] - topo, min=1.0)   # level-1 height above ground
+    tv1 = t1 * (1.0 + FVIRT * qv1)
+    kappa = RD / (RD + CVDRY)
+    ps = p1 * torch.exp(GRAV * z1 / (RD * tv1))
+    th1 = t1 * (PRE00 / p1) ** kappa
+    p2m = ps * torch.exp(-GRAV * 2.0 / (RD * tv1))
+    f["ps"] = ps
+    f["t2m"] = th1 * (p2m / PRE00) ** kappa
+    r10 = torch.clamp(np.log(10.0 / z0)
+                      / torch.log(torch.clamp(z1, min=2.0 * z0) / z0),
+                      0.0, 1.0)
+    f["u10m"] = f["u"][..., 0, :, :] * r10
+    f["v10m"] = f["v"][..., 0, :, :] * r10
+    f["q2m"] = qv1
+    return f
 
 
 def ensemble_mean(stack: torch.Tensor, dim: int = 0) -> torch.Tensor:

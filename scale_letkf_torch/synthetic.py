@@ -93,16 +93,24 @@ def synthetic_gues_device(seed: int, K: int, nz: int, ny: int, nx: int,
 
 
 def synthetic_ens_dycore_device(seed: int, K: int, grid, dom: dict,
-                                device: torch.device, u0: float = 0.0):
+                                device: torch.device, u0: float = 0.0,
+                                amp_theta: float = 0.5,
+                                smooth_passes: int = 1):
     """A K-member restart ensemble of the dynamical core on `device`: the
     reference's bench_fullsize._synthetic_ens_dycore construction from a
     torch.Generator seeded with `seed` — the hydrostatic base column of the
-    standard θ profile, ρθ perturbed by 0.5 K·(1-2-1 smoothed noise)
-    tapered to zero over 8 cells at the lateral edges, and the [domain]
+    standard θ profile, ρθ perturbed by amp_theta [K]·(1-2-1 smoothed
+    noise) tapered to zero over 8 cells at the lateral edges, and the [domain]
     qv profile (qv_surface, qv_scale_height) in ρq[0]. u0 adds a uniform
     wind, ρu = ρ·u0, so the advection terms are not zero (a uniform wind
     over flat periodic terrain is a steady solution). Returns (DycoreState
-    with K leading, rho_ref, p_ref), the columns (nz, 1, 1)."""
+    with K leading, rho_ref, p_ref), the columns (nz, 1, 1).
+
+    smooth_passes > 1 smooths the noise by that many 1-2-1 passes along each
+    horizontal axis (periodic) and up the column (edges held), a Gaussian
+    of sqrt(passes/2) cells, and rescales it to the standard deviation of
+    one horizontal pass, so an assimilation cycle sees perturbations
+    correlated over the obs spacing and across levels."""
     nz, ny, nx = grid.nz, grid.ny, grid.nx
     cz = np.asarray(grid.cz)
     dz0 = float(np.asarray(grid.fz)[1] - np.asarray(grid.fz)[0])
@@ -129,9 +137,17 @@ def synthetic_ens_dycore_device(seed: int, K: int, grid, dom: dict,
     noise = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=device)
     for dim in (-1, -2):
-        noise = 0.5 * noise + 0.25 * (torch.roll(noise, 1, dim)
-                                      + torch.roll(noise, -1, dim))
-    noise.mul_(torch.as_tensor(taper, device=device)).mul_(0.5)   # 0.5 K
+        for _ in range(smooth_passes):
+            noise = 0.5 * noise + 0.25 * (torch.roll(noise, 1, dim)
+                                          + torch.roll(noise, -1, dim))
+    if smooth_passes > 1:
+        for _ in range(smooth_passes):
+            up = torch.cat([noise[:, 1:], noise[:, -1:]], dim=1)
+            down = torch.cat([noise[:, :1], noise[:, :-1]], dim=1)
+            noise = 0.5 * noise + 0.25 * (up + down)
+        # one horizontal pass keeps 0.375 of the noise's standard deviation
+        noise.mul_(0.375 / float(noise.std()))
+    noise.mul_(torch.as_tensor(taper, device=device)).mul_(amp_theta)
     rhot = noise.mul_(rho).add_(col(rho1d * theta))
     rhoq = torch.zeros((K, NQ, nz, ny, nx), dtype=torch.float32,
                        device=device)

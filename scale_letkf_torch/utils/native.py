@@ -1,9 +1,9 @@
 """ctypes loader for the repository's native C++ library (native/libfortseq.so).
 
-The port binds only the bucket sort of ops/obs_select.py build_buckets. The
-library is built from native/fortseq.cpp with native/Makefile on first use
-if a toolchain is available; callers handle `load() is None` and take their
-numpy path.
+The port binds the Fortran sequential-record codec of obs/io.py and the
+bucket sort of ops/obs_select.py build_buckets. The library is built from
+native/fortseq.cpp with native/Makefile on first use if a toolchain is
+available; callers handle `load() is None` and take their numpy path.
 """
 
 from __future__ import annotations
@@ -34,6 +34,21 @@ def load() -> ctypes.CDLL | None:
     except OSError:
         return None
 
+    lib.fortseq_read_f32.restype = ctypes.c_long
+    lib.fortseq_read_f32.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_long]
+    lib.fortseq_read_scalars_f32.restype = ctypes.c_int
+    lib.fortseq_read_scalars_f32.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int]
+    lib.fortseq_write_f32.restype = ctypes.c_int
+    lib.fortseq_write_f32.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_long, ctypes.c_int,
+        ctypes.c_int]
+    lib.fortseq_count_f32.restype = ctypes.c_long
+    lib.fortseq_count_f32.argtypes = [ctypes.c_char_p, ctypes.c_long,
+                                      ctypes.c_int]
     lib.bucket_sort.restype = ctypes.c_long
     lib.bucket_sort.argtypes = [
         ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),

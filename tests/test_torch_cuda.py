@@ -6,8 +6,9 @@ a GPU machine without jax, with the jax-configuring conftest left out:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 The CUDA kernels are held against their plain PyTorch versions on the
-card, and the analysis and the forecast on the card against the same runs
-on the CPU (which the parity tests hold against the reference package).
+card, and the analysis, the forecast, the DA cycle and the ensemble H(x)
+(4-D and radar) on the card against the same runs on the CPU (which the
+parity tests hold against the reference package).
 Stencil bounds per field, relative to max|plain|: 2e-5 for the whole
 tendency, 1e-5 for the tracers (the reference's bounds for its Pallas
 kernels).
@@ -190,3 +191,39 @@ def test_cuda_forecast_matches_cpu(cuda_device):
         "dyn_tendency": 3 * res["steps"], "adv_ud3": 3 * res["steps"]}
     assert res["finite"]
     assert all(e <= 1 for e in res["max_err_over_tol"].values()), res
+
+
+@pytest.mark.cuda
+def test_cuda_cycle_matches_cpu(cuda_device):
+    """One run_osse cycle at the coarsened sizes (K = 20, so all three
+    kernels run) on the card against the CPU: every kernel launched as
+    expected, the obs QC equal, and per field of the final ensemble and
+    nature state within the forecast's bound (gpu_check.py)."""
+    res = gpu_check.osse_vs_cpu(cuda_device, CONFIG)
+    assert res["kernel_launches"]["device"] == res["expected_launches"]
+    assert not any(res["kernel_launches"]["cpu"].values())
+    assert res["finite"] and res["qc_equal"]
+    assert all(e <= 1 for e in res["max_err_over_tol"].values()), res
+
+
+@pytest.mark.cuda
+def test_cuda_obsope_slots_matches_cpu(cuda_device):
+    """The 4-D obs operator on a 3-slot window, history on the host,
+    conventional and radar obs: QC equal, H(x) per element within 2e-5 of
+    its range plus 4 ulp (12 for PS)."""
+    res = gpu_check.hx_slots_vs_cpu(cuda_device, CONFIG)
+    assert res["qc_equal"] and res["finite"] and res["outside_window"] > 0
+    assert {"REF", "Vr", "T", "PS"} <= set(res["max_err_over_tol"])
+    assert all(e <= 1 for e in res["max_err_over_tol"].values()), res
+
+
+@pytest.mark.cuda
+def test_cuda_radar_hx_matches_cpu(cuda_device):
+    """Radar H(x) with METHOD_REF_CALC 1, 2 and 3, with and without the
+    terminal velocity, non-zero hydrometeors: as the 4-D check."""
+    rows = gpu_check.radar_hx_vs_cpu(cuda_device, CONFIG)
+    assert len(rows) == 6
+    for row in rows:
+        assert row["qc_equal"] and row["finite"], row
+        assert {"REF", "Vr"} <= set(row["max_err_over_tol"])
+        assert all(e <= 1 for e in row["max_err_over_tol"].values()), row
