@@ -5,11 +5,14 @@
 
 Builds the three hand-written CUDA kernels from scale_letkf_torch/csrc,
 checks each against its plain PyTorch version, and drives the port's
-three paths once each at the full size of the 18-km Japan configuration
-(configs/18km_japan.toml, unchanged: 480×360×36 stretched levels, K = 50):
+paths once each at full size: at the size of the 18-km Japan configuration
+(configs/18km_japan.toml, unchanged: 480×360×36 stretched levels, K = 50)
 the ensemble forecast (split-explicit core, dt 30 s, 10 acoustic substeps,
 2 steps), the LETKF analysis (the synthetic conventional network of ~24k
-obs) and the DA cycle that joins them (CycleDriver.run_osse):
+obs), the DA cycle that joins them (CycleDriver.run_osse) and the physics
+cycle (the same with the physics suite and Davies boundary forcing, 10
+steps); and the radar configuration's forecast (configs/bda_1km_radar.toml,
+unchanged: 192×192×48, K = 50, Kessler physics) over its 30-s window:
 
   1. device         — the card, and nvidia-smi's name and power limit
   2. build          — nvcc builds of the three kernels, all started
@@ -46,7 +49,9 @@ obs) and the DA cycle that joins them (CycleDriver.run_osse):
                       from the nature run, H(x), build_obs_context,
                       analyze, state_trans_inv, O−A monitor; with timer
                       sections, obs kept, launches of all three kernels,
-                      peak memory, O−B / O−A RMSE, RMSE against the nature
+                      peak memory (each forecast's and the analysis's, and
+                      the forecast's fields a member), O−B / O−A RMSE, RMSE
+                      against the nature
                       run and spreads; then the nature run's obsmake twice
                       more, timed (a first-call cost shows as the gap)
  13. cycle_real     — every kernel vs plain on the operands of phase 12:
@@ -56,18 +61,42 @@ obs) and the DA cycle that joins them (CycleDriver.run_osse):
  14. cycle_small    — the coarsened cycle on the card against the CPU, the
                       4-D obs operator on a 3-slot window and radar H(x)
                       with every reflectivity method
+ 15. physics_cycle  — phase 12 with the reference bench's production
+                      physics suite (nsw6, radiation every 10 physics steps,
+                      PBL, slab of capacity 2e5) and Davies relaxation
+                      (bdy_width 10, bdy_tau 600) toward the balanced base
+                      state, 10 steps (two physics steps at phys_interval
+                      5), flat topography; adds the physics and boundary
+                      sections and the skin temperature's mean and range
+                      before and after, which must have moved
+ 16. physics_real   — every kernel vs plain on the operands of phase 15, as
+                      phase 13
+ 17. radar_forecast — the radar configuration unchanged: restart ensemble
+                      with rain and cloud blobs made on the card → make_driver
+                      → CycleDriver.forecast over the 15-step window (three
+                      Kessler steps); sections, batch, peak memory,
+                      launches; qr ≥ 0 everywhere and every Kessler step
+                      moved qc or qr
+ 18. radar_real     — both stencil kernels vs plain on one launch's
+                      operands of phase 17 (the 192×192×48 grid)
+ 19. physics_small  — each physics scheme alone, the coarsened physics-suite
+                      forecast with per-member boundary data, the radar
+                      Kessler forecast and a radar cycle (obs from the blobs
+                      by calc_ref_vr) on the card against the CPU
 
 Each phase prints one JSON line; any failed check raises, so the script
 exits non-zero. Every kernel-vs-plain check runs the kernel twice and holds
 both runs to the bound (invsqrt_ns, which has no atomics, must also give
 bit-identical runs). Kernel and plain versions are timed with CUDA events,
 in turns (plain, kernel, kernel, plain), after a warm-up. The line before
-the last lists every kernel of the main path, the cycle, which runs all
-three: route, source, the TPU kernel it replaces, its launches in phase 12
-(each path's own beside them), its error and time against the plain
-version on phase 12's operands (phase 13; for the stencil kernels the mean
-over the two batch sizes weighted by their launches, so launches × ms is
-the kernel's time in the cycle, each size under `shapes`), and its bound:
+the last lists every kernel of this slice's main path, the physics cycle,
+which runs all three: route, source, the TPU kernel it replaces, its
+launches in phase 15 (each path's own beside them, counts reset before
+each), its error and time against the plain version on phase 15's operands
+(phase 16; for the stencil kernels the mean over the two batch sizes
+weighted by their launches, so launches × ms is the kernel's time in the
+cycle, each size under `shapes`; the radar grid's row under `radar_grid`),
+and its bound:
 the larger of the bytes it must move over 3.35 TB/s and its operations
 over the rate of the units that do them, computed from those operands —
 67 TFLOP/s FP32 for the stencils, and for invsqrt_ns's 3xTF32 tensor-core
@@ -91,6 +120,7 @@ import numpy as np
 import torch
 
 CONFIG = Path(__file__).resolve().parent / "configs" / "18km_japan.toml"
+RADAR_CONFIG = CONFIG.parent / "bda_1km_radar.toml"
 SEED = 0
 RANDOM_B = 4096
 # Kernel vs plain, relative to max|isq|. The kernel runs the plain version's
@@ -115,6 +145,8 @@ CYCLE_STEPS = 2
 # cells ≈ 100 km), so that the obs, ~16 cells apart, see correlated errors
 CYCLE_AMP_THETA = 4.0
 CYCLE_SMOOTH_PASSES = 64
+# the physics cycle: 10 steps, so physics runs twice at phys_interval 5
+PHYS_STEPS = 10
 KERNELS = ("invsqrt_ns", "dyn_tendency", "adv_ud3")
 REPLACES = {
     "invsqrt_ns": "scale_letkf_tpu/ops/invsqrt.py:183",
@@ -414,27 +446,41 @@ def phase_small(device):
         raise AssertionError(f"GPU analysis disagrees with the CPU one: {res}")
 
 
-def phase_cycle(device):
-    """The DA cycle at full size: CycleDriver.run_osse, one cycle of
-    CYCLE_STEPS steps, from synthetic ensemble and nature states made on the
-    card and the synthetic conventional network (obsmake gives the obs
-    their values from the nature run). Returns the phase's row and the
-    operands of the path's kernels for phase cycle_real: one level chunk of
-    the analysis's Grams (copied at kernel #1's first launch), the final
-    ensemble at the forecast's member batch and the final nature state as a
-    batch of one, with the driver's reference column and metric."""
+def phase_cycle(device, phase: str = "cycle", steps: int = CYCLE_STEPS,
+                physics: bool = False):
+    """The DA cycle at full size: CycleDriver.run_osse, one cycle of `steps`
+    steps, from synthetic ensemble and nature states made on the card and
+    the synthetic conventional network (obsmake gives the obs their values
+    from the nature run). physics: the physics cycle — the configuration's
+    driver with the reference bench's production physics suite
+    (gpu_check.PHYS_PROD) and Davies relaxation (the configuration's
+    bdy_width and bdy_tau) toward the balanced base state (base_boundary);
+    its row adds the skin temperature's domain mean and range before (the
+    cold start) and after, requires that it moved, and adds the fields a
+    member of one dynamics step, physics step and relaxation alone
+    (stage_fields). Either row carries the peak memory of the nature run,
+    the forecast and what follows it (watch_peaks) and the forecast's
+    working set in fields a member. Returns the phase's
+    row and the operands of the path's kernels for the kernel-vs-plain
+    phase: one level chunk of the analysis's Grams (copied at kernel #1's
+    first launch), the final ensemble at the forecast's member batch and
+    the final nature state as a batch of one, with the driver's reference
+    column and metric."""
     from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
     from scale_letkf_torch.da.obsmake import obsmake
-    from scale_letkf_torch.gpu_check import expected_launches
+    from scale_letkf_torch.gpu_check import PHYS_PROD, expected_launches
     from scale_letkf_torch.model.dycore import to_collocated
+    from scale_letkf_torch.model.physics_suite import skin_temperature
     from scale_letkf_torch.ops import invsqrt as invsqrt_mod
     from scale_letkf_torch.state import (
         V3D_ANAL_NAMES, state_to_history, state_trans)
     from scale_letkf_torch.synthetic import (
-        synthetic_conv_network, synthetic_ens_dycore_device)
+        base_boundary, synthetic_conv_network, synthetic_ens_dycore_device)
     from scale_letkf_torch.utils import kernels
 
     cfg, grid, dycfg, dom = load_config_and_grid(str(CONFIG))
+    if physics:
+        dom = {**dom, "physics": PHYS_PROD}
     K = cfg.ensemble.member
     t0 = time.perf_counter()
     kw = {"u0": FCST_U0, "amp_theta": CYCLE_AMP_THETA,
@@ -442,6 +488,7 @@ def phase_cycle(device):
     ens0, _, _ = synthetic_ens_dycore_device(SEED, K, grid, dom, device, **kw)
     nat, _, _ = synthetic_ens_dycore_device(SEED + 1, 1, grid, dom, device,
                                             **kw)
+    tsfc0 = skin_temperature(ens0) if physics else None
     # handed to run_osse with no reference kept here, so that each
     # ensemble is freed once the next one exists
     states = [type(nat)(*(f[0] for f in nat)), ens0]
@@ -450,6 +497,8 @@ def phase_cycle(device):
     torch.cuda.synchronize()
     generate_s = time.perf_counter() - t0
     driver = make_driver(cfg, grid, dycfg, dom, device)
+    if physics:
+        driver.bdy = base_boundary(grid, dom, device)
 
     launch = invsqrt_mod.invsqrt_ns_kernel
     grams: dict = {}
@@ -460,6 +509,7 @@ def phase_cycle(device):
         return launch(a, areg, *args)
 
     invsqrt_mod.invsqrt_ns_kernel = recording
+    peaks = watch_peaks(driver, device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     kernels.reset_launches()
@@ -467,13 +517,25 @@ def phase_cycle(device):
     try:
         truth, ens, res = driver.run_osse(
             states.pop(0), states.pop(0), template, n_cycles=1,
-            steps_per_cycle=CYCLE_STEPS, seed=SEED)
+            steps_per_cycle=steps, seed=SEED)
         torch.cuda.synchronize()
     finally:
         invsqrt_mod.invsqrt_ns_kernel = launch
+        del driver.forecast, driver.forecast_one
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated(device)
+    # the analysis and the rest after the forecast: the peak since the
+    # forecast's watch last reset it
+    peaks["after_forecast_gb"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    peak = max(peaks[k] for k in ("nature_gb", "forecast_gb",
+                                  "after_forecast_gb")) * 2 ** 30
+    # the forecast's working set a member: its peak above what it began
+    # with and its output ensemble (the size of the one it returns), in
+    # nz·ny·nx float32 fields — what FORECAST_FIELDS_PER_MEMBER must cover
+    field = grid.nz * grid.ny * grid.nx * 4
+    peaks["forecast_fields_per_member"] = (
+        (peaks["forecast_gb"] - peaks["forecast_start_gb"]) * 2 ** 30
+        - nbytes(*ens)) / (driver.batch * field)
     info = res.info
 
     # the section obsmake again, twice, on the final nature state: whether
@@ -490,7 +552,7 @@ def phase_cycle(device):
         obsmake_repeat_s.append(time.perf_counter() - t1)
 
     batches = -(-K // driver.batch)
-    expected = expected_launches(cfg, grid, CYCLE_STEPS, batches,
+    expected = expected_launches(cfg, grid, steps, batches,
                                  info["diag"].chunk)
     finite = all(bool(torch.isfinite(f).all()) for f in (*ens, *truth)) \
         and all(bool(torch.isfinite(info[k]).all()) for k in (
@@ -502,9 +564,9 @@ def phase_cycle(device):
     st_g, st_a = res.stats_gues[0], res.stats_anal[0]
     omb = {n: r for n, r in st_g.rmse.items() if st_g.nobs[n]}
     oma = {n: r for n, r in st_a.rmse.items() if st_a.nobs[n]}
-    row = {"phase": "cycle", "config": CONFIG.name,
+    row = {"phase": phase, "config": CONFIG.name,
            "grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members": K,
-           "cycles": 1, "steps_per_cycle": CYCLE_STEPS, **kw,
+           "cycles": 1, "steps_per_cycle": steps, **kw,
            "generate_s": generate_s, "wall_s": wall,
            "sections_s": dict(driver.timer.records),
            "section_counts": dict(driver.timer.counts),
@@ -516,6 +578,7 @@ def phase_cycle(device):
            "chunks_per_level": -(-grid.ny * grid.nx // info["diag"].chunk),
            "kernel_launches": {k: launches[k] for k in KERNELS},
            "expected_launches": expected, "peak_mem_gb": peak / 2 ** 30,
+           "peak_by_step": peaks,
            "omb_rmse": omb, "oma_rmse": oma,
            "rmse_vs_nature_gues": res.rmse_gues[0],
            "rmse_vs_nature_anal": res.rmse_anal[0],
@@ -523,8 +586,21 @@ def phase_cycle(device):
            "finite": finite,
            "note": "spread and O-A < O-B are required of T, PRES and PS: "
                    "the perturbations are in rho-theta only, so U, V and W "
-                   "carry the little spread 2 steps give them and may sit "
-                   "flat"}
+                   "carry the little spread a few steps give them and may "
+                   "sit flat"}
+    if physics:
+        tsfc = driver.tsfc
+        row.update(physics=PHYS_PROD, bdy_width=dom["bdy_width"],
+                   bdy_tau=dom["bdy_tau"],
+                   tsfc_before={"mean": float(tsfc0.mean()),
+                                "min": float(tsfc0.min()),
+                                "max": float(tsfc0.max())},
+                   tsfc_after={"mean": float(tsfc.mean()),
+                               "min": float(tsfc.min()),
+                               "max": float(tsfc.max())},
+                   tsfc_max_abs_change=float((tsfc - tsfc0).abs().max()))
+        finite = finite and bool(torch.isfinite(tsfc).all())
+        row["finite"] = finite
     emit(row)
     if not finite:
         raise AssertionError("the cycle's forecast or analysis is not finite")
@@ -537,6 +613,19 @@ def phase_cycle(device):
         raise AssertionError("analysis spread not below guess spread")
     if not all(oma[n] < omb[n] for n in ("T", "PS")):
         raise AssertionError(f"O-A RMSE above O-B RMSE: {oma} vs {omb}")
+    if physics:
+        row["stage_fields_per_member"] = stage_fields(
+            driver, dycfg, dom, type(ens)(*(f[:driver.batch] for f in ens)))
+        emit({"phase": phase, "stage_fields_per_member":
+              row["stage_fields_per_member"], "member_batch": driver.batch})
+        counts = driver.timer.counts
+        n_phys = -(-steps // min(driver.phys_interval, steps))
+        if not (counts.get("forecast/physics") == n_phys * batches
+                and counts.get("forecast/boundary") == steps * batches):
+            raise AssertionError(f"physics or boundary sections missing: "
+                                 f"{counts}")
+        if not row["tsfc_max_abs_change"] > 0:
+            raise AssertionError("the skin temperature did not move")
     operands = {"grams": (grams["a"], grams["areg"]),
                 "ensemble": type(ens)(*(f[:driver.batch] for f in ens)),
                 "nature": type(truth)(*(f[None] for f in truth)),
@@ -544,7 +633,74 @@ def phase_cycle(device):
     return row, operands
 
 
-def phase_cycle_real(cy, operands) -> dict:
+def watch_peaks(driver, device) -> dict:
+    """Wraps driver.forecast and driver.forecast_one (instance attributes,
+    deleted afterwards) to record the peak device memory of each call and
+    what was allocated when it began (GiB, the last call of each), and
+    resets the peak after each call, so that the peak read at the end is
+    that of what followed the last forecast (the analysis)."""
+    peaks = {}
+    for name, key in (("forecast", "forecast"), ("forecast_one", "nature")):
+        fn = getattr(driver, name)
+
+        def wrapped(*args, _fn=fn, _key=key, **kw):
+            torch.cuda.synchronize()
+            peaks[f"{_key}_start_gb"] = torch.cuda.memory_allocated(
+                device) / 2 ** 30
+            torch.cuda.reset_peak_memory_stats(device)
+            out = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            peaks[f"{_key}_gb"] = torch.cuda.max_memory_allocated(
+                device) / 2 ** 30
+            torch.cuda.reset_peak_memory_stats(device)
+            return out
+
+        setattr(driver, name, wrapped)
+    return peaks
+
+
+def stage_fields(driver, dycfg, dom, s) -> dict:
+    """Peak device memory of one dynamics step, one physics step (radiation
+    recomputed) and one Davies relaxation of the member batch s, above what
+    is allocated before each (s and the radiation cache included), in
+    member-sized fields (nz·ny·nx float32) per member: what
+    cycle.FORECAST_FIELDS_PER_MEMBER has to cover."""
+    from scale_letkf_torch.model.boundary import (
+        apply_boundary_relaxation, interp_boundary, relaxation_weight)
+    from scale_letkf_torch.model.dycore_si import SplitConfig, rk3_step_si
+    from scale_letkf_torch.model.physics_suite import (
+        PhysicsState, physics_step, skin_temperature)
+    B = s.rho.shape[0]
+    per = B * s.rho[0].numel() * s.rho.element_size()
+    tsfc = skin_temperature(s)
+    phys = PhysicsState(tsfc, torch.zeros_like(s.rhot),
+                        torch.zeros_like(tsfc))
+    weight = relaxation_weight(s.rho.shape[-2], s.rho.shape[-1],
+                               dom["bdy_width"], dom["bdy_tau"],
+                               device=s.rho.device)
+    stages = {
+        "dynamics": lambda: rk3_step_si(
+            s, dycfg, SplitConfig(dtau=dycfg.dt / driver.n_small),
+            driver.rho_ref, driver.p_ref, driver.z_centers, driver.n_small,
+            driver.vg),
+        "physics": lambda: physics_step(
+            s, phys, 0, driver.phys_cfg, 5 * dycfg.dt, driver.dz_phys,
+            driver.z_centers),
+        "boundary": lambda: apply_boundary_relaxation(
+            s, interp_boundary(driver.bdy, dycfg.dt), weight, dycfg.dt)}
+    res = {}
+    for name, fn in stages.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        res[name] = (torch.cuda.max_memory_allocated() - base) / per
+        del out
+    return res
+
+
+def phase_cycle_real(cy, operands, phase: str = "cycle_real") -> dict:
     """Every kernel of the cycle against its plain version on the cycle's
     own operands (phase_cycle): kernel #1 on one level chunk of its Grams;
     #2 and #3 at the ensemble forecast's member batch and at the nature
@@ -554,7 +710,7 @@ def phase_cycle_real(cy, operands) -> dict:
     those launches, so launches × ms is the kernel's time in the cycle), the
     roofline of that mean launch and the worst error; `shapes` lists each."""
     rho_ref, p_ref, vg, dycfg = operands["column"]
-    rows = {"invsqrt_ns": check_invsqrt(*operands["grams"], "cycle_real")}
+    rows = {"invsqrt_ns": check_invsqrt(*operands["grams"], phase)}
     rows["invsqrt_ns"]["shapes"] = [{"B": rows["invsqrt_ns"]["B"],
                                      "launches": cy["kernel_launches"][
                                          "invsqrt_ns"]}]
@@ -564,9 +720,9 @@ def phase_cycle_real(cy, operands) -> dict:
                      ("nature", per_stage)):
         s = operands[label]
         dyn, adv = stencil_operands(s, rho_ref, p_ref, vg, dycfg)
-        for name, row in (("dyn_tendency", check_dyn(dyn, f"cycle {label}")),
-                          ("adv_ud3", check_adv(adv, f"cycle {label}"))):
-            emit({"phase": "cycle_real", "kernel": name, "run": label,
+        for name, row in (("dyn_tendency", check_dyn(dyn, f"{phase} {label}")),
+                          ("adv_ud3", check_adv(adv, f"{phase} {label}"))):
+            emit({"phase": phase, "kernel": name, "run": label,
                   "batch": int(s.rho.shape[0]), "launches": n, **row})
             parts[name].append((n, int(s.rho.shape[0]), row))
         del dyn, adv
@@ -595,6 +751,118 @@ def phase_cycle_small(device):
     emit({"phase": "cycle_small", **res})
     if not cycle_check_passes(res):
         raise AssertionError(f"GPU cycle disagrees with the CPU one: {res}")
+
+
+def phase_radar_forecast(device):
+    """The radar configuration's forecast at full size: configs/
+    bda_1km_radar.toml unchanged (192×192×48 stretched, K = 50, dt 2 s, 4
+    substeps, Kessler every 5 steps on the per-level thickness) over its
+    30-s window, RADAR_STEPS steps, from a restart ensemble made on the card
+    with rain and cloud blobs (gpu_check.RADAR_QR_BLOB at the peak) and a
+    10 m/s wind. Each Kessler call is wrapped to record how far it moved
+    qc and qr and the least qr it left. Returns the phase's row and a copy
+    of the first member batch of the forecast (the stencil kernels'
+    operands on the radar grid) with the driver's column and metric."""
+    from scale_letkf_torch import cycle as cycle_mod
+    from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
+    from scale_letkf_torch.gpu_check import RADAR_QR_BLOB, RADAR_STEPS
+    from scale_letkf_torch.synthetic import synthetic_ens_dycore_device
+    from scale_letkf_torch.utils import kernels
+
+    cfg, grid, dycfg, dom = load_config_and_grid(str(RADAR_CONFIG))
+    K = cfg.ensemble.member
+    t0 = time.perf_counter()
+    ens, _, _ = synthetic_ens_dycore_device(SEED, K, grid, dom, device,
+                                            u0=FCST_U0, qr_blob=RADAR_QR_BLOB)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    driver = make_driver(cfg, grid, dycfg, dom, device)
+    kessler = cycle_mod.kessler_step
+    calls = []
+
+    def recording(s, dt, dz):
+        out = kessler(s, dt, dz)
+        calls.append({"dt": dt, "max_abs_dqc": float(
+            (out.rhoq[:, 1] - s.rhoq[:, 1]).abs().max()),
+            "max_abs_dqr": float((out.rhoq[:, 2] - s.rhoq[:, 2]).abs().max()),
+            "min_qr": float((out.rhoq[:, 2] / out.rho).min())})
+        return out
+
+    cycle_mod.kessler_step = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = driver.forecast(ens, RADAR_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        cycle_mod.kessler_step = kessler
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in ("dyn_tendency", "adv_ud3")}
+    peak = torch.cuda.max_memory_allocated(device)
+    batches = -(-K // driver.batch)
+    expected = 3 * RADAR_STEPS * batches
+    finite = all(bool(torch.isfinite(f).all()) for f in out)
+    qr = out.rhoq[:, 2] / out.rho
+    fcst_s = driver.timer.records["forecast"]
+    row = {"phase": "radar_forecast", "config": RADAR_CONFIG.name,
+           "grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members": K,
+           "steps": RADAR_STEPS, "dt": dycfg.dt, "n_small": driver.n_small,
+           "phys_interval": driver.phys_interval, "qr_blob": RADAR_QR_BLOB,
+           "u0": FCST_U0, "generate_s": generate_s, "wall_s": wall,
+           "forecast_s": fcst_s,
+           "member_steps_per_s": K * RADAR_STEPS / fcst_s,
+           "sections_s": dict(driver.timer.records),
+           "section_counts": dict(driver.timer.counts),
+           "member_batch": driver.batch, "batches": batches,
+           "peak_mem_gb": peak / 2 ** 30, "kernel_launches": launches,
+           "expected_launches": expected, "kessler_calls": calls,
+           "qr_min": float(qr.min()), "qr_max": float(qr.max()),
+           "finite": finite}
+    emit(row)
+    if not finite:
+        raise AssertionError("the radar forecast is not finite")
+    if any(n != expected for n in launches.values()):
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{expected} each")
+    n_phys = -(-RADAR_STEPS // driver.phys_interval) * batches
+    if len(calls) != n_phys:
+        raise AssertionError(f"{len(calls)} Kessler steps, expected {n_phys}")
+    if not row["qr_min"] >= 0 or any(c["min_qr"] < 0 for c in calls):
+        raise AssertionError(f"negative rain: {row['qr_min']}")
+    if not all(c["max_abs_dqc"] > 0 or c["max_abs_dqr"] > 0 for c in calls):
+        raise AssertionError(f"a Kessler step changed neither qc nor qr: "
+                             f"{calls}")
+    sample = type(out)(*(f[:driver.batch].clone() for f in out))
+    del ens, out, qr
+    return row, (sample, driver.rho_ref, driver.p_ref, driver.vg, dycfg)
+
+
+def phase_radar_real(sample) -> dict:
+    """Both stencil kernels vs plain on one launch's operands of the radar
+    forecast (192×192×48, the forecast's member batch)."""
+    s, rho_ref, p_ref, vg, dycfg = sample
+    dyn, adv = stencil_operands(s, rho_ref, p_ref, vg, dycfg)
+    rows = {"dyn_tendency": check_dyn(dyn, "radar batch"),
+            "adv_ud3": check_adv(adv, "radar batch")}
+    for name, row in rows.items():
+        emit({"phase": "radar_real", "kernel": name,
+              "batch": int(s.rho.shape[0]), **row})
+    return rows
+
+
+def phase_physics_small(device):
+    """The physics schemes alone, the coarsened physics-suite forecast with
+    per-member Davies forcing, the radar configuration's Kessler forecast
+    and its radar cycle, on the card against the CPU
+    (scale_letkf_torch/gpu_check.py coarse_physics_vs_cpu)."""
+    from scale_letkf_torch.gpu_check import (
+        coarse_physics_vs_cpu, physics_check_passes)
+    res = coarse_physics_vs_cpu(device, str(CONFIG), str(RADAR_CONFIG), SEED)
+    emit({"phase": "physics_small", **res})
+    if not physics_check_passes(res):
+        raise AssertionError(f"GPU physics disagrees with the CPU: {res}")
 
 
 def timed_turns(kernel, plain, reps: int = 5) -> dict:
@@ -940,25 +1208,45 @@ def main() -> int:
     del operands
     torch.cuda.empty_cache()
     phase_cycle_small(device)
-    # the kernels line is this slice's main path, the cycle, which runs all
-    # three: its launches, and times on its own operands (phase cycle_real);
-    # launches_by_path: each path's own run, counts reset before it
+    del cy_rows
+    torch.cuda.empty_cache()
+    pc, operands = phase_cycle(device, "physics_cycle", PHYS_STEPS,
+                               physics=True)
+    pc_rows = phase_cycle_real(pc, operands, "physics_real")
+    del operands
+    torch.cuda.empty_cache()
+    rf, sample = phase_radar_forecast(device)
+    radar_rows = phase_radar_real(sample)
+    del sample
+    torch.cuda.empty_cache()
+    phase_physics_small(device)
+    # the kernels line is this slice's main path, the physics cycle, which
+    # runs all three: its launches, and times on its own operands (phase
+    # physics_real); launches_by_path: each path's own run, counts reset
+    # before it; radar_grid: the stencil kernels on the radar forecast's
+    # operands (phase radar_real)
     for name in KERNELS:
-        cy_rows[name]["launches"] = cy["kernel_launches"][name]
-        cy_rows[name]["launches_by_path"] = {
+        pc_rows[name]["launches"] = pc["kernel_launches"][name]
+        pc_rows[name]["launches_by_path"] = {
             "forecast": fc["kernel_launches"].get(name, 0),
             "analysis": sl["kernel_launches"] if name == "invsqrt_ns" else 0,
-            "cycle": cy["kernel_launches"][name]}
+            "cycle": cy["kernel_launches"][name],
+            "physics_cycle": pc["kernel_launches"][name],
+            "radar_forecast": rf["kernel_launches"].get(name, 0)}
+        pc_rows[name]["radar_grid"] = (
+            {k: radar_rows[name][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_share")} if name in radar_rows else None)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     # no single PyTorch call computes any of the three functions (no matrix
     # inverse square root, no such stencil), so library_ms is null
     keys = ("launches", "launches_by_path", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_fp32_ms", "bound_by", "bound_share",
-            "gb_per_s", "tflops", "shapes")
+            "gb_per_s", "tflops", "shapes", "radar_grid")
     emit({"kernels": [{"name": name, "route": "cuda",
                        "source": f"scale_letkf_torch/csrc/{name}.cu",
                        "replaces": REPLACES[name],
-                       **{k: cy_rows[name][k] for k in keys},
+                       **{k: pc_rows[name][k] for k in keys},
                        "library_ms": None}
                       for name in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",

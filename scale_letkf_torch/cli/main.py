@@ -74,10 +74,17 @@ def load_config_and_grid(path: str, domain_overrides: dict | None = None):
 def make_driver(cfg, grid, dycfg, dom, device: torch.device):
     """The forecast driver of the [domain] table on `device`: the balanced
     reference column (with the qv profile when qv_surface > 0), the core
-    and its substeps. topo_file, bdy_file, [physics] and a mesh raise
-    NotImplementedError (CycleDriver names the ROADMAP item)."""
+    and its substeps, Kessler physics (use_physics), the physics suite of a
+    [physics] section (its keys those of PhysicsConfig; others raise
+    ValueError) and Davies relaxation toward a boundary file (bdy_file,
+    bdy_width, bdy_tau). topo_file and a mesh raise NotImplementedError
+    (CycleDriver names the ROADMAP item)."""
+    import dataclasses
+
     from scale_letkf_torch.cycle import CycleDriver
+    from scale_letkf_torch.model.boundary import load_boundary
     from scale_letkf_torch.model.ideal import balanced_state
+    from scale_letkf_torch.model.physics_suite import PhysicsConfig
     qv0 = dom.get("qv_surface", 0.0)
     qv_prof = (qv0 * np.exp(-grid.cz / dom.get("qv_scale_height", 3000.0))
                if qv0 > 0 else None)
@@ -86,15 +93,26 @@ def make_driver(cfg, grid, dycfg, dom, device: torch.device):
         grid.nz, 1, 1, float(grid.fz[1] - grid.fz[0]), qv_prof=qv_prof,
         cz=grid.cz, device=device)
     topo = np.load(dom["topo_file"])["topo"] if dom.get("topo_file") else None
+    bdy = (load_boundary(dom["bdy_file"], device) if dom.get("bdy_file")
+           else None)
+    phys_cfg = None
+    if "physics" in dom:
+        valid = {f.name for f in dataclasses.fields(PhysicsConfig)}
+        unknown = set(dom["physics"]) - valid
+        if unknown:
+            raise ValueError(f"unknown [physics] keys: {sorted(unknown)} "
+                             f"(valid: {sorted(valid)})")
+        phys_cfg = PhysicsConfig(**dom["physics"])
     pc = cfg.process
     mesh = (pc.mesh_member, pc.mesh_y, pc.mesh_x) \
         if pc.mesh_member * pc.mesh_y * pc.mesh_x > 1 else None
     return CycleDriver(grid, cfg, dycfg, rho_ref, p_ref,
                        use_physics=dom.get("use_physics", False),
-                       topo=topo, phys_cfg=dom.get("physics"), mesh=mesh,
+                       topo=topo, phys_cfg=phys_cfg, mesh=mesh,
                        core=dom.get("core", "explicit"),
                        n_small=dom.get("n_small", 6),
-                       bdy=dom.get("bdy_file") or None)
+                       bdy=bdy, bdy_width=dom.get("bdy_width", 0),
+                       bdy_tau=dom.get("bdy_tau", 300.0))
 
 
 def slot_steps_from_cfg(cfg, nsteps: int, dt: float) -> list[int] | None:
@@ -349,9 +367,9 @@ def cmd_cycle(args):
     _no_additive_inflation(cfg, None)
     ens, aux, _ = _load_ens(args.init, device)
     if "tsfc" in aux:
-        raise NotImplementedError(
-            "a persisted slab skin temperature (tsfc, physics suite) is not "
-            "ported yet (ROADMAP queue 1, physics)")
+        # resume the persisted slab skin temperature (physics-suite runs)
+        driver.tsfc = torch.as_tensor(aux["tsfc"], dtype=torch.float32,
+                                      device=device)
     infl = aux.get("infl")
     slot_steps = slot_steps_from_cfg(cfg, args.steps_per_cycle, dycfg.dt)
     # the one reference to the ensemble; pop() hands it to the step, which
@@ -377,8 +395,10 @@ def cmd_cycle(args):
         print(f"=== cycle {c} ===")
         _print_stats(cfg, info)
         del info, hist
-    save_ensemble(args.out, ens.pop(), basename="anal.@@@@",
-                  aux={"infl": infl} if infl is not None else {},
+    aux_out = {"infl": infl} if infl is not None else {}
+    if driver.tsfc is not None:
+        aux_out["tsfc"] = driver.tsfc
+    save_ensemble(args.out, ens.pop(), basename="anal.@@@@", aux=aux_out,
                   meta={"cycles": args.cycles})
     print(driver.timer.report())
 

@@ -35,7 +35,9 @@ TRACER_CV = np.array([CV_VAPOR, CL_WATER, CL_WATER, CI_ICE, CI_ICE, CI_ICE])
 # Virtual temperature factor (common/common.f90: fvirt)
 FVIRT = RV / RD - 1.0
 
-# Saturation vapour pressure over liquid water (Tetens)
+# Saturation vapour pressure over liquid water and over ice (Tetens)
 PSAT0 = 610.78        # [Pa] at T00
 TETENS_A_LIQ = 17.269
 TETENS_B_LIQ = 35.86
+TETENS_A_ICE = 21.875
+TETENS_B_ICE = 7.66

@@ -2,12 +2,18 @@
 
 Port of scale_letkf_tpu/cycle.py CycleDriver (reference workflow:
 scale/run/cycle.sh:141-345, the per-cycle step sequence scale-rm_ens →
-obsope → letkf). The dynamics step is composed from the config
-(split-explicit HEVI for core = 'si', explicit RK3 otherwise; stretched
-levels when the grid's are). The members advance in batches sized from free
-device memory — a leading member axis through the whole step, in place of
-the reference's jax.vmap — and every batch runs the two hand-written
-tendency kernels on a CUDA device. The analysis step runs the obs operator
+obsope → letkf). The forecast is composed from the config:
+the dynamics step (split-explicit HEVI for core = 'si', explicit RK3
+otherwise; stretched levels when the grid's are), Davies relaxation toward
+lateral boundary data after every step (model/boundary.py, over the
+periodic stencils), and Kessler microphysics (use_physics) or the physics
+suite (phys_cfg: microphysics, radiation, surface layer, PBL and a slab skin
+temperature, model/physics_suite.py) every phys_interval steps. The members
+advance in batches sized from free device memory — a leading member axis
+through the whole step, in place of the reference's jax.vmap — and every
+batch runs the two hand-written tendency kernels on a CUDA device; the
+physics and the relaxation are plain PyTorch, as they were plain XLA in the
+reference. The analysis step runs the obs operator
 on the whole ensemble (a leading member axis), the host obs context, and
 `analyze`, whose solver is the hand-written Newton–Schulz kernel.
 
@@ -20,9 +26,8 @@ without keeping a reference). The analysis results carry the guess and
 analysis ensemble mean and spread, not the ensembles.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: physics, lateral boundary forcing from a file (Davies relaxation,
-model/boundary.py), terrain, a device mesh and the explicit halo backends;
-the deterministic member and additive inflation (`analyze` raises).
+item: terrain, a device mesh and the explicit halo backends; the
+deterministic member and additive inflation (`analyze` raises).
 """
 
 from __future__ import annotations
@@ -47,7 +52,14 @@ from scale_letkf_torch.model.dycore import (
     DycoreConfig, DycoreState, from_collocated, make_vgrid, rk3_step,
     to_collocated,
 )
+from scale_letkf_torch.model.boundary import (
+    BoundaryData, apply_boundary_relaxation, relaxation_weight,
+)
 from scale_letkf_torch.model.dycore_si import SplitConfig, rk3_step_si
+from scale_letkf_torch.model.physics import kessler_step
+from scale_letkf_torch.model.physics_suite import (
+    PhysicsConfig, PhysicsState, physics_step, skin_temperature,
+)
 from scale_letkf_torch.obs.types import Observations
 from scale_letkf_torch.state import (
     ensemble_mean, ensemble_spread, state_to_history, state_trans,
@@ -59,11 +71,14 @@ from scale_letkf_torch.utils.timing import Timer
 # at FORECAST_FIELDS_PER_MEMBER member-sized fields (nz·ny·nx floats) per
 # member — the step's live states, slow tendencies, acoustic carries and
 # coefficients, the solve's sweeps and the temporaries of ~40 elementwise
-# passes. Measured: 96 at the 18-km size (peak 54.5 GiB with 13 members a
-# batch beside the 25.6 GiB input and output ensembles, on an NVIDIA H100
-# 80GB HBM3 at 700.00 W).
+# passes, and with the physics suite its radiation cache. Measured at the
+# 18-km size on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py's
+# `forecast_fields_per_member`, the forecast's peak above its input and
+# output ensembles over batch × field): 96.2 for the dynamics alone, 97.5
+# with the physics suite and Davies relaxation; a physics step alone takes
+# 51.5, a relaxation 18.1.
 FORECAST_MEMORY_SHARE = 0.5
-FORECAST_FIELDS_PER_MEMBER = 96
+FORECAST_FIELDS_PER_MEMBER = 98
 
 
 def member_batch(K: int, field_bytes: int, device: torch.device) -> int:
@@ -103,31 +118,28 @@ class CycleDriver:
     - core: 'explicit' (acoustic-resolving RK3) or 'si' (split-explicit
       HEVI, model/dycore_si.py — the reference's TIME_DT = 30 s /
       TIME_DT_ATMOS_DYN = 3 s regime);
-    - stretched vertical levels when the grid's fz is non-uniform.
+    - stretched vertical levels when the grid's fz is non-uniform;
+    - Kessler warm rain every phys_interval steps (use_physics), or the
+      physics suite (phys_cfg) with its per-member slab skin temperature;
+    - Davies relaxation toward `bdy` (BoundaryData, shared by all members
+      or per member) over a buffer of bdy_width cells, time scale bdy_tau.
 
     rho_ref and p_ref (nz, 1, 1) are tensors on the device the cycle runs
-    on; ensembles passed in must be on it too. The topography is flat
-    (z_full from grid.calc_z); physics, terrain, boundary data (`bdy`) and
-    a mesh are not ported yet and raise."""
+    on; ensembles and boundary data passed in must be on it too. The
+    topography is flat (z_full from grid.calc_z); terrain and a mesh are
+    not ported yet and raise."""
 
     def __init__(self, grid: Grid, cfg: Config, dycfg: DycoreConfig,
                  rho_ref: torch.Tensor, p_ref: torch.Tensor,
-                 use_physics: bool = False, topo=None, phys_cfg=None,
+                 use_physics: bool = False, phys_interval: int = 5,
+                 topo=None, phys_cfg: PhysicsConfig | None = None,
                  mesh=None, core: str = "explicit", n_small: int = 6,
-                 bdy=None):
-        if use_physics or phys_cfg is not None:
-            raise NotImplementedError(
-                "physics (use_physics, [physics]) is not ported yet "
-                "(ROADMAP queue 1, physics)")
+                 bdy: BoundaryData | None = None, bdy_width: int = 0,
+                 bdy_tau: float = 300.0):
         if topo is not None and bool(np.any(np.asarray(topo) != 0.0)):
             raise NotImplementedError(
                 "terrain (topo_file, model/terrain.py) is not ported yet "
                 "(ROADMAP queue 1, terrain)")
-        if bdy is not None:
-            raise NotImplementedError(
-                "lateral boundary forcing from a file (bdy_file, Davies "
-                "relaxation, model/boundary.py) is not ported yet (ROADMAP "
-                "queue 1, boundary.py)")
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh is not ported yet (ROADMAP queue 1, parallel/)")
@@ -140,8 +152,12 @@ class CycleDriver:
                              f"'si')")
         self.grid = grid
         self.cfg = cfg
+        self.dycfg = dycfg
         self.rho_ref = rho_ref
         self.p_ref = p_ref
+        self.use_physics = use_physics
+        self.phys_interval = phys_interval
+        self.phys_cfg = phys_cfg
         self.device = rho_ref.device
         self.topo = torch.zeros((grid.ny, grid.nx), dtype=torch.float32,
                                 device=self.device)
@@ -155,6 +171,22 @@ class CycleDriver:
         dzs = np.diff(np.asarray(grid.fz))
         self.vg = (make_vgrid(grid.cz, grid.fz, self.device)
                    if not np.allclose(dzs, dzs[0]) else None)
+        # Kessler alone (use_physics) sediments on the per-level thickness;
+        # the suite runs with the lowest-level thickness on stretched
+        # levels (where PBL mixing concentrates), the reference's known
+        # simplification of column-aware physics
+        self.dz_col = self.vg.dzc if self.vg is not None else dycfg.dz
+        self.dz_phys = dycfg.dz if self.vg is None else float(dzs[0])
+        # Davies relaxation toward self.bdy, whenever a buffer width is set
+        # (bdy may be attached or swapped between cycles)
+        self.bdy = bdy
+        self._bdy_w2d = (relaxation_weight(grid.ny, grid.nx, bdy_width,
+                                           bdy_tau, device=self.device)
+                         if bdy_width > 0 else None)
+        # per-member slab skin temperature (K, ny, nx) of the physics suite:
+        # None until the first forecast cold-starts it, or set from a
+        # checkpoint; threaded across forecast calls
+        self.tsfc = None
         self.batch = None          # members per batch of the last forecast
         if core == "si":
             split = SplitConfig(dtau=dycfg.dt / n_small)
@@ -169,35 +201,143 @@ class CycleDriver:
                                 self.vg, timer=self.timer)
         self._dyn_step = dyn_step
 
-    def forecast_one(self, s: DycoreState, nsteps: int) -> DycoreState:
-        """nsteps dynamics steps of one member (the deterministic run) or of
-        one batch of members (a leading member axis); no physics in this
-        slice."""
-        for _ in range(nsteps):
-            s = self._dyn_step(s)
+    def _step(self, s: DycoreState, t, bdy):
+        """One dynamics step, then the Davies relaxation toward `bdy` at the
+        step's end time t (section `boundary`)."""
+        s = self._dyn_step(s)
+        if self._bdy_w2d is not None and bdy is not None:
+            with self.timer.section("boundary"):
+                s = self._apply_bdy(s, t, bdy)
         return s
 
+    def _apply_bdy(self, s: DycoreState, t, bdy: BoundaryData):
+        """Davies nudging toward the target interpolated at t, the weight
+        clipped to [0, 1]."""
+        bt0, bt1 = np.float32(bdy.t0), np.float32(bdy.t1)
+        a = float(np.clip((t - bt0) / max(bt1 - bt0, np.float32(1e-9)),
+                          0.0, 1.0))
+        target = DycoreState(*((1.0 - a) * x0 + a * x1
+                               for x0, x1 in zip(bdy.state0, bdy.state1)))
+        return apply_boundary_relaxation(s, target, self._bdy_w2d,
+                                         self.dycfg.dt)
+
+    def _chunks(self, s: DycoreState, nsteps: int, t0, bdy, physics=None):
+        """nsteps dynamics steps (each with the relaxation), and
+        physics(s, i, dt_phys) after every phys_interval of them and after
+        the remainder (section `physics`). Times are float32, as the
+        reference's traced clock. Each state is dropped once the next
+        exists: no caller's frame holds a chunk's input across its steps."""
+        chunk = min(self.phys_interval, nsteps) if physics else nsteps
+        n_chunks, rem = divmod(nsteps, max(chunk, 1))
+        dt = self.dycfg.dt
+        for i, n in enumerate([chunk] * n_chunks + [rem] * (rem > 0)):
+            tc = t0 + np.float32(i) * np.float32(chunk * dt)
+            for j in range(n):
+                s = self._step(s, tc + np.float32(j + 1) * np.float32(dt),
+                               bdy)
+            if physics:
+                with self.timer.section("physics"):
+                    s = physics(s, i, dt * n)
+        return s
+
+    def _fcst_phys(self, s: DycoreState, nsteps: int, t0, tsfc0, bdy):
+        """The physics-suite forecast, threading the slab skin temperature;
+        tsfc0 None cold-starts it from the lowest-level air temperature.
+        Returns (state, tsfc). The radiation index restarts at 0 on every
+        call, and step 0 always recomputes radiation, so the cache starts
+        empty (the reference primes it with a call that step 0
+        overwrites)."""
+        tsfc = skin_temperature(s) if tsfc0 is None else tsfc0
+        if nsteps == 0:
+            return s, tsfc
+        phys = [PhysicsState(tsfc=tsfc, drhot_rad=torch.zeros_like(s.rhot),
+                             rad_sfc=torch.zeros_like(tsfc))]
+
+        def suite(s, i, dt_phys):
+            s, phys[0] = physics_step(s, phys[0], i, self.phys_cfg, dt_phys,
+                                      self.dz_phys, self.z_centers,
+                                      self.dycfg.lateral)
+            return s
+
+        s = self._chunks(s, nsteps, t0, bdy, suite)
+        return s, phys[0].tsfc
+
+    def _fcst_one(self, s: DycoreState, nsteps: int, t0, bdy):
+        """nsteps of the composed forecast: dynamics (+ boundary relaxation),
+        with Kessler microphysics (use_physics, the per-level dz) or the
+        physics suite (phys_cfg, cold-started slab) every phys_interval
+        steps."""
+        if nsteps == 0 or (not self.use_physics and self.phys_cfg is None):
+            return self._chunks(s, nsteps, t0, bdy)
+        if self.phys_cfg is not None:
+            return self._fcst_phys(s, nsteps, t0, None, bdy)[0]
+        return self._chunks(s, nsteps, t0, bdy, lambda s, i, dt_phys:
+                            kessler_step(s, dt_phys, self.dz_col))
+
+    def _bdy_batch(self, b0: int, B: int) -> BoundaryData | None:
+        """The boundary data of members b0..b0+B: per-member targets (a
+        leading member axis) sliced, a shared one whole."""
+        bdy = self.bdy
+        if bdy is None or self._bdy_w2d is None:
+            return None
+        if bdy.state0.rho.dim() == 3:
+            return bdy
+        return bdy._replace(**{k: DycoreState(*(
+            f[b0:b0 + B].to(self.device) for f in getattr(bdy, k)))
+            for k in ("state0", "state1")})
+
+    def forecast_one(self, s: DycoreState, nsteps: int,
+                     t0: float = 0.0) -> DycoreState:
+        """nsteps steps of the composed forecast of one member (the
+        deterministic run) or of one batch of members (a leading member
+        axis), from t0 [s] on the boundary data's clock. The physics suite
+        cold-starts its slab. Boundary data must be shared by all members
+        (per-member data needs `forecast`)."""
+        bdy = None if self._bdy_w2d is None else self.bdy
+        if bdy is not None and bdy.state0.rho.dim() != 3:
+            raise ValueError("forecast_one takes boundary data shared by all "
+                             "members; per-member boundary data needs "
+                             "forecast")
+        return self._fcst_one(s, nsteps, np.float32(t0), bdy)
+
     # -- forecast step (scale-rm_ens equivalent) --
-    def forecast(self, ens: DycoreState, nsteps: int) -> DycoreState:
+    def forecast(self, ens: DycoreState, nsteps: int,
+                 t0: float = 0.0) -> DycoreState:
         """The ensemble forecast (K leading on every field), in member
         batches sized from free device memory (member_batch), written into
-        a new ensemble; timed as section `forecast` (with `tendencies`,
-        `acoustic` and `sponge` inside)."""
+        a new ensemble; t0 [s]: the start on the boundary data's clock.
+        With the physics suite the per-member slab skin temperature
+        (self.tsfc) is cold-started on the first call and threaded across
+        calls. Timed as section `forecast` (with `tendencies`, `acoustic`,
+        `sponge`, `physics` and `boundary` inside)."""
         with self.timer.section("forecast"):
             K = ens.rho.shape[0]
             out = DycoreState(*(torch.empty_like(f) for f in ens))
             field_bytes = ens.rho[0].numel() * ens.rho.element_size()
             self.batch = B = member_batch(K, field_bytes, self.device)
+            t0 = np.float32(t0)
+            if self.phys_cfg is not None:
+                tsfc = (skin_temperature(ens) if self.tsfc is None
+                        else torch.as_tensor(self.tsfc, dtype=torch.float32,
+                                             device=self.device))
+                tsfc_out = torch.empty_like(tsfc)
             for b0 in range(0, K, B):
-                res = self.forecast_one(
-                    DycoreState(*(f[b0:b0 + B] for f in ens)), nsteps)
+                batch = DycoreState(*(f[b0:b0 + B] for f in ens))
+                bdy = self._bdy_batch(b0, B)
+                if self.phys_cfg is not None:
+                    res, tsfc_out[b0:b0 + B] = self._fcst_phys(
+                        batch, nsteps, t0, tsfc[b0:b0 + B], bdy)
+                else:
+                    res = self._fcst_one(batch, nsteps, t0, bdy)
                 for dst, src in zip(out, res):
                     dst[b0:b0 + B] = src
-                del res
+                del res, batch
+            if self.phys_cfg is not None:
+                self.tsfc = tsfc_out
             return out
 
     def forecast_slots(self, ens: DycoreState, nsteps: int,
-                       slot_steps: list[int]
+                       slot_steps: list[int], t0: float = 0.0
                        ) -> tuple[DycoreState, torch.Tensor]:
         """Forecast with per-slot history snapshots for 4-D H(x) (the
         reference model's LTIMESLOT history output). slot_steps: step counts
@@ -212,7 +352,8 @@ class CycleDriver:
         cur = 0
         for pt in points:
             if pt > cur:
-                state = self.forecast(state, pt - cur)
+                state = self.forecast(state, pt - cur,
+                                      t0=t0 + cur * self.dycfg.dt)
                 cur = pt
             if pt == nsteps:
                 state_at_n = state
@@ -266,8 +407,11 @@ class CycleDriver:
                 hx = obsope_slots(hist_slots, obs, self.grid, cfg,
                                   self.z_full, self.topo, slots)
             else:
+                # with the physics suite, stability-corrected screen
+                # diagnostics from the persisted skin temperature
                 hx = obsope_ensemble(
-                    state_to_history(gues, self.z_full, self.topo), obs,
+                    state_to_history(gues, self.z_full, self.topo,
+                                     tsfc=self.tsfc), obs,
                     self.grid, cfg, self.z_full)
 
         with self.timer.section("process_obs"):
@@ -300,7 +444,9 @@ class CycleDriver:
         # (ctx.dat: radar reflectivity in dBZ, as H(x) returns it)
         with self.timer.section("monitor"):
             y_a, _ = compute_hx_single(
-                state_to_history(anal_mean, self.z_full, self.topo), obs,
+                state_to_history(anal_mean, self.z_full, self.topo,
+                                 tsfc=None if self.tsfc is None
+                                 else torch.mean(self.tsfc, dim=0)), obs,
                 self.grid, cfg, self.z_full)
             oma = ctx.dat - y_a.cpu().numpy().astype(np.float64)
             stats_anal = monit_dep(ctx.elem, oma, ctx.qc)

@@ -41,6 +41,27 @@ hold against the reference package.
   terminal velocity (obsope_ensemble). H(x) per element within 2e-5 of its
   range over the obs plus 4 float32 ulp of its largest magnitude (12 for
   PS), the bound of the CPU parity tests; QC equal.
+- Physics modules: each scheme alone (Kessler and NSW6 on stretched
+  levels, radiation, the surface layer, the PBL step, three physics-suite
+  steps) on physics_state's small seeded states (3 members, 8 levels),
+  at the bounds of tests/test_torch_physics.py — a returned state per field
+  to 1e-4·max|increment| plus 4 ulp of max|field|, a diagnostic or
+  tendency to 3e-5 of its largest magnitude plus 4 ulp — plus twice the
+  CPU's own rounding floor, as the forecast's: the surface fluxes move by
+  up to 2.4e-4 of their largest value when their inputs are rounded once
+  (a bulk Richardson number of near-equal virtual temperatures).
+- Physics paths: the physics-suite forecast of the 18-km configuration
+  (nsw6, radiation every 10 physics steps, slab capacity 2e5) at 32×24
+  columns and its 36 levels, K = 4, with Davies relaxation (3-cell buffer)
+  toward per-member boundary data, two forecasts (7 steps, then 3) that
+  thread the slab skin temperature; the Kessler forecast of
+  configs/bda_1km_radar.toml at 24×24 columns and its 48 levels, K = 4,
+  over its 30-s window (15 steps) from an ensemble with rain blobs; and a
+  run_osse cycle of that radar configuration (K = 20, 5 steps) whose obs
+  are radar reflectivity and radial velocity made by obsmake from the
+  nature run's blobs. Bounds as the forecast's (1e-4·max|increment| plus
+  twice the CPU's own rounding floor, per field and for the skin
+  temperature), the obs QC equal.
 """
 
 from __future__ import annotations
@@ -57,6 +78,7 @@ from scale_letkf_torch.da.obsope import (
     assign_slots, obsope_ensemble, obsope_slots,
 )
 from scale_letkf_torch.model import dycore
+from scale_letkf_torch.model.boundary import BoundaryData
 from scale_letkf_torch.obs.types import (
     ID_PS, ID_RADAR_REF, ID_RADAR_VR, OBELM_NAMES, TYP_PHARAD, Observations,
     uid_obs,
@@ -66,8 +88,8 @@ from scale_letkf_torch.state import (
     IA_Q0, NQ, NV3D, V3D_ANAL_NAMES, state_to_history, state_trans,
 )
 from scale_letkf_torch.synthetic import (
-    smooth_noise, synthetic_conv_network, synthetic_ens_dycore_device,
-    synthetic_gues,
+    base_boundary, smooth_noise, synthetic_conv_network,
+    synthetic_ens_dycore_device, synthetic_gues,
 )
 from scale_letkf_torch.utils import kernels
 
@@ -78,6 +100,15 @@ DX, DT = 18000.0, 30.0          # the 18-km configuration's dx = dy and dt
 COARSE = {"nx": 24, "ny": 20, "nz": 4}
 MEMBERS = 20
 COARSE_FCST = {"nx": 32, "ny": 24, "nz": 12}
+COARSE_PHYS = {"nx": 32, "ny": 24}
+COARSE_RADAR = {"nx": 24, "ny": 24}
+MEMBERS_PHYS = 4
+# the reference bench's physics suite of the 18-km production composition
+# (scale_letkf_tpu/bench_fullsize.py _make_fullsize_driver)
+PHYS_PROD = {"mp_scheme": "nsw6", "rad_interval": 10,
+             "slab_capacity": 2.0e5}
+RADAR_STEPS = 15        # configs/bda_1km_radar.toml's 30-s window at dt 2 s
+RADAR_QR_BLOB = 2e-3
 MEMBERS_FCST = 4
 STEPS_FCST = 3
 MEMBERS_CYCLE = 20
@@ -477,3 +508,400 @@ def cycle_check_passes(res: dict) -> bool:
                     and {"REF", "Vr"} <= set(r["max_err_over_tol"])
                     and all(e <= 1 for e in r["max_err_over_tol"].values())
                     for r in hx))
+
+
+# --- physics ---------------------------------------------------------------
+PHYS_SHAPE = (3, 8, 6, 10)      # members, levels, y, x of physics_state
+PHYS_FZ = np.concatenate([[0.0], np.cumsum(1000.0 * 1.1 ** np.arange(8))])
+PHYS_CZ = 0.5 * (PHYS_FZ[1:] + PHYS_FZ[:-1])
+
+
+def _qsat_liq_np(t, p):
+    es = 610.78 * np.exp(17.269 * (t - 273.15) / (t - 35.86))
+    return 0.622 * es / np.maximum(p - 0.378 * es, 1.0)
+
+
+def physics_state(seed: int = 0, layered: bool = False):
+    """Seeded states for the physics schemes: (DycoreState of float32 numpy
+    arrays, members leading; skin temperature (members, ny, nx)). 8 levels
+    of 1 km × 1.1ᵏ (ztop ≈ 11 km: warm and cold air), θ = 300 K + 4 K/km
+    with 0.5-K noise, 0.2% density noise, winds ±3 m/s about (5, 0), qv
+    60-110% of liquid saturation, each hydrometeor zero in half the cells
+    and up to a few g/kg in the rest (qs below 0.6 or above 1.5 g/kg, away
+    from the riming gate at 1 g/kg); the skin 1.5-6 K above or below the
+    lowest level's air. layered: θ steps of 1-4 K between levels, up or
+    down at random, and qv 80% of the base column's saturation, so stable
+    and unstable interfaces both occur, each well away from neutral."""
+    K, nz, ny, nx = PHYS_SHAPE
+    rng = np.random.default_rng(seed)
+    theta1d = 300.0 + 0.004 * PHYS_CZ
+    rho1d, p1d = dycore.hydrostatic_reference(theta1d, 1000.0, cz=PHYS_CZ)
+    shape = (K, nz, ny, nx)
+    kappa = dycore.RD / dycore.CPDRY
+
+    def col(a):
+        return np.asarray(a)[:, None, None]
+
+    theta = col(theta1d) + 0.5 * rng.standard_normal(shape)
+    rho = col(rho1d) * (1.0 + 0.002 * rng.standard_normal(shape))
+    qsat = _qsat_liq_np(col(theta1d * (p1d / 1.0e5) ** kappa), col(p1d))
+    qv = rng.uniform(0.6, 1.1, shape) * qsat
+    if layered:
+        step = rng.uniform(1.0, 4.0, shape) * rng.choice([-1.0, 1.0], shape)
+        theta = 300.0 + np.cumsum(step, axis=1)
+        qv = 0.8 * qsat * np.ones(shape)
+
+    def sparse(lo, hi):
+        q = rng.uniform(lo, hi, shape)
+        return np.where(rng.random(shape) < 0.5, 0.0, q)
+
+    qs = sparse(0.2e-3, 0.6e-3)
+    qs = np.where(rng.random(shape) < 0.5, qs, sparse(1.5e-3, 3e-3))
+    q = np.stack([qv, sparse(1e-4, 2e-3), sparse(1e-4, 3e-3),
+                  sparse(1e-4, 1e-3), qs, sparse(1e-4, 2e-3)], axis=1)
+    rhow = 0.05 * rng.standard_normal((K, nz + 1, ny, nx)) * col(
+        np.r_[rho1d, rho1d[-1]])
+    rhow[:, 0] = rhow[:, -1] = 0.0
+    s = dycore.DycoreState(
+        rho=rho, rhou=rho * (5.0 + 3.0 * rng.standard_normal(shape)),
+        rhov=rho * 3.0 * rng.standard_normal(shape), rhow=rhow,
+        rhot=rho * theta, rhoq=q * rho[:, None])
+    s = dycore.DycoreState(*(np.asarray(f, np.float32) for f in s))
+    t1 = s.rhot[:, 0] / s.rho[:, 0] * (p1d[0] / 1.0e5) ** kappa
+    dt = rng.uniform(1.5, 6.0, (K, ny, nx)) * rng.choice([-1.0, 1.0],
+                                                         (K, ny, nx))
+    return s, (t1 + dt).astype(np.float32)
+
+
+def _ulp(a: np.ndarray) -> float:
+    return float(np.spacing(np.float32(np.abs(a).max())))
+
+
+def _over_tol(a, b, tol, alt) -> float:
+    """max|a − b| / (tol + 2·max|alt − b|): alt, b's run from inputs
+    perturbed by one rounding, adds twice that floor to the bound."""
+    a, b, alt = (np.asarray(x, np.float64) for x in (a, b, alt))
+    return float(np.abs(a - b).max() / (tol + 2 * np.abs(alt - b).max()))
+
+
+def state_over_tol(out, init, ref, alt) -> float:
+    """Worst field of |out − ref| over 1e-4·max|ref − init| + 4 ulp(max|ref|)
+    plus twice the rounding floor."""
+    return max(_over_tol(a, b, 1e-4 * np.abs(np.asarray(b, np.float64)
+                                             - np.asarray(f0)).max()
+                         + 4 * _ulp(b), c)
+               for a, f0, b, c in zip(out, init, ref, alt))
+
+
+def diag_over_tol(outs, refs, alts) -> float:
+    """Worst output of |out − ref| over 3e-5·max|ref| + 4 ulp(max|ref|)
+    plus twice the rounding floor."""
+    return max(_over_tol(a, b, 3e-5 * np.abs(b).max() + 4 * _ulp(b), c)
+               for a, b, c in zip(outs, refs, alts))
+
+
+def physics_modules_vs_cpu(device: torch.device, seed: int = 0) -> dict:
+    """Every physics scheme alone on physics_state's states, on `device`
+    and twice on the CPU (the second from inputs perturbed by one rounding,
+    relative 2⁻²⁴·N(0,1)): per scheme the worst |Δ| over its bound plus
+    twice the CPU's own rounding floor (≤ 1 passes), and that floor over
+    the bound. The surface layer gets its lowest-level inputs made once on
+    the CPU, so both devices start from the same numbers."""
+    from scale_letkf_torch.model import (
+        microphysics6, pbl, physics, physics_suite, radiation, surface,
+    )
+    cpu = torch.device("cpu")
+    dt = 30.0
+    dz = float(PHYS_FZ[1] - PHYS_FZ[0])
+
+    def sfc_inputs(s_np, tsfc_np):
+        s = dycore.DycoreState(*(torch.as_tensor(f) for f in s_np))
+        temp, p = physics.temperature(s, s.rhoq / s.rho.unsqueeze(-4))
+        lev0 = [f[:, 0] for f in (s.rhou / s.rho, s.rhov / s.rho, temp,
+                                  s.rhoq[:, 0] / s.rho, p, s.rho)]
+        z1 = np.float32(PHYS_CZ[0])
+        psfc = lev0[4] + lev0[5] * 9.81 * z1
+        return [f.numpy() for f in lev0] + [np.asarray(z1), tsfc_np,
+                                            psfc.numpy()]
+
+    def kessler(s, tsfc, sfc, dev):
+        vg = dycore.make_vgrid(PHYS_CZ, PHYS_FZ, dev)
+        return (physics.kessler_step(s, dt, vg.dzc),)
+
+    def nsw6(s, tsfc, sfc, dev):
+        vg = dycore.make_vgrid(PHYS_CZ, PHYS_FZ, dev)
+        return (microphysics6.nsw6_step(s, dt, vg.dzc),)
+
+    def rad(s, tsfc, sfc, dev):
+        return ((), radiation.radiation_step(s, dz, 0.5, 0.2, 0.98, tsfc))
+
+    def sfc_(s, tsfc, sfc, dev):
+        return ((), surface.surface_fluxes(*sfc))
+
+    def pbl_(s, tsfc, sfc, dev):
+        zc = torch.as_tensor(PHYS_CZ, dtype=torch.float32, device=dev)
+        res = pbl.pbl_step(s, dt, dz, zc, tsfc)
+        return res.state, res.sfc
+
+    def suite(s, tsfc, sfc, dev):
+        pcfg = physics_suite.PhysicsConfig(mp_scheme="nsw6", rad_interval=2,
+                                           slab_capacity=2.0e5)
+        zc = torch.as_tensor(PHYS_CZ, dtype=torch.float32, device=dev)
+        ph = physics_suite.init_physics_state(s, dz, pcfg)
+        for i, dt_i in enumerate((5 * dt, 5 * dt, 3 * dt)):
+            s, ph = physics_suite.physics_step(s, ph, i, pcfg, dt_i, dz, zc)
+        return s, ph
+
+    def run(dev, fn, s_np, tsfc_np, sfc_np):
+        def t(a):
+            return torch.as_tensor(a, device=dev)
+        out = fn(dycore.DycoreState(*map(t, s_np)), t(tsfc_np),
+                 [t(a) for a in sfc_np], dev)
+        return [[x.cpu().numpy() for x in part] for part in out]
+
+    rng = np.random.default_rng(seed + 7)
+
+    def rounded(a):
+        return (a * (1.0 + 2.0 ** -24 * rng.standard_normal(np.shape(a)))
+                ).astype(np.float32)
+
+    err, floor = {}, {}
+    for name, fn, layered in (("kessler", kessler, False),
+                              ("nsw6", nsw6, False), ("radiation", rad, False),
+                              ("surface", sfc_, False), ("pbl", pbl_, True),
+                              ("physics_step", suite, False)):
+        s_np, tsfc_np = physics_state(seed, layered)
+        args = (s_np, tsfc_np, sfc_inputs(s_np, tsfc_np))
+        got = run(device, fn, *args)
+        want = run(cpu, fn, *args)
+        alt = run(cpu, fn, type(s_np)(*map(rounded, s_np)),
+                  rounded(tsfc_np), [rounded(a) for a in args[2]])
+        err[name] = floor[name] = 0.0
+        if got[0]:
+            err[name] = state_over_tol(got[0], s_np, want[0], alt[0])
+            floor[name] = state_over_tol(alt[0], s_np, want[0], want[0])
+        if len(got) > 1:
+            err[name] = max(err[name], diag_over_tol(got[1], want[1],
+                                                     alt[1]))
+            floor[name] = max(floor[name], diag_over_tol(alt[1], want[1],
+                                                         want[1]))
+    return {"max_err_over_tol": err, "rounding_floor_over_tol": floor}
+
+
+def _rounded(s, gen):
+    return type(s)(*(f * (1.0 + 2.0 ** -24 * torch.randn(
+        f.shape, generator=gen)) for f in s))
+
+
+def _err_floor(names, dev_out, cpu_out, cpu_rounded, init):
+    """Per field: |Δ| / (1e-4·max|increment| · (1 + 2·floor)) and the floor,
+    the rounded CPU run's change over 1e-4·max|increment|."""
+    err, floor = {}, {}
+    for name, a, b, c, f0 in zip(names, dev_out, cpu_out, cpu_rounded, init):
+        scale = 1e-4 * np.abs(b - np.asarray(f0)).max()
+        floor[name] = float(np.abs(c - b).max() / scale)
+        err[name] = float(np.abs(a - b).max() / (scale * (1 + 2 * floor[name])))
+    return err, floor
+
+
+def per_member_boundary(grid, dom, K: int, device) -> BoundaryData:
+    """Per-member Davies targets: from the balanced base state (t0 = 0) to
+    the base warmed by 0.1·(m + 1)% for member m with a 5 m/s wind (t1 =
+    3600 s)."""
+    base = base_boundary(grid, dom, device).state0
+    s0 = dycore.DycoreState(*(f.expand((K,) + f.shape).contiguous()
+                              for f in base))
+    warm = torch.tensor([1.0 + 1e-3 * (m + 1) for m in range(K)],
+                        device=device)[:, None, None, None]
+    s1 = s0._replace(rhot=s0.rhot * warm, rhou=s0.rho * 5.0)
+    return BoundaryData(s0, s1, 0.0, 3600.0)
+
+
+def physics_forecast_vs_cpu(device: torch.device, config: str,
+                            seed: int = 0) -> dict:
+    """The 18-km physics-suite forecast with per-member Davies forcing at
+    COARSE_PHYS, K = MEMBERS_PHYS: 7 steps from t0 = 0 then 3 from 210 s,
+    on `device` and twice on the CPU (the second from inputs perturbed by
+    one rounding). Worst |Δ| over its bound per field of the final state
+    and for the skin temperature after each forecast, the floors, the
+    stencil kernels' launches and the timer's physics and boundary
+    sections."""
+    from scale_letkf_torch.cli.main import make_driver
+    cfg, grid, dycfg, dom = load_config_and_grid(config, COARSE_PHYS)
+    dom = {**dom, "physics": PHYS_PROD, "bdy_width": 3}
+    cpu = torch.device("cpu")
+    ens0, _, _ = synthetic_ens_dycore_device(seed, MEMBERS_PHYS, grid, dom,
+                                             cpu, u0=10.0, amp_theta=2.0)
+    gen = torch.Generator().manual_seed(seed + 3)
+    runs = {}
+    for key, dev, init in (("device", device, ens0), ("cpu", cpu, ens0),
+                           ("cpu_rounded", cpu, _rounded(ens0, gen))):
+        driver = make_driver(cfg, grid, dycfg, dom, dev)
+        driver.bdy = per_member_boundary(grid, dom, MEMBERS_PHYS, dev)
+        before = dict(kernels.LAUNCHES)
+        e1 = driver.forecast(type(init)(*(f.to(dev) for f in init)), 7)
+        tsfc1 = driver.tsfc.cpu().numpy()
+        e2 = driver.forecast(e1, 3, t0=210.0)
+        runs[key] = {"state": [f.cpu().numpy() for f in e2],
+                     "tsfc": [tsfc1, driver.tsfc.cpu().numpy()],
+                     "launches": {k: kernels.LAUNCHES[k] - before[k]
+                                  for k in ("dyn_tendency", "adv_ud3")},
+                     "sections": {k: driver.timer.counts.get(k, 0) for k in
+                                  ("forecast/physics", "forecast/boundary")}}
+    err, floor = _err_floor(ens0._fields, runs["device"]["state"],
+                            runs["cpu"]["state"], runs["cpu_rounded"]["state"],
+                            ens0)
+    from scale_letkf_torch.model.physics_suite import skin_temperature
+    cold = skin_temperature(ens0).numpy()
+    for i in range(2):
+        e, f = _err_floor(("tsfc",), [runs["device"]["tsfc"][i]],
+                          [runs["cpu"]["tsfc"][i]],
+                          [runs["cpu_rounded"]["tsfc"][i]], [cold])
+        err[f"tsfc{i + 1}"], floor[f"tsfc{i + 1}"] = e["tsfc"], f["tsfc"]
+    return {"grid": f"{grid.nx}x{grid.ny}x{grid.nz}",
+            "members": MEMBERS_PHYS, "steps": [7, 3],
+            "kernel_launches": {k: runs[k]["launches"]
+                                for k in ("device", "cpu")},
+            "sections": runs["device"]["sections"],
+            "rounding_floor_over_1e-4_increment": floor,
+            "finite": all(bool(np.isfinite(f).all())
+                          for f in runs["device"]["state"]),
+            "max_err_over_tol": err}
+
+
+def kessler_forecast_vs_cpu(device: torch.device, config: str,
+                            seed: int = 0) -> dict:
+    """The radar configuration's Kessler forecast over its window
+    (RADAR_STEPS) at COARSE_RADAR, K = MEMBERS_PHYS, from an ensemble with
+    rain blobs, on `device` and twice on the CPU. Worst |Δ| over its bound
+    per field, the floors and the stencil kernels' launches."""
+    from scale_letkf_torch.cli.main import make_driver
+    cfg, grid, dycfg, dom = load_config_and_grid(config, COARSE_RADAR)
+    cpu = torch.device("cpu")
+    ens0, _, _ = synthetic_ens_dycore_device(
+        seed, MEMBERS_PHYS, grid, dom, cpu, u0=5.0, qr_blob=RADAR_QR_BLOB)
+    gen = torch.Generator().manual_seed(seed + 4)
+    out, launches = {}, {}
+    for key, dev, init in (("device", device, ens0), ("cpu", cpu, ens0),
+                           ("cpu_rounded", cpu, _rounded(ens0, gen))):
+        driver = make_driver(cfg, grid, dycfg, dom, dev)
+        before = dict(kernels.LAUNCHES)
+        res = driver.forecast(type(init)(*(f.to(dev) for f in init)),
+                              RADAR_STEPS)
+        out[key] = [f.cpu().numpy() for f in res]
+        launches[key] = {k: kernels.LAUNCHES[k] - before[k]
+                         for k in ("dyn_tendency", "adv_ud3")}
+    err, floor = _err_floor(ens0._fields, out["device"], out["cpu"],
+                            out["cpu_rounded"], ens0)
+    return {"grid": f"{grid.nx}x{grid.ny}x{grid.nz}",
+            "members": MEMBERS_PHYS, "steps": RADAR_STEPS,
+            "kernel_launches": launches,
+            "rounding_floor_over_1e-4_increment": floor,
+            "finite": all(bool(np.isfinite(f).all()) for f in out["device"]),
+            "max_err_over_tol": err}
+
+
+def radar_template(grid, dom: dict, seed: int, n: int = 400) -> Observations:
+    """Radar reflectivity and radial velocity obs (alternating) 1-10 km
+    from the configuration's radar site (radar_lon, radar_lat, radar_z),
+    0.3-5 km high, values to be made by obsmake."""
+    rng = np.random.default_rng(seed)
+    site = (dom["radar_lon"], dom["radar_lat"], dom.get("radar_z", 0.0))
+    dist = rng.uniform(1e3, 10e3, n)
+    ang = rng.uniform(0.0, 2 * np.pi, n)
+    return Observations(
+        elem=np.where(np.arange(n) % 2 == 0, ID_RADAR_REF, ID_RADAR_VR),
+        lon=site[0] + dist * np.sin(ang) / (111e3 * np.cos(np.radians(
+            site[1]))),
+        lat=site[1] + dist * np.cos(ang) / 111e3,
+        lev=rng.uniform(300.0, 5e3, n), dat=np.zeros(n), err=np.ones(n),
+        typ=np.full(n, TYP_PHARAD), dif=np.zeros(n), meta=np.asarray(site))
+
+
+def radar_cycle_vs_cpu(device: torch.device, config: str,
+                       seed: int = 0) -> dict:
+    """One run_osse cycle of the radar configuration at COARSE_RADAR with
+    K = MEMBERS_CYCLE, 5 steps (Kessler at step 5), from an ensemble and a
+    nature run with rain blobs, the obs radar reflectivity and radial
+    velocity that obsmake makes from the nature run (calc_ref_vr), on
+    `device` and twice on the CPU. As osse_vs_cpu."""
+    from scale_letkf_torch.cli.main import make_driver
+    cfg, grid, dycfg, dom = load_config_and_grid(config, COARSE_RADAR)
+    cfg.ensemble.member = K = MEMBERS_CYCLE
+    cpu = torch.device("cpu")
+    kw = {"u0": 5.0, "qr_blob": RADAR_QR_BLOB}
+    ens0, _, _ = synthetic_ens_dycore_device(seed, K, grid, dom, cpu, **kw)
+    nat, _, _ = synthetic_ens_dycore_device(seed + 1, 1, grid, dom, cpu, **kw)
+    truth0 = type(nat)(*(f[0] for f in nat))
+    template = radar_template(grid, dom, seed)
+    gen = torch.Generator().manual_seed(seed + 5)
+    runs, steps = {}, 5
+    for key, dev, t0, e0 in (("device", device, truth0, ens0),
+                             ("cpu", cpu, truth0, ens0),
+                             ("cpu_rounded", cpu, _rounded(truth0, gen),
+                              _rounded(ens0, gen))):
+        driver = make_driver(cfg, grid, dycfg, dom, dev)
+        before = dict(kernels.LAUNCHES)
+        truth, ens, res = driver.run_osse(
+            type(t0)(*(f.to(dev) for f in t0)),
+            type(e0)(*(f.to(dev) for f in e0)), template, n_cycles=1,
+            steps_per_cycle=steps, seed=seed)
+        runs[key] = {
+            "state": [f.cpu().numpy() for f in (*ens, *truth)],
+            "qc": res.info["obsdep"].qc, "nobs": res.stats_gues[0].nobs,
+            "launches": {k: kernels.LAUNCHES[k] - before[k]
+                         for k in KERNELS},
+            "expected": expected_launches(cfg, grid, steps,
+                                          -(-K // driver.batch),
+                                          res.info["diag"].chunk)}
+    names = ([f"ens.{n}" for n in ens0._fields]
+             + [f"nature.{n}" for n in truth0._fields])
+    err, floor = _err_floor(names, runs["device"]["state"],
+                            runs["cpu"]["state"], runs["cpu_rounded"]["state"],
+                            (*ens0, *truth0))
+    return {"grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members": K,
+            "steps": steps, "nobs_by_element": runs["device"]["nobs"],
+            "kernel_launches": {k: runs[k]["launches"]
+                                for k in ("device", "cpu")},
+            "expected_launches": runs["device"]["expected"],
+            "qc_equal": bool(np.array_equal(runs["device"]["qc"],
+                                            runs["cpu"]["qc"])),
+            "rounding_floor_over_1e-4_increment": floor,
+            "finite": all(bool(np.isfinite(f).all())
+                          for f in runs["device"]["state"]),
+            "max_err_over_tol": err}
+
+
+def coarse_physics_vs_cpu(device: torch.device, config: str,
+                          radar_config: str, seed: int = 0) -> dict:
+    """The physics checks on `device` against the CPU: every scheme alone,
+    the 18-km physics-suite forecast with per-member Davies forcing, the
+    radar configuration's Kessler forecast and its run_osse cycle."""
+    return {"modules": physics_modules_vs_cpu(device, seed),
+            "suite": physics_forecast_vs_cpu(device, config, seed),
+            "kessler": kessler_forecast_vs_cpu(device, radar_config, seed),
+            "radar_cycle": radar_cycle_vs_cpu(device, radar_config, seed)}
+
+
+def physics_check_passes(res: dict) -> bool:
+    """Whether coarse_physics_vs_cpu's result passes: every error within its
+    bound, finite, the stencil kernels launched on the device (3 stages ×
+    steps) and never on the CPU, every kernel of the radar cycle launched as
+    expected, its QC equal and radar obs of both kinds assimilated."""
+    fc = [res["suite"], res["kessler"]]
+    cyc = res["radar_cycle"]
+    steps = [sum(res["suite"]["steps"]), res["kessler"]["steps"]]
+    return (all(e <= 1 for e in res["modules"]["max_err_over_tol"].values())
+            and all(r["finite"] and all(e <= 1 for e in
+                                        r["max_err_over_tol"].values())
+                    for r in (*fc, cyc))
+            and all(all(n == 3 * st for n in r["kernel_launches"][
+                "device"].values()) and not any(r["kernel_launches"][
+                    "cpu"].values()) for r, st in zip(fc, steps))
+            and res["suite"]["sections"]["forecast/physics"] == 3
+            and res["suite"]["sections"]["forecast/boundary"] == 10
+            and cyc["qc_equal"]
+            and cyc["kernel_launches"]["device"] == cyc["expected_launches"]
+            and not any(cyc["kernel_launches"]["cpu"].values())
+            and cyc["nobs_by_element"]["REF"] > 0
+            and cyc["nobs_by_element"]["Vr"] > 0)

@@ -111,13 +111,12 @@ def state_to_history(anal: torch.Tensor, z_full: torch.Tensor,
     one new full field), hgt (z_full expanded); 2-D: topo (expanded; None is
     flat) and the surface diagnostics from the lowest level — ps
     (hydrostatic, level-1 virtual temperature), t2m (θ-conserving reduction
-    to 2 m), u10m/v10m (neutral log profile), q2m (level-1 qv). The
-    stability-corrected diagnostics from a slab skin temperature (tsfc)
-    need model/surface.py, which is not ported."""
-    if tsfc is not None:
-        raise NotImplementedError(
-            "screen diagnostics from a slab skin temperature (tsfc, "
-            "model/surface.py) are not ported yet (ROADMAP queue 1, physics)")
+    to 2 m), u10m/v10m (neutral log profile), q2m (level-1 qv).
+
+    tsfc: the slab skin temperature (..., ny, nx) of the physics suite
+    (CycleDriver persists it across forecasts). When given, t2m, q2m, u10m
+    and v10m come from model/surface.py's stability-corrected bulk surface
+    layer (Louis scheme) instead of the neutral reductions."""
     names3d = ("u", "v", "w", "t", "p", "q", "qc", "qr", "qi", "qs", "qg")
     lead = anal.shape[:-4]
     f = {n: anal[..., i, :, :, :] for i, n in enumerate(names3d)}
@@ -143,9 +142,17 @@ def state_to_history(anal: torch.Tensor, z_full: torch.Tensor,
     r10 = torch.clamp(np.log(10.0 / z0)
                       / torch.log(torch.clamp(z1, min=2.0 * z0) / z0),
                       0.0, 1.0)
-    f["u10m"] = f["u"][..., 0, :, :] * r10
-    f["v10m"] = f["v"][..., 0, :, :] * r10
+    u1, v1 = f["u"][..., 0, :, :], f["v"][..., 0, :, :]
+    f["u10m"] = u1 * r10
+    f["v10m"] = v1 * r10
     f["q2m"] = qv1
+
+    if tsfc is not None:
+        from scale_letkf_torch.model.surface import surface_fluxes
+        sf = surface_fluxes(u1, v1, t1, qv1, p1, p1 / (RD * tv1), z1,
+                            torch.as_tensor(tsfc, dtype=t1.dtype,
+                                            device=t1.device), ps, z0=z0)
+        f.update(t2m=sf.t2, q2m=sf.q2, u10m=sf.u10, v10m=sf.v10)
     return f
 
 

@@ -17,6 +17,7 @@ import torch
 
 from scale_letkf_torch.constants import CVDRY, GRAV, PRE00, RD
 from scale_letkf_torch.obs.types import Observations, ID_U, ID_V, ID_T, ID_Q, ID_PS
+from scale_letkf_torch.model.boundary import BoundaryData
 from scale_letkf_torch.model.dycore import DycoreState, hydrostatic_reference
 from scale_letkf_torch.model.ideal import standard_theta_profile
 from scale_letkf_torch.state import (
@@ -92,10 +93,51 @@ def synthetic_gues_device(seed: int, K: int, nz: int, ny: int, nx: int,
     return out
 
 
+def _base_columns(grid, dom: dict):
+    """Float32 (θ, ρ, qv) base columns of the grid: the standard θ profile,
+    its hydrostatic density, and the [domain] qv profile (qv_surface,
+    qv_scale_height; zero without qv_surface)."""
+    cz = np.asarray(grid.cz)
+    dz0 = float(np.asarray(grid.fz)[1] - np.asarray(grid.fz)[0])
+    theta = standard_theta_profile(grid.nz, dz0, cz=cz)
+    rho1d, _ = hydrostatic_reference(theta, dz0, cz=cz)
+    qv0 = dom.get("qv_surface", 0.0)
+    qv = (qv0 * np.exp(-cz / dom.get("qv_scale_height", 3000.0))
+          if qv0 > 0 else np.zeros(grid.nz))
+    return (theta.astype(np.float32), rho1d.astype(np.float32),
+            qv.astype(np.float32))
+
+
+def base_boundary(grid, dom: dict, device: torch.device) -> BoundaryData:
+    """The Davies target of the balanced base state, held for all time: the
+    base columns broadcast to one member's 3-D fields, at rest, with the
+    [domain] qv profile — the reference bench's stand-in for a parent-model
+    boundary file (scale_letkf_tpu/bench_fullsize.py _make_fullsize_driver,
+    BoundaryData(base, base, 0, 1e9)). The fields are expanded views of the
+    columns."""
+    theta, rho1d, qv = _base_columns(grid, dom)
+    nz, ny, nx = grid.nz, grid.ny, grid.nx
+
+    def col(prof):
+        return torch.as_tensor(prof[:, None, None],
+                               device=device).expand(nz, ny, nx)
+
+    zeros = torch.zeros((), device=device)
+    rhoq = torch.zeros((NQ, nz, 1, 1), device=device)
+    rhoq[0] = torch.as_tensor((qv * rho1d)[:, None, None], device=device)
+    base = DycoreState(rho=col(rho1d), rhou=zeros.expand(nz, ny, nx),
+                       rhov=zeros.expand(nz, ny, nx),
+                       rhow=zeros.expand(nz + 1, ny, nx),
+                       rhot=col(rho1d * theta),
+                       rhoq=rhoq.expand(NQ, nz, ny, nx))
+    return BoundaryData(state0=base, state1=base, t0=0.0, t1=1.0e9)
+
+
 def synthetic_ens_dycore_device(seed: int, K: int, grid, dom: dict,
                                 device: torch.device, u0: float = 0.0,
                                 amp_theta: float = 0.5,
-                                smooth_passes: int = 1):
+                                smooth_passes: int = 1,
+                                qr_blob: float = 0.0):
     """A K-member restart ensemble of the dynamical core on `device`: the
     reference's bench_fullsize._synthetic_ens_dycore construction from a
     torch.Generator seeded with `seed` — the hydrostatic base column of the
@@ -110,16 +152,15 @@ def synthetic_ens_dycore_device(seed: int, K: int, grid, dom: dict,
     horizontal axis (periodic) and up the column (edges held), a Gaussian
     of sqrt(passes/2) cells, and rescales it to the standard deviation of
     one horizontal pass, so an assimilation cycle sees perturbations
-    correlated over the obs spacing and across levels."""
+    correlated over the obs spacing and across levels.
+
+    qr_blob > 0 adds per-member rain and cloud blobs (the reference bench's
+    construction): a 3-D Gaussian of widths 0.12·nx, 0.12·ny and 0.2·nz
+    levels, centered at a random point of the middle 30% of the domain at
+    0.3·nz, with peak qr_blob [kg/kg] of rain and half that of cloud water,
+    so the radar operator sees echoes and the microphysics hydrometeors."""
     nz, ny, nx = grid.nz, grid.ny, grid.nx
-    cz = np.asarray(grid.cz)
-    dz0 = float(np.asarray(grid.fz)[1] - np.asarray(grid.fz)[0])
-    theta = standard_theta_profile(nz, dz0, cz=cz)
-    rho1d, _ = hydrostatic_reference(theta, dz0, cz=cz)
-    theta, rho1d = theta.astype(np.float32), rho1d.astype(np.float32)
-    qv0 = dom.get("qv_surface", 0.0)
-    qv = (qv0 * np.exp(-cz / dom.get("qv_scale_height", 3000.0))
-          if qv0 > 0 else np.zeros(nz)).astype(np.float32)
+    theta, rho1d, qv = _base_columns(grid, dom)
     p_ref = PRE00 * (rho1d * theta * RD / PRE00) ** ((RD + CVDRY) / CVDRY)
     tx = np.minimum(np.arange(nx), nx - 1 - np.arange(nx))
     ty = np.minimum(np.arange(ny), ny - 1 - np.arange(ny))
@@ -152,6 +193,18 @@ def synthetic_ens_dycore_device(seed: int, K: int, grid, dom: dict,
     rhoq = torch.zeros((K, NQ, nz, ny, nx), dtype=torch.float32,
                        device=device)
     rhoq[:, 0] = col(qv * rho1d)
+    if qr_blob > 0:
+        c = 0.35 + 0.3 * torch.rand((K, 2, 1, 1, 1), generator=gen,
+                                    device=device)
+        k, j, i = (torch.arange(n, dtype=torch.float32, device=device)
+                   for n in (nz, ny, nx))
+        blob = torch.exp(-(((i - nx * c[:, 0]) / (0.12 * nx)) ** 2
+                           + ((j[:, None] - ny * c[:, 1]) / (0.12 * ny)) ** 2
+                           + ((k[:, None, None] - 0.3 * nz) / (0.2 * nz))
+                           ** 2)) * (qr_blob * rho)
+        rhoq[:, 2] += blob
+        rhoq[:, 1] += 0.5 * blob
+        del blob
     ens = DycoreState(
         rho=rho, rhou=rho * u0, rhov=torch.zeros_like(rho),
         rhow=torch.zeros((K, nz + 1, ny, nx), dtype=torch.float32,

@@ -270,3 +270,131 @@ def test_verbs_need_a_gpu_by_default(exp, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["obsope", *cfg, "--gues", str(tmp / "init"), "--obs",
               str(tmp / "ref_obs.dat"), "--out", str(tmp_path / "x.@@@@")])
+
+
+# --- the physics suite and boundary forcing through the verbs --------------
+PHYS_TOML = """
+[physics]
+mp_scheme = "nsw6"
+rad_interval = 2
+slab_capacity = 2.0e5
+"""
+
+
+@pytest.fixture(scope="module")
+def phys_exp(exp):
+    """exp's experiment with a [physics] section and Davies forcing (a
+    2-cell buffer, tau 60 s) toward a boundary file that warms the first
+    init member by 0.2% over 100 s, and an init checkpoint whose aux holds
+    a slab skin temperature (each member's lowest-level air ± 3 K)."""
+    from scale_letkf_torch.model.boundary import BoundaryData, save_boundary
+    from scale_letkf_torch.model.physics_suite import skin_temperature
+    tmp, _, _ = exp
+    init, _, _ = checkpoint.load_ensemble(tmp / "init")
+    s0 = DycoreState(*(np.ascontiguousarray(f[0]) for f in init))
+    s1 = s0._replace(rhot=s0.rhot * np.float32(1.002))
+    save_boundary(tmp / "bdy.npz", BoundaryData(s0, s1, 0.0, 100.0))
+    text = CONFIG.replace("[domain]\n", f"[domain]\nbdy_file = "
+                          f"\"{tmp / 'bdy.npz'}\"\nbdy_width = 2\n"
+                          f"bdy_tau = 60.0\n") + PHYS_TOML
+    (tmp / "phys.toml").write_text(text)
+    tsfc = skin_temperature(DycoreState(*(torch.from_numpy(f)
+                                          for f in init))).numpy()
+    sign = np.random.default_rng(9).choice([-1.0, 1.0], tsfc.shape)
+    checkpoint.save_ensemble(tmp / "init_tsfc", init, basename="anal.@@@@",
+                             aux={"tsfc": (tsfc + 3.0 * sign).astype(
+                                 np.float32)})
+    for c in range(2):
+        shutil.copy(tmp / "ref_obs.dat", tmp / f"phys_obs{c}.dat")
+    return tmp, ["--config", str(tmp / "phys.toml")]
+
+
+def _floor(tmp, a, b):
+    x, _, _ = checkpoint.load_ensemble(tmp / a)
+    y, _, _ = checkpoint.load_ensemble(tmp / b)
+    return {n: 2 * float(np.abs(p - q).max())
+            for n, p, q in zip(DycoreState._fields, x, y)}
+
+
+def _rounded_init(tmp, name):
+    init, aux, _ = checkpoint.load_ensemble(tmp / "init_tsfc")
+    rng = np.random.default_rng(8)
+    checkpoint.save_ensemble(tmp / name, DycoreState(*(
+        (f * (1.0 + 2.0 ** -24 * rng.standard_normal(f.shape))).astype(
+            np.float32) for f in init)), basename="anal.@@@@", aux=aux)
+
+
+def test_fcst_verbs_agree_with_physics(phys_exp):
+    """fcst with [physics], bdy_file and a tsfc in the init: both packages
+    cold-start the slab and pass the init's aux through unchanged."""
+    tmp, cfg = phys_exp
+    args = ["fcst", *cfg, "--steps", "3"]
+    run(ref_main, *args, "--init", str(tmp / "init_tsfc"), "--out",
+        str(tmp / "ref_pfc"))
+    out = run(main, *args, "--init", str(tmp / "init_tsfc"), "--out",
+              str(tmp / "port_pfc"), "--device", "cpu")
+    assert "physics" in out and "boundary" in out
+    _rounded_init(tmp, "init_tsfc_r")
+    run(main, *args, "--init", str(tmp / "init_tsfc_r"), "--out",
+        str(tmp / "port_pfc2"), "--device", "cpu")
+    init, aux0, _ = checkpoint.load_ensemble(tmp / "init_tsfc")
+    ref, aux_r, _ = ref_ckpt.load_ensemble(tmp / "ref_pfc")
+    got, aux, _ = checkpoint.load_ensemble(tmp / "port_pfc")
+    assert_increments(got, init, ref,
+                      extra=_floor(tmp, "port_pfc", "port_pfc2"))
+    for a in (aux, aux_r):
+        np.testing.assert_array_equal(a["tsfc"], aux0["tsfc"])
+
+
+def test_cycle_verbs_agree_with_physics(phys_exp):
+    """2 cycles of 2 steps with [physics], bdy_file and the init's tsfc
+    resumed: the analyses, and the slab skin temperature both packages
+    write beside them."""
+    tmp, cfg = phys_exp
+    args = ["cycle", *cfg, "--cycles", "2", "--steps-per-cycle", "2",
+            "--obs-pattern", str(tmp / "phys_obs{cycle}.dat")]
+    run(ref_main, *args, "--init", str(tmp / "init_tsfc"), "--out",
+        str(tmp / "ref_pcyc"))
+    out = run(main, *args, "--init", str(tmp / "init_tsfc"), "--out",
+              str(tmp / "port_pcyc"), "--device", "cpu")
+    assert out.count("=== cycle") == 2
+    _rounded_init(tmp, "init_tsfc_r2")
+    run(main, *args, "--init", str(tmp / "init_tsfc_r2"), "--out",
+        str(tmp / "port_pcyc2"), "--device", "cpu")
+    init, aux0, _ = checkpoint.load_ensemble(tmp / "init_tsfc")
+    ref, aux_r, _ = ref_ckpt.load_ensemble(tmp / "ref_pcyc")
+    got, aux, _ = checkpoint.load_ensemble(tmp / "port_pcyc")
+    _, aux2, _ = checkpoint.load_ensemble(tmp / "port_pcyc2")
+    assert_increments(got, init, ref,
+                      extra=_floor(tmp, "port_pcyc", "port_pcyc2"))
+    assert set(aux) == set(aux_r) and "tsfc" in aux
+    tol = (1e-4 * np.abs(aux_r["tsfc"] - aux0["tsfc"]).max()
+           + 4 * np.spacing(np.float32(np.abs(aux_r["tsfc"]).max()))
+           + 2 * np.abs(aux["tsfc"] - aux2["tsfc"]).max())
+    assert np.abs(aux["tsfc"] - aux_r["tsfc"]).max() <= tol
+    # the resumed slab moved
+    assert np.abs(aux["tsfc"] - aux0["tsfc"]).max() > 0
+
+
+def test_unknown_physics_key_raises(exp, tmp_path):
+    tmp, _, _ = exp
+    (tmp_path / "bad.toml").write_text(CONFIG + "\n[physics]\nmp = 1\n")
+    for fn, extra in ((ref_main, []), (main, ["--device", "cpu"])):
+        with pytest.raises(ValueError, match=r"unknown \[physics\] keys"):
+            fn(["fcst", "--config", str(tmp_path / "bad.toml"), "--init",
+                str(tmp / "init"), "--steps", "1", "--out",
+                str(tmp_path / "o"), *extra])
+
+
+def test_radar_config_builds_a_driver():
+    """configs/bda_1km_radar.toml as shipped: Kessler every 5 steps on its
+    stretched levels, the split-explicit core."""
+    from pathlib import Path
+    from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
+    path = Path(__file__).resolve().parents[1] / "configs" / "bda_1km_radar.toml"
+    cfg, grid, dycfg, dom = load_config_and_grid(str(path))
+    d = make_driver(cfg, grid, dycfg, dom, torch.device("cpu"))
+    assert d.use_physics and d.phys_cfg is None and d.phys_interval == 5
+    assert d.core == "si" and d.n_small == 4 and dycfg.dt == 2.0
+    assert tuple(d.dz_col.shape) == (48, 1, 1)
+    assert d.bdy is None and (grid.nx, grid.ny, grid.nz) == (192, 192, 48)

@@ -227,3 +227,29 @@ def test_cuda_radar_hx_matches_cpu(cuda_device):
         assert row["qc_equal"] and row["finite"], row
         assert {"REF", "Vr"} <= set(row["max_err_over_tol"])
         assert all(e <= 1 for e in row["max_err_over_tol"].values()), row
+
+
+@pytest.mark.cuda
+def test_cuda_physics_modules_match_cpu(cuda_device):
+    """Each physics scheme alone (Kessler, NSW6, radiation, the surface
+    layer, the PBL step, three physics-suite steps) on small seeded states
+    on the card against the CPU: a returned state per field within
+    1e-4·max|increment| + 4 ulp, a diagnostic within 3e-5·max + 4 ulp (the
+    bounds of tests/test_torch_physics.py), plus twice the CPU's own
+    rounding floor."""
+    res = gpu_check.physics_modules_vs_cpu(cuda_device)
+    assert set(res["max_err_over_tol"]) == {
+        "kessler", "nsw6", "radiation", "surface", "pbl", "physics_step"}
+    assert all(e <= 1 for e in res["max_err_over_tol"].values()), res
+
+
+@pytest.mark.cuda
+def test_cuda_physics_paths_match_cpu(cuda_device):
+    """The coarsened physics-suite forecast with per-member Davies forcing
+    (two forecasts threading the skin temperature), the radar
+    configuration's Kessler forecast over its window and its radar cycle on
+    the card against the CPU, within the forecast's bound
+    (gpu_check.coarse_physics_vs_cpu)."""
+    radar = str(Path(CONFIG).parent / "bda_1km_radar.toml")
+    res = gpu_check.coarse_physics_vs_cpu(cuda_device, CONFIG, radar)
+    assert gpu_check.physics_check_passes(res), res

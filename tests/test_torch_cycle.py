@@ -314,3 +314,244 @@ def test_analysis_unported_members_raise(case, kw):
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.*deterministic member"):
         d.analysis(e, obs, **{kw: arg})
+
+
+# --- the physics suite, Kessler physics and Davies boundary forcing --------
+# The 18-km configuration's physics as the reference bench composes it
+# (nsw6 microphysics, slab capacity 2e5; radiation every 2 physics steps
+# here, so a 5-step forecast at phys_interval 2 recomputes, reuses and — in
+# its remainder chunk — recomputes radiation), and Davies relaxation over a
+# 3-cell buffer (the configuration's 10 would cover this 16×12 domain).
+PHYS = {"mp_scheme": "nsw6", "rad_interval": 2, "slab_capacity": 2.0e5}
+
+
+def moist_states(grid_r, dom, seed=0):
+    """states() with the reference bench's per-member rain and cloud blobs
+    (2 g/kg of rain at the peak), so the microphysics has work."""
+    s, _, _ = _synthetic_ens_dycore(np.random.default_rng(seed), K + 1,
+                                    grid_r, dom, amp_theta=2.0, qr_blob=2e-3)
+    s = s._replace(rhou=(10.0 * s.rho).astype(np.float32))
+    return (DycoreState(*(np.ascontiguousarray(f[0]) for f in s)),
+            DycoreState(*(np.ascontiguousarray(f[1:]) for f in s)))
+
+
+def boundary_file(path, grid, dom, per_member: bool):
+    """A boundary file from the balanced base state (t0 = 0) to the base
+    warmed by 0.1% with a 5 m/s wind (t1 = 3600 s); per member, member m
+    warmed by 0.1·(m + 1)%."""
+    from scale_letkf_torch.model.boundary import BoundaryData, save_boundary
+    from scale_letkf_torch.synthetic import base_boundary
+    base = DycoreState(*(np.ascontiguousarray(f.numpy())
+                         for f in base_boundary(grid, dom, CPU).state0))
+    warm = [base._replace(rhot=base.rhot * np.float32(1 + 1e-3 * (m + 1)),
+                          rhou=base.rho * np.float32(5.0))
+            for m in range(K if per_member else 1)]
+    s1 = (DycoreState(*(np.stack(f) for f in zip(*warm))) if per_member
+          else warm[0])
+    s0 = (DycoreState(*(np.stack([f] * K) for f in base)) if per_member
+          else base)
+    save_boundary(path, BoundaryData(s0, s1, 0.0, 3600.0))
+
+
+def physics_pair(extra: dict):
+    """setup_pair's drivers with `extra` merged into the [domain] table."""
+    out = []
+    for load, make in ((ref_load, ref_make_driver), (load_config_and_grid,
+                                                     make_driver)):
+        cfg, grid, dycfg, dom = load(CONFIG, OVER)
+        cfg.ensemble.member = K
+        cfg.letkf.hdxb_gather_bf16 = False
+        dom = {**dom, **extra}
+        out.append((make(cfg, grid, dycfg, dom) if make is ref_make_driver
+                    else make(cfg, grid, dycfg, dom, CPU), grid, cfg, dom))
+    (d_r, g_r, _, dom), (d, g, cfg, _) = out
+    return d_r, d, g_r, g, cfg, dom
+
+
+def rounded(s, seed):
+    rng = np.random.default_rng(seed)
+    return DycoreState(*((f * (1.0 + 2.0 ** -24 * rng.standard_normal(
+        f.shape))).astype(np.float32) for f in s))
+
+
+def floor_of(a, b):
+    """Twice the change of each field between two port runs."""
+    return {n: 2 * float((x - y).abs().max())
+            for n, x, y in zip(DycoreState._fields, a, b)}
+
+
+@pytest.mark.parametrize("bdy", ["shared", "per_member"])
+def test_physics_forecast_matches_reference(tmp_path, bdy):
+    """Two forecasts in a row (7 steps from t0 = 0: a chunk of
+    phys_interval = 5 and a remainder of 2, the second physics step reusing
+    the radiation cache; then 3 steps from t0 = 210 s on the boundary
+    clock, the radiation index starting over) with the physics suite and
+    Davies relaxation toward a boundary file shared by all members or per
+    member: the states after each, and the slab skin temperature the
+    driver threads from the first into the second (cold-started by the
+    first)."""
+    f = tmp_path / "bdy.npz"
+    _, _, g_r0, g0, _, dom0 = physics_pair({})
+    boundary_file(f, g0, dom0, bdy == "per_member")
+    extra = {"physics": PHYS, "bdy_file": str(f), "bdy_width": 3,
+             "bdy_tau": 600.0}
+    d_r, d, g_r, g, cfg, dom = physics_pair(extra)
+    _, ens = moist_states(g_r, dom)
+    e1_r = d_r.forecast(to_ref(ens), 7, t0=0.0)
+    tsfc1_r = np.asarray(d_r.tsfc)
+    e2_r = d_r.forecast(e1_r, 3, t0=210.0)
+
+    def port(e, driver):
+        e1 = driver.forecast(dycore_state_to_torch(e, CPU), 7, t0=0.0)
+        tsfc1 = driver.tsfc.clone()
+        return e1, tsfc1, driver.forecast(e1, 3, t0=210.0), driver.tsfc
+
+    e1, tsfc1, e2, tsfc2 = port(ens, d)
+    d2 = physics_pair(extra)[1]
+    e1b, tsfc1b, e2b, tsfc2b = port(rounded(ens, 5), d2)
+    assert_increments(dycore_state_to_numpy(e1), ens,
+                      [np.asarray(x) for x in e1_r],
+                      extra=floor_of(e1b, e1))
+    assert_increments(dycore_state_to_numpy(e2), ens,
+                      [np.asarray(x) for x in e2_r],
+                      extra=floor_of(e2b, e2))
+    assert_tsfc(tsfc1, tsfc1b, tsfc1_r, ens)
+    assert_tsfc(tsfc2, tsfc2b, d_r.tsfc, ens)
+    assert float((tsfc2 - tsfc1).abs().max()) > 0
+    # 7 steps at phys_interval 5 → two physics steps; 3 → one more
+    assert d.timer.counts["forecast/physics"] == 3
+    assert d.timer.counts["forecast/boundary"] == 10
+
+
+def assert_tsfc(got, alt, want, ens):
+    """The skin temperature as assert_increments holds a field: its change
+    from the cold start to 1e-4, plus 4 ulp, plus twice the port's own
+    rounding floor (alt: the run from rounded inputs)."""
+    from scale_letkf_torch.model.physics_suite import skin_temperature
+    want = np.asarray(want, np.float64)
+    cold = skin_temperature(dycore_state_to_torch(ens, CPU)).double().numpy()
+    tol = (1e-4 * np.abs(want - cold).max()
+           + 4 * np.spacing(np.float32(np.abs(want).max()))
+           + 2 * float((got - alt).abs().max()))
+    assert got.shape == want.shape
+    err = np.abs(got.double().numpy() - want).max()
+    assert err <= tol, f"tsfc: {err:.3e} > {tol:.3e}"
+
+
+def test_kessler_forecast_matches_reference():
+    """use_physics (Kessler on the stretched per-level dz every
+    phys_interval = 5 steps): 7 steps, a full chunk and a remainder."""
+    d_r, d, g_r, g, cfg, dom = physics_pair({"use_physics": True})
+    _, ens = moist_states(g_r, dom, seed=1)
+    want = d_r.forecast(to_ref(ens), 7)
+    got = d.forecast(dycore_state_to_torch(ens, CPU), 7)
+    d2 = physics_pair({"use_physics": True})[1]
+    alt = d2.forecast(dycore_state_to_torch(rounded(ens, 6), CPU), 7)
+    assert_increments(dycore_state_to_numpy(got), ens,
+                      [np.asarray(x) for x in want], extra=floor_of(alt, got))
+    assert d.timer.counts["forecast/physics"] == 2
+    # the rain blobs fell and evaporated
+    assert float((got.rhoq[:, 2] - torch.from_numpy(ens.rhoq[:, 2])
+                  ).abs().max()) > 1e-6
+
+
+def test_physics_run_osse_matches_reference(tmp_path):
+    """Two run_osse cycles of 3 steps with the physics suite and shared
+    Davies forcing: the nature run cold-starts its slab every cycle, the
+    ensemble threads its own, and the analysis's H(x) and O−A monitor read
+    the stability-corrected screen diagnostics of the ensemble's skin
+    temperature (members and mean)."""
+    f = tmp_path / "bdy.npz"
+    _, _, g_r0, g0, _, dom0 = physics_pair({})
+    boundary_file(f, g0, dom0, False)
+    extra = {"physics": PHYS, "bdy_file": str(f), "bdy_width": 3,
+             "bdy_tau": 600.0}
+    d_r, d, g_r, g, cfg, dom = physics_pair(extra)
+    nature, ens = moist_states(g_r, dom, seed=2)
+    tmpl_r, tmpl = template(cfg, g)
+    truth_r, ens_r, res_r = d_r.run_osse(to_ref(nature), to_ref(ens),
+                                         tmpl_r, n_cycles=2,
+                                         steps_per_cycle=3, seed=3)
+
+    def port(driver, nat, e):
+        return driver.run_osse(dycore_state_to_torch(nat, CPU),
+                               dycore_state_to_torch(e, CPU), tmpl,
+                               n_cycles=2, steps_per_cycle=3, seed=3)
+
+    truth, ens_p, res = port(d, nature, ens)
+    d2 = physics_pair(extra)[1]
+    truth2, ens_p2, _ = port(d2, rounded(nature, 7), rounded(ens, 8))
+    assert_increments(dycore_state_to_numpy(ens_p), ens,
+                      [np.asarray(x) for x in ens_r],
+                      extra=floor_of(ens_p2, ens_p))
+    assert_increments(dycore_state_to_numpy(truth), nature,
+                      [np.asarray(x) for x in truth_r],
+                      extra=floor_of(truth2, truth))
+    assert_tsfc(d.tsfc, d2.tsfc, d_r.tsfc, ens)
+    for a, b in ((res.rmse_gues, res_r.rmse_gues),
+                 (res.rmse_anal, res_r.rmse_anal), (res.spread, res_r.spread)):
+        np.testing.assert_allclose(a, b, rtol=1e-4)
+    for c in range(2):
+        assert res.stats_gues[c].nobs == res_r.stats_gues[c].nobs
+        for n, v in res_r.stats_anal[c].rmse.items():
+            if res.stats_anal[c].nobs[n]:
+                np.testing.assert_allclose(res.stats_anal[c].rmse[n], v,
+                                           rtol=1e-4, err_msg=n)
+    # one physics step of 3 steps a cycle, in the nature run and the
+    # ensemble forecast each
+    assert d.timer.counts["nature/physics"] == 2
+    assert d.timer.counts["forecast/physics"] == 2
+
+
+def test_forecast_one_refuses_per_member_boundaries(tmp_path):
+    f = tmp_path / "bdy.npz"
+    _, d, _, g, _, dom = physics_pair({})
+    boundary_file(f, g, dom, True)
+    _, d, _, g, _, dom = physics_pair({"bdy_file": str(f), "bdy_width": 3})
+    nature, _ = states(physics_pair({})[2], dom)
+    with pytest.raises(ValueError, match="per-member boundary data"):
+        d.forecast_one(dycore_state_to_torch(nature, CPU), 1)
+
+
+def test_physics_forecast_drops_each_state():
+    """In a physics-suite forecast (7 steps: physics after steps 5 and 7)
+    every state is freed once the next one exists: when a dynamics step
+    starts, the inputs of all earlier steps but the first (a view of the
+    ensemble the caller holds) are gone, the physics step's outputs too."""
+    import weakref
+    d_r, d, g_r, g, cfg, dom = physics_pair({"physics": PHYS})
+    _, ens = moist_states(g_r, dom)
+    refs, seen = [], []
+    step = d._dyn_step
+
+    def spy(s):
+        seen.append([r() is None for r in refs[1:]])
+        refs.append(weakref.ref(s.rhot))
+        return step(s)
+
+    d._dyn_step = spy
+    d.forecast(dycore_state_to_torch(ens, CPU), 7)
+    assert len(seen) == 7 and all(all(x) for x in seen), seen
+
+
+def test_state_to_history_tsfc_matches_reference(case):
+    """The cycle's guess with a skin temperature 2 K above or below each
+    member's lowest-level air: the stability-corrected screen diagnostics
+    (and ps) against the reference's, member by member, to 2e-5 of each
+    field's range plus 4 float32 ulp (tests/test_torch_obsope.py)."""
+    from scale_letkf_torch.model.physics_suite import skin_temperature
+    from test_torch_obs_operators import assert_close
+    d_r, d, g_r, g, cfg, nature, ens = case[:7]
+    e = dycore_state_to_torch(ens, CPU)
+    gues = state_trans(to_collocated(e))
+    sign = torch.from_numpy(np.random.default_rng(11).choice(
+        [-1.0, 1.0], (K, g.ny, g.nx)).astype(np.float32))
+    tsfc = skin_temperature(e) + 2.0 * sign
+    got = state_to_history(gues, d.z_full, d.topo, tsfc=tsfc)
+    gues_r = np.asarray(ref_trans(jax_vmap_collocated(to_ref(ens))))
+    want = [ref_history(jnp.asarray(gues_r[m]), d_r.z_full, d_r.topo,
+                        tsfc=jnp.asarray(tsfc[m].numpy())) for m in range(K)]
+    for k in ("t2m", "q2m", "u10m", "v10m", "ps"):
+        assert_close(got[k], np.stack([np.asarray(w[k]) for w in want]), k)
+    assert not torch.equal(got["t2m"],
+                           state_to_history(gues, d.z_full, d.topo)["t2m"])

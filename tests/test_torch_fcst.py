@@ -195,10 +195,24 @@ def test_forecast_slots_snapshots_the_forecast(runs):
     ("bdy_file", "bdy.npz", "boundary.py"),
 ])
 def test_unported_options_raise(runs, key, value, item):
+    """The options that raised NotImplementedError until the physics and
+    boundary slice was ported now reach the driver as in the reference:
+    use_physics builds a Kessler driver; a [physics] key PhysicsConfig does
+    not have ("mp") raises ValueError naming it; a bdy_file that does not
+    exist raises FileNotFoundError from load_boundary."""
     tmp, _, _ = runs
     cfg, grid, dycfg, dom = load_config_and_grid(str(tmp / "exp.toml"))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        make_driver(cfg, grid, dycfg, {**dom, key: value}, CPU)
+    dom = {**dom, key: value if key != "bdy_file" else str(tmp / value)}
+    if key == "use_physics":
+        driver = make_driver(cfg, grid, dycfg, dom, CPU)
+        assert driver.use_physics and driver.phys_cfg is None
+        assert driver.dz_col == dycfg.dz
+    elif key == "physics":
+        with pytest.raises(ValueError, match=r"unknown \[physics\] keys.*mp"):
+            make_driver(cfg, grid, dycfg, dom, CPU)
+    else:
+        with pytest.raises(FileNotFoundError, match=value):
+            make_driver(cfg, grid, dycfg, dom, CPU)
 
 
 def test_terrain_and_mesh_raise(runs, tmp_path):

@@ -23,7 +23,9 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     for m in ("da.letkf", "ops.invsqrt", "model.dycore", "model.dycore_si",
               "model.ideal", "ops.finite_diff", "ops.tendency", "ops.stencil",
-              "cycle",
+              "model.physics", "model.microphysics6", "model.radiation",
+              "model.surface", "model.pbl", "model.physics_suite",
+              "model.boundary", "cycle",
               "io.checkpoint", "io.convert", "cli.main", "synthetic",
               "gpu_check", "__main__"):
         assert f"scale_letkf_torch.{m}" in mods, m

@@ -128,9 +128,23 @@ def test_state_to_history_matches_reference(flat):
         assert_close(got[k], np.stack([np.asarray(w[k]) for w in want]), k)
     # only rh is a new full field: hgt and topo are expanded views
     assert got["hgt"].stride()[0] == 0 and got["topo"].stride()[0] == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP.*physics"):
-        state_to_history(torch.from_numpy(anal[0]), z_full(g),
-                         tsfc=np.zeros((NY, NX)))
+    # with a slab skin temperature (the physics suite's), the screen
+    # diagnostics of the Louis surface layer, per member: skin 1.5-6 K
+    # above or below the lowest level's air
+    rng = np.random.default_rng(5)
+    tsfc = (anal[:, 3, 0] + rng.uniform(1.5, 6.0, (K, NY, NX))
+            * rng.choice([-1.0, 1.0], (K, NY, NX))).astype(np.float32)
+    want = [ref_state.state_to_history(
+        jnp.asarray(a), z_r, None if flat else jnp.asarray(topo),
+        tsfc=jnp.asarray(t)) for a, t in zip(anal, tsfc)]
+    got = state_to_history(torch.from_numpy(anal),
+                           g.calc_z(torch.from_numpy(topo)),
+                           None if flat else torch.from_numpy(topo),
+                           tsfc=torch.from_numpy(tsfc))
+    for k in ("t2m", "q2m", "u10m", "v10m", "ps"):
+        assert_close(got[k], np.stack([np.asarray(w[k]) for w in want]), k)
+    neutral = state_to_history(torch.from_numpy(anal), z_full(g))
+    assert not torch.equal(got["t2m"], neutral["t2m"])
 
 
 def test_compute_hx_single_matches_reference():
