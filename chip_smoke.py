@@ -11,8 +11,10 @@ the ensemble forecast (split-explicit core, dt 30 s, 10 acoustic substeps,
 2 steps), the LETKF analysis (the synthetic conventional network of ~24k
 obs), the DA cycle that joins them (CycleDriver.run_osse) and the physics
 cycle (the same with the physics suite and Davies boundary forcing, 10
-steps); and the radar configuration's forecast (configs/bda_1km_radar.toml,
-unchanged: 192×192×48, K = 50, Kessler physics) over its 30-s window:
+steps), and the production cycle (the physics cycle over the reference
+bench's synthetic topography, with conventional and Himawari-8 obs); and
+the radar configuration's forecast (configs/bda_1km_radar.toml, unchanged:
+192×192×48, K = 50, Kessler physics) over its 30-s window:
 
   1. device         — the card, and nvidia-smi's name and power limit
   2. build          — nvcc builds of the three kernels, all started
@@ -83,20 +85,49 @@ unchanged: 192×192×48, K = 50, Kessler physics) over its 30-s window:
                       forecast with per-member boundary data, the radar
                       Kessler forecast and a radar cycle (obs from the blobs
                       by calc_ref_vr) on the card against the CPU
+ 20. production_cycle — phase 15 over the reference bench's synthetic
+                      topography (synthetic_topo, default_rng(7): 12 Gaussian
+                      hills up to 400 m, tapered over 12 cells) through
+                      CycleDriver(topo=), so every forecast, the nature run
+                      included, runs the SI core with terrain metrics (the
+                      slow tendency plain PyTorch: kernels #2 and #3 are not
+                      launched, asserted); the states' qv capped at half
+                      the base column's saturation; obs the conventional
+                      network and an H08 network (all ten bands of a
+                      profile every 8 cells inside the 10-cell buffer, the
+                      configuration's band 9 assimilated). Adds O−B / O−A
+                      for H08, which must fall with T's and PS's, and the
+                      largest |ρw| over the hills and over flat ground in
+                      this run and in a flat run of the same nature state:
+                      the terrain's own part of ρw must be largest over the
+                      hills
+ 21. production_real — invsqrt_ns vs plain on one level chunk of phase 20's
+                      Grams
+ 22. terrain_tendency — at full width, on phase 20's final ensemble (batch
+                      10) and nature state (batch 1): tendencies_terrain
+                      (plain PyTorch on the card) timed against
+                      dycore.tendencies (p′, then kernels #2 and #3) on the
+                      same states, with the byte bound of each; flat
+                      metrics must give dycore.tendencies' result
+ 23. terrain_small  — the terrain dynamics, an unforced terrain forecast's
+                      Σ J·ρ·dzc, the pp step's smoothing, H08 H(x) and a
+                      coarsened production cycle with H08 on the card
+                      against the CPU
 
 Each phase prints one JSON line; any failed check raises, so the script
 exits non-zero. Every kernel-vs-plain check runs the kernel twice and holds
 both runs to the bound (invsqrt_ns, which has no atomics, must also give
 bit-identical runs). Kernel and plain versions are timed with CUDA events,
 in turns (plain, kernel, kernel, plain), after a warm-up. The line before
-the last lists every kernel of this slice's main path, the physics cycle,
-which runs all three: route, source, the TPU kernel it replaces, its
-launches in phase 15 (each path's own beside them, counts reset before
-each), its error and time against the plain version on phase 15's operands
-(phase 16; for the stencil kernels the mean over the two batch sizes
-weighted by their launches, so launches × ms is the kernel's time in the
-cycle, each size under `shapes`; the radar grid's row under `radar_grid`),
-and its bound:
+the last lists every kernel: route, source, the TPU kernel it replaces,
+its launches in phase 15, the last path that runs all three (each path's
+own beside them under launches_by_path, counts reset before each — the
+production cycle's: #1 only), its error and time against the plain
+version on phase 15's operands (phase 16; for the stencil kernels the mean
+over the two batch sizes weighted by their launches, so launches × ms is
+the kernel's time in the cycle, each size under `shapes`; the radar grid's
+row under `radar_grid`, #1 on the production cycle's Grams under
+`production_grams`), and its bound:
 the larger of the bytes it must move over 3.35 TB/s and its operations
 over the rate of the units that do them, computed from those operands —
 67 TFLOP/s FP32 for the stencils, and for invsqrt_ns's 3xTF32 tensor-core
@@ -147,6 +178,13 @@ CYCLE_AMP_THETA = 4.0
 CYCLE_SMOOTH_PASSES = 64
 # the physics cycle: 10 steps, so physics runs twice at phys_interval 5
 PHYS_STEPS = 10
+# the production cycle (PHYS_STEPS too): the H08 network's spacing and
+# margin (cells); the hills and flat ground of the |ρw| check (topography
+# above HILL_M and below FLAT_M metres)
+H08_SPACING = 8
+H08_MARGIN = 10
+HILL_M = 100.0
+FLAT_M = 1.0
 KERNELS = ("invsqrt_ns", "dyn_tendency", "adv_ud3")
 REPLACES = {
     "invsqrt_ns": "scale_letkf_tpu/ops/invsqrt.py:183",
@@ -447,7 +485,7 @@ def phase_small(device):
 
 
 def phase_cycle(device, phase: str = "cycle", steps: int = CYCLE_STEPS,
-                physics: bool = False):
+                physics: bool = False, production: bool = False):
     """The DA cycle at full size: CycleDriver.run_osse, one cycle of `steps`
     steps, from synthetic ensemble and nature states made on the card and
     the synthetic conventional network (obsmake gives the obs their values
@@ -465,26 +503,41 @@ def phase_cycle(device, phase: str = "cycle", steps: int = CYCLE_STEPS,
     phase: one level chunk of the analysis's Grams (copied at kernel #1's
     first launch), the final ensemble at the forecast's member batch and
     the final nature state as a batch of one, with the driver's reference
-    column and metric."""
+    column and metric.
+
+    production: the physics cycle's driver over the reference bench's
+    synthetic topography (gpu_check.production_driver, CycleDriver(topo=)),
+    the states' qv capped at gpu_check.PROD_RH_MAX of saturation, and an H08
+    network beside the conventional one; kernels #2 and #3 must not launch,
+    O−A must fall below O−B for H08 too, and the row adds the largest |ρw|
+    over hills and flat ground, here and in a flat run of the same nature
+    state; the operands add the driver's terrain metrics and the first ten
+    members of the final ensemble."""
     from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
     from scale_letkf_torch.da.obsmake import obsmake
-    from scale_letkf_torch.gpu_check import PHYS_PROD, expected_launches
+    from scale_letkf_torch.gpu_check import (
+        PHYS_PROD, PROD_RH_MAX, expected_launches, production_driver)
     from scale_letkf_torch.model.dycore import to_collocated
+    from scale_letkf_torch.obs.types import Observations
     from scale_letkf_torch.model.physics_suite import skin_temperature
     from scale_letkf_torch.ops import invsqrt as invsqrt_mod
     from scale_letkf_torch.state import (
         V3D_ANAL_NAMES, state_to_history, state_trans)
     from scale_letkf_torch.synthetic import (
-        base_boundary, synthetic_conv_network, synthetic_ens_dycore_device)
+        base_boundary, synthetic_conv_network, synthetic_ens_dycore_device,
+        synthetic_h08_network, synthetic_topo)
     from scale_letkf_torch.utils import kernels
 
     cfg, grid, dycfg, dom = load_config_and_grid(str(CONFIG))
+    physics = physics or production
     if physics:
         dom = {**dom, "physics": PHYS_PROD}
     K = cfg.ensemble.member
     t0 = time.perf_counter()
     kw = {"u0": FCST_U0, "amp_theta": CYCLE_AMP_THETA,
           "smooth_passes": CYCLE_SMOOTH_PASSES}
+    if production:
+        kw["rh_max"] = PROD_RH_MAX
     ens0, _, _ = synthetic_ens_dycore_device(SEED, K, grid, dom, device, **kw)
     nat, _, _ = synthetic_ens_dycore_device(SEED + 1, 1, grid, dom, device,
                                             **kw)
@@ -492,12 +545,25 @@ def phase_cycle(device, phase: str = "cycle", steps: int = CYCLE_STEPS,
     # handed to run_osse with no reference kept here, so that each
     # ensemble is freed once the next one exists
     states = [type(nat)(*(f[0] for f in nat)), ens0]
+    # the nature state's start, for the flat run of the |ρw| check
+    nat0 = type(nat)(*(f[0].clone() for f in nat)) if production else None
     del nat, ens0
     template = synthetic_conv_network(cfg, grid, np.random.default_rng(SEED))
+    if production:
+        template = Observations.concatenate([template, synthetic_h08_network(
+            cfg, grid, spacing=H08_SPACING, margin=H08_MARGIN)])
     torch.cuda.synchronize()
     generate_s = time.perf_counter() - t0
-    driver = make_driver(cfg, grid, dycfg, dom, device)
-    if physics:
+    topo = (synthetic_topo(np.random.default_rng(7), grid.ny, grid.nx)
+            if production else None)
+    if production:
+        driver = production_driver(cfg, grid, dycfg, dom, device, topo=topo)
+        if driver.metrics is None:
+            raise AssertionError("the production driver has no terrain "
+                                 "metrics")
+    else:
+        driver = make_driver(cfg, grid, dycfg, dom, device)
+    if physics and not production:
         driver.bdy = base_boundary(grid, dom, device)
 
     launch = invsqrt_mod.invsqrt_ns_kernel
@@ -554,6 +620,9 @@ def phase_cycle(device, phase: str = "cycle", steps: int = CYCLE_STEPS,
     batches = -(-K // driver.batch)
     expected = expected_launches(cfg, grid, steps, batches,
                                  info["diag"].chunk)
+    if production:
+        # the terrain tendency is plain PyTorch: the stencil kernels idle
+        expected.update(dyn_tendency=0, adv_ud3=0)
     finite = all(bool(torch.isfinite(f).all()) for f in (*ens, *truth)) \
         and all(bool(torch.isfinite(info[k]).all()) for k in (
             "gues_mean", "gues_sprd", "anal_mean", "anal_sprd"))
@@ -611,8 +680,21 @@ def phase_cycle(device, phase: str = "cycle", steps: int = CYCLE_STEPS,
         raise AssertionError(f"peak memory {row['peak_mem_gb']:.2f} GB")
     if not all(sprd_a[n] < sprd_g[n] for n in ("T", "PRES")):
         raise AssertionError("analysis spread not below guess spread")
-    if not all(oma[n] < omb[n] for n in ("T", "PS")):
+    checked = ("T", "PS", "H08") if production else ("T", "PS")
+    if not all(n in omb and oma[n] < omb[n] for n in checked):
         raise AssertionError(f"O-A RMSE above O-B RMSE: {oma} vs {omb}")
+    if production:
+        counts = driver.timer.counts
+        if not counts.get("forecast/tendencies") == 3 * steps * batches:
+            raise AssertionError(f"terrain tendencies not counted: {counts}")
+        row.update(terrain_rhow(driver, truth, nat0, topo, steps, cfg, grid,
+                                dycfg, dom, device))
+        emit({"phase": phase, **{k: row[k] for k in (
+            "rhow_terrain_run", "rhow_flat_run", "rhow_terrain_part")}})
+        part = row["rhow_terrain_part"]
+        if not part["hills"] > part["flat_ground"]:
+            raise AssertionError(f"the terrain's part of rho-w is not "
+                                 f"largest over the hills: {part}")
     if physics:
         row["stage_fields_per_member"] = stage_fields(
             driver, dycfg, dom, type(ens)(*(f[:driver.batch] for f in ens)))
@@ -630,7 +712,34 @@ def phase_cycle(device, phase: str = "cycle", steps: int = CYCLE_STEPS,
                 "ensemble": type(ens)(*(f[:driver.batch] for f in ens)),
                 "nature": type(truth)(*(f[None] for f in truth)),
                 "column": (driver.rho_ref, driver.p_ref, driver.vg, dycfg)}
+    if production:
+        operands["metrics"] = driver.metrics
+        operands["ensemble10"] = type(ens)(*(f[:10] for f in ens))
     return row, operands
+
+
+def terrain_rhow(driver, truth, nat0, topo, steps, cfg, grid, dycfg, dom,
+                 device) -> dict:
+    """The largest |ρw| over the hills (topography above HILL_M) and over
+    flat ground (below FLAT_M) of the production run's final nature state,
+    of a flat run (gpu_check.production_driver without topography) of the
+    same start nat0 for the same steps, and of their difference — the
+    terrain's own part, which must be largest over the hills."""
+    from scale_letkf_torch.gpu_check import production_driver
+    flat = production_driver(cfg, grid, dycfg, dom, device, topo=None)
+    truth_flat = flat.forecast_one(nat0, steps)
+    hills = torch.as_tensor(topo > HILL_M, device=device)
+    ground = torch.as_tensor(topo < FLAT_M, device=device)
+
+    def peaks(rhow):
+        col = rhow.abs().amax(dim=0)
+        return {"hills": float(col[hills].max()),
+                "flat_ground": float(col[ground].max())}
+    return {"hill_cells": int(hills.sum()), "flat_cells": int(ground.sum()),
+            "topo_max_m": float(topo.max()),
+            "rhow_terrain_run": peaks(truth.rhow),
+            "rhow_flat_run": peaks(truth_flat.rhow),
+            "rhow_terrain_part": peaks(truth.rhow - truth_flat.rhow)}
 
 
 def watch_peaks(driver, device) -> dict:
@@ -660,8 +769,9 @@ def watch_peaks(driver, device) -> dict:
 
 
 def stage_fields(driver, dycfg, dom, s) -> dict:
-    """Peak device memory of one dynamics step, one physics step (radiation
-    recomputed) and one Davies relaxation of the member batch s, above what
+    """Peak device memory of one dynamics step (with the driver's terrain
+    metrics, if any), one physics step (radiation recomputed) and one
+    Davies relaxation of the member batch s, above what
     is allocated before each (s and the radiation cache included), in
     member-sized fields (nz·ny·nx float32) per member: what
     cycle.FORECAST_FIELDS_PER_MEMBER has to cover."""
@@ -682,7 +792,7 @@ def stage_fields(driver, dycfg, dom, s) -> dict:
         "dynamics": lambda: rk3_step_si(
             s, dycfg, SplitConfig(dtau=dycfg.dt / driver.n_small),
             driver.rho_ref, driver.p_ref, driver.z_centers, driver.n_small,
-            driver.vg),
+            driver.vg, driver.metrics),
         "physics": lambda: physics_step(
             s, phys, 0, driver.phys_cfg, 5 * dycfg.dt, driver.dz_phys,
             driver.z_centers),
@@ -863,6 +973,75 @@ def phase_physics_small(device):
     emit({"phase": "physics_small", **res})
     if not physics_check_passes(res):
         raise AssertionError(f"GPU physics disagrees with the CPU: {res}")
+
+
+def phase_terrain_tendency(operands) -> list:
+    """tendencies_terrain (plain PyTorch on the card) against
+    dycore.tendencies (plain p′, then kernels #2 and #3) on the production
+    cycle's final ensemble (its first ten members) and nature state (a
+    batch of one), at full width: both timed in turns, with the byte bound
+    of each (every input read once, every output written once); the
+    terrain tendency on flat metrics must give dycore.tendencies' result
+    (the kernels' bounds, TOL_TENDENCY and TOL_STENCIL)."""
+    from scale_letkf_torch.gpu_check import TOL_STENCIL, TOL_TENDENCY
+    from scale_letkf_torch.model import dycore, terrain
+    rho_ref, p_ref, vg, dycfg = operands["column"]
+    m = operands["metrics"]
+    # the metrics of flat topography: J = 1, no slopes
+    flat = terrain.TerrainMetrics(torch.ones_like(m.jac),
+                                  *(torch.zeros_like(f) for f in m[1:]))
+    rows = []
+    for label, s in (("ensemble", operands["ensemble10"]),
+                     ("nature", operands["nature"])):
+        s = type(s)(*(f.contiguous() for f in s))
+
+        def run_terrain(metrics=m):
+            return terrain.tendencies_terrain(s, dycfg, rho_ref, p_ref,
+                                              metrics, vg)
+
+        def run_kernels():
+            return dycore.tendencies(s, dycfg, rho_ref, p_ref, vg)
+
+        want, got = run_kernels(), run_terrain(flat)
+        errs = {n: float((a - b).abs().max()) / float(b.abs().max())
+                for n, a, b in zip(s._fields, got, want)}
+        tols = {n: TOL_STENCIL if n == "rhoq" else TOL_TENDENCY
+                for n in s._fields}
+        del want, got
+        t = timed_turns(run_kernels, run_terrain)
+        state = nbytes(*s)
+        row = {"phase": "terrain_tendency", "run": label,
+               "batch": int(s.rho.shape[0]),
+               "terrain_ms": t["plain_ms"], "kernels_ms": t["ms"],
+               "terrain_ms_runs": t["plain_ms_runs"],
+               "kernels_ms_runs": t["ms_runs"],
+               "terrain_over_kernels": t["plain_ms"] / t["ms"],
+               "terrain_bound_ms": (2 * state + nbytes(*m)) / HBM_BYTES_PER_S
+               * 1e3,
+               "kernels_bound_ms": (2 * state + nbytes(rho_ref, p_ref))
+               / HBM_BYTES_PER_S * 1e3,
+               "flat_metrics_rel_err": errs, "tol": tols}
+        row["terrain_bound_share"] = row["terrain_bound_ms"] / t["plain_ms"]
+        row["kernels_bound_share"] = row["kernels_bound_ms"] / t["ms"]
+        emit(row)
+        rows.append(row)
+        if not all(errs[n] <= tols[n] for n in s._fields):
+            raise AssertionError(f"the terrain tendency on flat metrics is "
+                                 f"not dycore.tendencies: {row}")
+    return rows
+
+
+def phase_terrain_small(device):
+    """The terrain dynamics, an unforced terrain forecast's mass, the pp
+    step's smoothing, H08 H(x) and the coarsened production cycle on the
+    card against the CPU (scale_letkf_torch/gpu_check.py)."""
+    from scale_letkf_torch.gpu_check import (
+        coarse_terrain_vs_cpu, terrain_check_passes)
+    res = coarse_terrain_vs_cpu(device, str(CONFIG), SEED)
+    emit({"phase": "terrain_small", **res})
+    if not terrain_check_passes(res):
+        raise AssertionError(f"GPU terrain or H08 disagrees with the CPU: "
+                             f"{res}")
 
 
 def timed_turns(kernel, plain, reps: int = 5) -> dict:
@@ -1220,11 +1399,21 @@ def main() -> int:
     del sample
     torch.cuda.empty_cache()
     phase_physics_small(device)
-    # the kernels line is this slice's main path, the physics cycle, which
-    # runs all three: its launches, and times on its own operands (phase
+    torch.cuda.empty_cache()
+    pr, operands = phase_cycle(device, "production_cycle", PHYS_STEPS,
+                               production=True)
+    prod_real = check_invsqrt(*operands["grams"], "production_real")
+    phase_terrain_tendency(operands)
+    del operands
+    torch.cuda.empty_cache()
+    phase_terrain_small(device)
+    # the kernels line: launches and times of the physics cycle, the last
+    # path that runs all three (times on its own operands, phase
     # physics_real); launches_by_path: each path's own run, counts reset
-    # before it; radar_grid: the stencil kernels on the radar forecast's
-    # operands (phase radar_real)
+    # before it — the production cycle's (this slice's main path) beside
+    # the others; production_grams: kernel #1 on the production cycle's
+    # Grams (phase production_real); radar_grid: the stencil kernels on the
+    # radar forecast's operands (phase radar_real)
     for name in KERNELS:
         pc_rows[name]["launches"] = pc["kernel_launches"][name]
         pc_rows[name]["launches_by_path"] = {
@@ -1232,17 +1421,22 @@ def main() -> int:
             "analysis": sl["kernel_launches"] if name == "invsqrt_ns" else 0,
             "cycle": cy["kernel_launches"][name],
             "physics_cycle": pc["kernel_launches"][name],
-            "radar_forecast": rf["kernel_launches"].get(name, 0)}
+            "radar_forecast": rf["kernel_launches"].get(name, 0),
+            "production_cycle": pr["kernel_launches"][name]}
         pc_rows[name]["radar_grid"] = (
             {k: radar_rows[name][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "bound_share")} if name in radar_rows else None)
+        pc_rows[name]["production_grams"] = (
+            {k: prod_real[k] for k in (
+                "B", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_share")} if name == "invsqrt_ns" else None)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     # no single PyTorch call computes any of the three functions (no matrix
     # inverse square root, no such stencil), so library_ms is null
     keys = ("launches", "launches_by_path", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_fp32_ms", "bound_by", "bound_share",
-            "gb_per_s", "tflops", "shapes", "radar_grid")
+            "gb_per_s", "tflops", "shapes", "radar_grid", "production_grams")
     emit({"kernels": [{"name": name, "route": "cuda",
                        "source": f"scale_letkf_torch/csrc/{name}.cu",
                        "replaces": REPLACES[name],

@@ -6,6 +6,7 @@
   python -m scale_letkf_torch obssim  --config c.toml --state F --vars REF,VR --out F
   python -m scale_letkf_torch fcst    --config c.toml --init DIR --steps N --out DIR
   python -m scale_letkf_torch cycle   --config c.toml --init DIR --cycles N ...
+  python -m scale_letkf_torch pp      --config c.toml --dem F --out topo.npz
 
 each with --device cuda (the default: the hand-written kernels, and an
 error without a GPU) or cpu (their plain versions).
@@ -15,8 +16,7 @@ factory and the verbs, with the reference's arguments. States are
 checkpoint directories in the reference's format (io/checkpoint.py) and obs
 the reference's binary formats (obs/io.py), so either package's output
 loads in the other. Not ported yet, each raising NotImplementedError that
-names its ROADMAP item: the `pp` verb (terrain), `cycle --streamed` (the
-full-size executors), a [nest] section (nesting), additive inflation
+names its ROADMAP item: `cycle --streamed` (the full-size executors), a [nest] section (nesting), additive inflation
 (INFL_ADD > 0) and a deterministic member in the checkpoint of `letkf` or
 `cycle`.
 """
@@ -76,8 +76,9 @@ def make_driver(cfg, grid, dycfg, dom, device: torch.device):
     reference column (with the qv profile when qv_surface > 0), the core
     and its substeps, Kessler physics (use_physics), the physics suite of a
     [physics] section (its keys those of PhysicsConfig; others raise
-    ValueError) and Davies relaxation toward a boundary file (bdy_file,
-    bdy_width, bdy_tau). topo_file and a mesh raise NotImplementedError
+    ValueError), Davies relaxation toward a boundary file (bdy_file,
+    bdy_width, bdy_tau) and the topography of topo_file (an npz with key
+    'topo', as the pp verb writes it). A mesh raises NotImplementedError
     (CycleDriver names the ROADMAP item)."""
     import dataclasses
 
@@ -257,6 +258,7 @@ def cmd_obsope(args):
         filename_replace_mem, load_history)
     from scale_letkf_torch.model.dycore import to_collocated
     from scale_letkf_torch.obs import io as obsio
+    from scale_letkf_torch.obs.types import ID_H08IR
     from scale_letkf_torch.state import state_to_history, state_trans
     cfg, grid, dycfg, dom, driver, device = _setup(args)
     ens, _, _ = _load_ens(args.gues, device)
@@ -271,25 +273,31 @@ def cmd_obsope(args):
                                   driver.z_full, driver.topo)
         hx = obsope_ensemble(fields, obs, grid, cfg, driver.z_full)
     ensval = hx.ensval.cpu().numpy()
+    # the H08 build's trailing records: sensitive pressure, clear-sky BT
+    has_h08 = bool(np.any(obs.elem == ID_H08IR))
     for m in range(ensval.shape[0]):
         obsio.write_obs_da(filename_replace_mem(args.out, m),
                            np.zeros(obs.nobs, np.int32),
                            np.arange(obs.nobs, dtype=np.int32),
                            ensval[m].astype(np.float32),
-                           hx.qc.astype(np.int32))
+                           hx.qc.astype(np.int32),
+                           lev=hx.lev if has_h08 else None,
+                           val2=hx.val2 if has_h08 else None)
     print(f"obsope: {obs.nobs} obs x {ensval.shape[0]} members -> {args.out}")
 
 
 def cmd_obsmake(args):
     from scale_letkf_torch.da.obsmake import obsmake
     from scale_letkf_torch.obs import io as obsio
-    from scale_letkf_torch.obs.types import TYP_PHARAD
+    from scale_letkf_torch.obs.types import ID_H08IR, TYP_PHARAD
     cfg, grid, dycfg, dom, driver, device = _setup(args)
     fields = _load_state(args.nature, driver)
     template = read_obs_files(cfg, [args.obs_template])
     obs = obsmake(fields, template, grid, cfg, driver.z_full,
                   np.random.default_rng(args.seed))
-    if obs.nobs and (obs.typ == TYP_PHARAD).all():
+    if obs.nobs and (obs.elem == ID_H08IR).all():
+        obsio.write_obs_h08(args.out, obs)
+    elif obs.nobs and (obs.typ == TYP_PHARAD).all():
         obsio.write_obs_radar(args.out, obs)
     else:
         obsio.write_obs(args.out, obs)
@@ -317,6 +325,28 @@ def cmd_obssim(args):
     write_grads(args.out, [out[e] for e in elems if out[e].ndim == 3],
                 [out[e] for e in elems if out[e].ndim == 2])
     print(f"obssim: wrote {len(elems)} vars -> {args.out}")
+
+
+def cmd_pp(args):
+    """Topography preprocessing (the scale-rm_pp_ens step): DEM raster →
+    smoothed model-grid topography, written as an npz (key 'topo') for the
+    [domain] topo_file key. The smoothing runs on --device."""
+    from scale_letkf_torch.model.topo import prepare_topo, read_dem
+    device = _device(args)
+    cfg, grid, dycfg, dom = load_config_and_grid(args.config)
+    dem_kw = {}
+    if args.dem_geometry:
+        nlon, nlat, lon0, dlon, lat0, dlat = \
+            [float(v) for v in args.dem_geometry.split(",")]
+        dem_kw = dict(nlon=int(nlon), nlat=int(nlat), lon0=lon0, dlon=dlon,
+                      lat0=lat0, dlat=dlat)
+    elev, dlons, dlats = read_dem(args.dem, **dem_kw)
+    topo, passes = prepare_topo(elev, dlons, dlats, grid,
+                                max_slope_ratio=args.max_slope_ratio,
+                                device=device)
+    np.savez(args.out, topo=topo)
+    print(f"pp: topo {topo.shape} min={topo.min():.1f} max={topo.max():.1f} "
+          f"({passes} smoothing passes on {device}) -> {args.out}")
 
 
 def cmd_fcst(args):
@@ -451,6 +481,17 @@ def main(argv=None):
     q.add_argument("--out", required=True)
     _add_device(q)
     q.set_defaults(fn=cmd_obssim)
+
+    q = sub.add_parser("pp", help="topography preprocessing (scale-rm_pp)")
+    q.add_argument("--config", required=True)
+    q.add_argument("--dem", required=True,
+                   help="DEM raster: .npz (elev/lon/lat) or flat binary")
+    q.add_argument("--dem-geometry", default=None,
+                   help="flat binary geometry: nlon,nlat,lon0,dlon,lat0,dlat")
+    q.add_argument("--max-slope-ratio", type=float, default=0.5)
+    q.add_argument("--out", required=True)
+    _add_device(q)
+    q.set_defaults(fn=cmd_pp)
 
     q = sub.add_parser("fcst", help="ensemble forecast")
     q.add_argument("--config", required=True)

@@ -4,16 +4,18 @@ Port of scale_letkf_tpu/cycle.py CycleDriver (reference workflow:
 scale/run/cycle.sh:141-345, the per-cycle step sequence scale-rm_ens →
 obsope → letkf). The forecast is composed from the config:
 the dynamics step (split-explicit HEVI for core = 'si', explicit RK3
-otherwise; stretched levels when the grid's are), Davies relaxation toward
+otherwise; stretched levels when the grid's are; terrain-following metrics
+when the topography is not flat, model/terrain.py), Davies relaxation toward
 lateral boundary data after every step (model/boundary.py, over the
 periodic stencils), and Kessler microphysics (use_physics) or the physics
 suite (phys_cfg: microphysics, radiation, surface layer, PBL and a slab skin
 temperature, model/physics_suite.py) every phys_interval steps. The members
 advance in batches sized from free device memory — a leading member axis
-through the whole step, in place of the reference's jax.vmap — and every
-batch runs the two hand-written tendency kernels on a CUDA device; the
-physics and the relaxation are plain PyTorch, as they were plain XLA in the
-reference. The analysis step runs the obs operator
+through the whole step, in place of the reference's jax.vmap. Over flat
+ground every batch runs the two hand-written tendency kernels on a CUDA
+device; with topography the slow tendencies are terrain.tendencies_terrain,
+plain PyTorch on either device, as the physics and the relaxation are: all
+three were plain XLA in the reference. The analysis step runs the obs operator
 on the whole ensemble (a leading member axis), the host obs context, and
 `analyze`, whose solver is the hand-written Newton–Schulz kernel.
 
@@ -26,8 +28,8 @@ without keeping a reference). The analysis results carry the guess and
 analysis ensemble mean and spread, not the ensembles.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: terrain, a device mesh and the explicit halo backends; the
-deterministic member and additive inflation (`analyze` raises).
+item: a device mesh and the explicit halo backends; the deterministic
+member and additive inflation (`analyze` raises).
 """
 
 from __future__ import annotations
@@ -60,7 +62,8 @@ from scale_letkf_torch.model.physics import kessler_step
 from scale_letkf_torch.model.physics_suite import (
     PhysicsConfig, PhysicsState, physics_step, skin_temperature,
 )
-from scale_letkf_torch.obs.types import Observations
+from scale_letkf_torch.model.terrain import make_metrics, rk3_step_terrain
+from scale_letkf_torch.obs.types import ID_H08IR, Observations
 from scale_letkf_torch.state import (
     ensemble_mean, ensemble_spread, state_to_history, state_trans,
     state_trans_inv,
@@ -79,19 +82,29 @@ from scale_letkf_torch.utils.timing import Timer
 # 51.5, a relaxation 18.1.
 FORECAST_MEMORY_SHARE = 0.5
 FORECAST_FIELDS_PER_MEMBER = 98
+# The same with terrain metrics: the slow tendency is plain PyTorch
+# (terrain.tendencies_terrain) and its temporaries — the tracers' face
+# fluxes and ∇⁴, the face winds, the metric products — add to the step's
+# working set. Measured at the 18-km size on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (chip_smoke.py's production_cycle, batch 9): 106.4 fields a
+# member for the forecast with the physics suite and Davies relaxation; a
+# terrain dynamics step alone takes 88.1 above its input.
+FORECAST_FIELDS_PER_MEMBER_TERRAIN = 107
 
 
-def member_batch(K: int, field_bytes: int, device: torch.device) -> int:
+def member_batch(K: int, field_bytes: int, device: torch.device,
+                 fields_per_member: int = FORECAST_FIELDS_PER_MEMBER) -> int:
     """Members per forecast batch: as many as fit FORECAST_MEMORY_SHARE of
-    the free device memory, balanced so the batches of K members differ by
-    at most one; all K on the CPU."""
+    the free device memory at fields_per_member member-sized fields each,
+    balanced so the batches of K members differ by at most one; all K on
+    the CPU."""
     if device.type != "cuda":
         return K
     free, _ = torch.cuda.mem_get_info(device)
     free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(
         device)
     cap = int(FORECAST_MEMORY_SHARE * free
-              // (FORECAST_FIELDS_PER_MEMBER * field_bytes))
+              // (fields_per_member * field_bytes))
     cap = max(1, min(K, cap))
     n_batches = -(-K // cap)
     return -(-K // n_batches)
@@ -119,15 +132,19 @@ class CycleDriver:
       HEVI, model/dycore_si.py — the reference's TIME_DT = 30 s /
       TIME_DT_ATMOS_DYN = 3 s regime);
     - stretched vertical levels when the grid's fz is non-uniform;
+    - terrain-following metrics when some topography is not zero
+      (model/terrain.py; scale_calc_z, common_scale.f90:1434): the SI core
+      then takes them in its slow tendencies, the explicit core steps with
+      rk3_step_terrain; flat topography keeps the kernels' path;
     - Kessler warm rain every phys_interval steps (use_physics), or the
       physics suite (phys_cfg) with its per-member slab skin temperature;
     - Davies relaxation toward `bdy` (BoundaryData, shared by all members
       or per member) over a buffer of bdy_width cells, time scale bdy_tau.
 
     rho_ref and p_ref (nz, 1, 1) are tensors on the device the cycle runs
-    on; ensembles and boundary data passed in must be on it too. The
-    topography is flat (z_full from grid.calc_z); terrain and a mesh are
-    not ported yet and raise."""
+    on; ensembles and boundary data passed in must be on it too. topo
+    (ny, nx), array or tensor, None for flat: z_full = grid.calc_z(topo).
+    A mesh is not ported yet and raises."""
 
     def __init__(self, grid: Grid, cfg: Config, dycfg: DycoreConfig,
                  rho_ref: torch.Tensor, p_ref: torch.Tensor,
@@ -136,10 +153,6 @@ class CycleDriver:
                  mesh=None, core: str = "explicit", n_small: int = 6,
                  bdy: BoundaryData | None = None, bdy_width: int = 0,
                  bdy_tau: float = 300.0):
-        if topo is not None and bool(np.any(np.asarray(topo) != 0.0)):
-            raise NotImplementedError(
-                "terrain (topo_file, model/terrain.py) is not ported yet "
-                "(ROADMAP queue 1, terrain)")
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh is not ported yet (ROADMAP queue 1, parallel/)")
@@ -159,9 +172,20 @@ class CycleDriver:
         self.phys_interval = phys_interval
         self.phys_cfg = phys_cfg
         self.device = rho_ref.device
-        self.topo = torch.zeros((grid.ny, grid.nx), dtype=torch.float32,
-                                device=self.device)
+        self.topo = (torch.zeros((grid.ny, grid.nx), dtype=torch.float32,
+                                 device=self.device) if topo is None
+                     else torch.as_tensor(topo, dtype=torch.float32,
+                                          device=self.device))
         self.z_full = grid.calc_z(self.topo)
+        # terrain metrics when any topography is present, built as the
+        # reference's __init__ builds them: ∂h/∂x, ∂h/∂y periodic whatever
+        # the lateral mode (ROADMAP §3)
+        self.metrics = (make_metrics(self.topo, grid.cz, grid.fz, grid.dx,
+                                     grid.dy)
+                        if bool((self.topo != 0).any()) else None)
+        self.fields_per_member = (FORECAST_FIELDS_PER_MEMBER
+                                  if self.metrics is None
+                                  else FORECAST_FIELDS_PER_MEMBER_TERRAIN)
         self.core = core
         self.n_small = n_small
         self.timer = Timer(self.device)
@@ -194,7 +218,12 @@ class CycleDriver:
             def dyn_step(s):
                 return rk3_step_si(s, dycfg, split, rho_ref, p_ref,
                                    self.z_centers, n_small, self.vg,
-                                   timer=self.timer)
+                                   self.metrics, timer=self.timer)
+        elif self.metrics is not None:
+            def dyn_step(s):
+                return rk3_step_terrain(s, dycfg, rho_ref, p_ref,
+                                        self.z_centers, self.metrics,
+                                        self.vg, timer=self.timer)
         else:
             def dyn_step(s):
                 return rk3_step(s, dycfg, rho_ref, p_ref, self.z_centers,
@@ -314,7 +343,8 @@ class CycleDriver:
             K = ens.rho.shape[0]
             out = DycoreState(*(torch.empty_like(f) for f in ens))
             field_bytes = ens.rho[0].numel() * ens.rho.element_size()
-            self.batch = B = member_batch(K, field_bytes, self.device)
+            self.batch = B = member_batch(K, field_bytes, self.device,
+                                          self.fields_per_member)
             t0 = np.float32(t0)
             if self.phys_cfg is not None:
                 tsfc = (skin_temperature(ens) if self.tsfc is None
@@ -448,7 +478,10 @@ class CycleDriver:
                                  tsfc=None if self.tsfc is None
                                  else torch.mean(self.tsfc, dim=0)), obs,
                 self.grid, cfg, self.z_full)
-            oma = ctx.dat - y_a.cpu().numpy().astype(np.float64)
+            y_a = y_a.cpu().numpy().astype(np.float64)
+            # the H08 all-sky BT without its cloudy-sky sign flag
+            y_a[obs.elem == ID_H08IR] = np.abs(y_a[obs.elem == ID_H08IR])
+            oma = ctx.dat - y_a
             stats_anal = monit_dep(ctx.elem, oma, ctx.qc)
             obsdep = ObsDepRecord(
                 elem=ctx.elem, typ=ctx.typ, lon=obs.lon, lat=obs.lat,

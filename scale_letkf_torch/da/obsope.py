@@ -10,9 +10,9 @@ covers the ensemble.
 
 The obs geometry (grid indices, wind rotation, radar beam angles) is
 computed on the host in float64 and cast to the fields' dtype on their
-device. The radar operator runs only when the batch holds radar obs, as in
-the reference. Himawari-8 radiances (obs/h08.py) are not ported: H08 obs
-raise NotImplementedError.
+device. The radar operator runs only when the batch holds radar obs, and
+the Himawari-8 radiance operator (obs/h08.py) only when it holds H08 obs,
+as in the reference; the port computes it on the H08 obs alone.
 """
 
 from __future__ import annotations
@@ -25,9 +25,10 @@ import torch
 from scale_letkf_torch.config import Config
 from scale_letkf_torch.grid import Grid
 from scale_letkf_torch.obs import operators as op
+from scale_letkf_torch.obs.h08 import satellite_zenith, trans_xtoy_h08
 from scale_letkf_torch.obs.types import (
-    ID_H08IR, ID_RADAR_REF, ID_RADAR_REF_ZERO, ID_RADAR_VR, QC_RADAR_VHI,
-    QC_TIME, Observations,
+    ID_H08IR, ID_RADAR_REF, ID_RADAR_REF_ZERO, ID_RADAR_VR, QC_OUT_H,
+    QC_RADAR_VHI, QC_TIME, Observations,
 )
 from scale_letkf_torch.state import state_to_history
 
@@ -47,8 +48,9 @@ def assign_slots(dif: np.ndarray, cfg: Config) -> np.ndarray:
 class ObsOpeResult:
     """Per-obs ensemble H(x) with QC (obs_da_value analogue). ensval
     (K, nobs) stays a tensor on the fields' device; qc (nobs,), the worst
-    QC over the members, is host numpy. lev and val2 (the H08 sensitive
-    pressure and clear-sky BT) stay None until obs/h08.py is ported."""
+    QC over the members, is host numpy, and so are lev and val2: the H08
+    sensitive pressure [Pa] and clear-sky BT [K], means over the members
+    (zero for the other obs)."""
     ensval: torch.Tensor
     qc: np.ndarray
     lev: np.ndarray | None = None
@@ -56,13 +58,12 @@ class ObsOpeResult:
 
 
 def compute_hx_single(fields: dict, obs: Observations, grid: Grid,
-                      cfg: Config, z_full: torch.Tensor):
+                      cfg: Config, z_full: torch.Tensor,
+                      with_aux: bool = False):
     """H(x) of history fields (state_to_history; any leading axes) for all
-    obs: (y, qc), each (..., nobs) on the fields' device."""
-    if np.any(obs.elem == ID_H08IR):
-        raise NotImplementedError(
-            "Himawari-8 radiance obs (ID_H08IR, obs/h08.py) are not ported "
-            "yet (ROADMAP queue 1, obs/h08.py)")
+    obs: (y, qc), each (..., nobs) on the fields' device; with_aux adds
+    (lev, val2), the H08 sensitive pressure and clear-sky BT (zero for the
+    other obs)."""
     t = fields["t"]
 
     def put(a):
@@ -105,6 +106,33 @@ def compute_hx_single(fields: dict, obs: Observations, grid: Grid,
         too_high = torch.as_tensor(radar_h & (obs.lev > cfg.radar.radar_zmax),
                                    device=t.device)
         qc = torch.where(too_high, QC_RADAR_VHI, qc)
+
+    # Himawari-8 IR radiances (Trans_XtoY_H08; the band in obs lev,
+    # letkf_obs.f90:463-465), on the H08 obs alone; they bypass the
+    # vertical QC of phys2ijk
+    if with_aux:
+        lev_aux, val2 = torch.zeros_like(y), torch.zeros_like(y)
+    h08 = np.nonzero(obs.elem == ID_H08IR)[0]
+    if len(h08):
+        h = cfg.h08
+        idx = torch.as_tensor(h08, device=t.device)
+        ri_s, rj_s = ri[idx], rj[idx]
+        y_h, bclr, plev, qc_h = trans_xtoy_h08(
+            obs.lev[h08], ri_s, rj_s,
+            put(satellite_zenith(obs.lon[h08], obs.lat[h08])), fields,
+            ch_use=h.h08_ch_use, cldsky_thrs=h.h08_cldsky_thrs,
+            reject_land=h.h08_reject_land)
+        ny, nx = fields["ps"].shape[-2:]
+        out_h = torch.as_tensor(
+            (ri_h[h08] < 0) | (ri_h[h08] > nx - 1) | (rj_h[h08] < 0)
+            | (rj_h[h08] > ny - 1), device=t.device)
+        y[..., idx] = y_h
+        qc[..., idx] = torch.where(out_h, QC_OUT_H, qc_h)
+        if with_aux:
+            lev_aux[..., idx] = plev
+            val2[..., idx] = bclr
+    if with_aux:
+        return y, qc, lev_aux, val2
     return y, qc
 
 
@@ -112,8 +140,11 @@ def obsope_ensemble(fields: dict, obs: Observations, grid: Grid, cfg: Config,
                     z_full: torch.Tensor) -> ObsOpeResult:
     """Ensemble H(x) in one time slot: fields from state_to_history of the
     ensemble, K leading."""
-    y, qc = compute_hx_single(fields, obs, grid, cfg, z_full)
-    return ObsOpeResult(ensval=y, qc=qc.amax(dim=0).cpu().numpy())
+    y, qc, lev, val2 = compute_hx_single(fields, obs, grid, cfg, z_full,
+                                         with_aux=True)
+    return ObsOpeResult(ensval=y, qc=qc.amax(dim=0).cpu().numpy(),
+                        lev=lev.mean(dim=0).cpu().numpy(),
+                        val2=val2.mean(dim=0).cpu().numpy())
 
 
 def obsope_slots(hist, obs: Observations, grid: Grid, cfg: Config,
@@ -131,7 +162,8 @@ def obsope_slots(hist, obs: Observations, grid: Grid, cfg: Config,
     dev = z_full.device
     sl = np.clip(slots - o.slot_start, 0, S - 1)
     in_window = (slots >= o.slot_start) & (slots <= o.slot_end)
-    y = torch.zeros((K, obs.nobs), dtype=z_full.dtype, device=dev)
+    y, lev, val2 = (torch.zeros((K, obs.nobs), dtype=z_full.dtype,
+                                device=dev) for _ in range(3))
     qc = torch.zeros((K, obs.nobs), dtype=torch.int32, device=dev)
     for s in range(S):
         m = np.nonzero(sl == s)[0]
@@ -141,8 +173,10 @@ def obsope_slots(hist, obs: Observations, grid: Grid, cfg: Config,
             torch.as_tensor(hist[:, s], dtype=z_full.dtype, device=dev),
             z_full, topo)
         idx = torch.as_tensor(m, device=dev)
-        y[:, idx], qc[:, idx] = compute_hx_single(fields, obs.select(m), grid,
-                                                  cfg, z_full)
+        y[:, idx], qc[:, idx], lev[:, idx], val2[:, idx] = compute_hx_single(
+            fields, obs.select(m), grid, cfg, z_full, with_aux=True)
         del fields
     qc_w = np.where(in_window, qc.amax(dim=0).cpu().numpy(), QC_TIME)
-    return ObsOpeResult(ensval=y, qc=qc_w.astype(np.int32))
+    return ObsOpeResult(ensval=y, qc=qc_w.astype(np.int32),
+                        lev=lev.mean(dim=0).cpu().numpy(),
+                        val2=val2.mean(dim=0).cpu().numpy())

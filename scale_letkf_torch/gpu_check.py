@@ -89,7 +89,7 @@ from scale_letkf_torch.state import (
 )
 from scale_letkf_torch.synthetic import (
     base_boundary, smooth_noise, synthetic_conv_network,
-    synthetic_ens_dycore_device, synthetic_gues,
+    synthetic_ens_dycore_device, synthetic_gues, synthetic_h08_network,
 )
 from scale_letkf_torch.utils import kernels
 
@@ -905,3 +905,391 @@ def physics_check_passes(res: dict) -> bool:
             and not any(cyc["kernel_launches"]["cpu"].values())
             and cyc["nobs_by_element"]["REF"] > 0
             and cyc["nobs_by_element"]["Vr"] > 0)
+
+
+# --- terrain, topography and Himawari-8 -------------------------------------
+COARSE_TERRAIN = {"nx": 32, "ny": 24}    # the 18-km configuration's levels
+MEMBERS_TERRAIN = 4
+STEPS_TERRAIN = 5
+FLUX_MIN = 0.05           # |mass flux| the terrain test states keep from 0
+BT_TOL = 2e-3             # K: H08 brightness temperatures, device vs CPU
+# the production states' qv at most half the base column's saturation: the
+# configuration's exponential profile is supersaturated over ice above
+# ~8.5 km, and the physics suite's first step would deposit it as an ice
+# cloud whose top (~70 hPa) puts every H08 obs above H08_LIMIT_LEV
+PROD_RH_MAX = 0.5
+PLEV_ADJACENT_SHARE = 0.01  # sensitive pressures allowed on a next level
+
+
+def hills(ny: int, nx: int, amp: float = 300.0) -> np.ndarray:
+    """Two Gaussian hills (float32 (ny, nx)), one cut by the domain's edge,
+    so periodic and open stencils see different neighbours there."""
+    j, i = np.mgrid[0:ny, 0:nx]
+    h = (amp * np.exp(-(((i - 0.35 * nx) / 3.0) ** 2
+                        + ((j - 0.5 * ny) / 2.5) ** 2))
+         + 0.6 * amp * np.exp(-(((i - nx + 0.5) / 2.5) ** 2
+                                + ((j - 1.0) / 2.0) ** 2)))
+    return h.astype(np.float32)
+
+
+def terrain_state(seed: int, B: int, cz, fz, topo: np.ndarray, dx: float,
+                  dy: float):
+    """B float32 numpy members over topo: a hydrostatic column with 1%
+    noise, winds of either sign 1-6 m/s, tracers ≈ 1e-3 of ρ, and ρw set so
+    that the contravariant ρW at every interior face is ±(0.1-0.5)·J plus
+    the terrain-following part — every mass flux of the terrain tendency
+    keeps away from zero, where UD3's upwind switch would flip on a last
+    bit. Returns (fields, rho_ref, p_ref) as numpy float32."""
+    from scale_letkf_torch.model.terrain import make_metrics
+    rng = np.random.default_rng(seed)
+    nz, (ny, nx) = len(cz), topo.shape
+    theta = 300.0 + 10.0 * np.linspace(0, 1, nz)
+    rho1d, p1d = dycore.hydrostatic_reference(theta, 500.0, cz=np.asarray(cz))
+    shape = (B, nz, ny, nx)
+
+    def wind():
+        return rng.choice([-1.0, 1.0], shape) * (1.0 + 5.0 * rng.random(shape))
+
+    rho = rho1d[:, None, None] * (1.0 + 0.01 * rng.standard_normal(shape))
+    rhou, rhov = wind() * rho, wind() * rho
+    rho, rhou, rhov = (np.asarray(a, np.float32) for a in (rho, rhou, rhov))
+    m = make_metrics(torch.from_numpy(topo), cz, fz, dx, dy)
+    gx_c = (0.5 * (m.gx_zf + torch.roll(m.gx_zf, 1, -1))).numpy()
+    gy_c = (0.5 * (m.gy_zf + torch.roll(m.gy_zf, 1, -2))).numpy()
+    rhou_c = 0.5 * (rhou + np.roll(rhou, 1, -1))
+    rhov_c = 0.5 * (rhov + np.roll(rhov, 1, -2))
+    big_w = (rng.choice([-1.0, 1.0], (B, nz - 1, ny, nx))
+             * (0.1 + 0.4 * rng.random((B, nz - 1, ny, nx))))
+    rhow = np.zeros((B, nz + 1, ny, nx))
+    rhow[:, 1:-1] = (big_w * m.jac.numpy()
+                     + gx_c[1:-1] * 0.5 * (rhou_c[:, 1:] + rhou_c[:, :-1])
+                     + gy_c[1:-1] * 0.5 * (rhov_c[:, 1:] + rhov_c[:, :-1]))
+    rhot = rho * theta[:, None, None] * (1 + 0.01 * rng.standard_normal(shape))
+    rhoq = np.abs(1e-3 * rng.standard_normal((B, NQ) + shape[1:])) * rho[:, None]
+    f32 = [np.asarray(a, np.float32)
+           for a in (rho, rhou, rhov, rhow, rhot, rhoq)]
+    return (f32, np.asarray(rho1d[:, None, None], np.float32),
+            np.asarray(p1d[:, None, None], np.float32))
+
+
+def production_driver(cfg, grid, dycfg, dom: dict, device: torch.device,
+                      topo=None, bdy_width: int | None = None):
+    """The reference bench's production composition
+    (scale_letkf_tpu/bench_fullsize.py _make_fullsize_driver): the [domain]
+    driver of make_driver — its reference column, core and substeps — with
+    the physics suite PHYS_PROD, Davies relaxation toward the balanced base
+    state (base_boundary, its qv capped at PROD_RH_MAX of saturation; the
+    configuration's bdy_width unless given, and bdy_tau) and the topography
+    `topo` (None: flat) through CycleDriver(topo=)."""
+    from scale_letkf_torch.cli.main import make_driver
+    from scale_letkf_torch.cycle import CycleDriver
+    flat = make_driver(cfg, grid, dycfg, {**dom, "physics": PHYS_PROD},
+                       device)
+    return CycleDriver(grid, cfg, dycfg, flat.rho_ref, flat.p_ref, topo=topo,
+                       phys_cfg=flat.phys_cfg, core=flat.core,
+                       n_small=flat.n_small,
+                       bdy=base_boundary(grid, dom, device, PROD_RH_MAX),
+                       bdy_width=dom["bdy_width"] if bdy_width is None
+                       else bdy_width, bdy_tau=dom["bdy_tau"])
+
+
+def jacobian_mass(rho: torch.Tensor, jac: torch.Tensor,
+                  dzc: torch.Tensor) -> float:
+    """Σ J·ρ·dzc in float64: the terrain-following core's mass."""
+    return float((rho.double() * jac.double() * dzc.double()).sum())
+
+
+def _tend_err(names, dev_out, cpu_out, cpu_rounded, tol: float):
+    """Per field: |Δ| / (tol·max|cpu| · (1 + 2·floor)) and the floor, the
+    rounded CPU run's change over tol·max|cpu|."""
+    err, floor = {}, {}
+    for name, a, b, c in zip(names, dev_out, cpu_out, cpu_rounded):
+        scale = tol * np.abs(b).max()
+        floor[name] = float(np.abs(c - b).max() / scale)
+        err[name] = float(np.abs(a - b).max() / (scale * (1 + 2 * floor[name])))
+    return err, floor
+
+
+def terrain_modules_vs_cpu(device: torch.device, config: str,
+                           seed: int = 0) -> dict:
+    """The terrain dynamics on `device` against the CPU (and the CPU from
+    inputs rounded once): tendencies_terrain on terrain_state's members (2,
+    12 of the 18-km configuration's stretched levels, 40×24 columns of 18 km,
+    hills of 300 m) to TOL_TENDENCY·max|CPU| plus twice the CPU's floor;
+    two rk3_step_si steps with metrics of the configuration coarsened to
+    COARSE_TERRAIN (its 36 levels, hills of 500 m, K = MEMBERS_TERRAIN)
+    as the forecast checks; both lateral modes. Then an unforced SI terrain
+    forecast (STEPS_TERRAIN steps) on `device`: its Σ J·ρ·dzc change."""
+    from scale_letkf_torch.model import dycore_si, terrain
+    cfg, grid, dycfg, dom = load_config_and_grid(config, COARSE_TERRAIN)
+    cpu = torch.device("cpu")
+    names = dycore.DycoreState._fields
+    out = {}
+    nz, ny, nx = 12, 24, 40
+    fz = np.concatenate([[0.0], np.cumsum(300.0 * 1.04 ** np.arange(nz))])
+    cz = 0.5 * (fz[1:] + fz[:-1])
+    topo_t = hills(ny, nx)
+    fields, rho_ref, p_ref = terrain_state(seed, 2, cz, fz, topo_t, DX, DX)
+    rounded = [(f * (1.0 + 2.0 ** -24 * np.random.default_rng(seed + 1)
+                     .standard_normal(f.shape))).astype(np.float32)
+               for f in fields]
+    topo_s = hills(grid.ny, grid.nx, 500.0)
+    ens0, *cols = synthetic_ens_dycore_device(seed, MEMBERS_TERRAIN, grid,
+                                              dom, cpu, u0=10.0)
+    gen = torch.Generator().manual_seed(seed + 2)
+    ens_rounded = _rounded(ens0, gen)
+    split = dycore_si.SplitConfig(dtau=dycfg.dt / dom["n_small"])
+    for lateral in ("periodic", "open"):
+        runs = {}
+        cfg_t = dataclasses.replace(dycfg, dx=DX, dy=DX, dz=300.0,
+                                    lateral=lateral)
+        cfg_s = dataclasses.replace(dycfg, lateral=lateral)
+        for key, dev, fs, e0 in (("device", device, fields, ens0),
+                                 ("cpu", cpu, fields, ens0),
+                                 ("cpu_rounded", cpu, rounded, ens_rounded)):
+            s = dycore.DycoreState(*(torch.as_tensor(f, device=dev)
+                                     for f in fs))
+            m = terrain.make_metrics(torch.as_tensor(topo_t, device=dev),
+                                     cz, fz, DX, DX)
+            tend = terrain.tendencies_terrain(
+                s, cfg_t, torch.as_tensor(rho_ref, device=dev),
+                torch.as_tensor(p_ref, device=dev), m,
+                dycore.make_vgrid(cz, fz, dev))
+            ms = terrain.make_metrics(torch.as_tensor(topo_s, device=dev),
+                                      grid.cz, grid.fz, grid.dx, grid.dy)
+            step = dycore_si.integrate_si(
+                type(e0)(*(f.to(dev) for f in e0)), cfg_s, split,
+                *(c.to(dev) for c in cols),
+                torch.as_tensor(grid.cz, dtype=torch.float32, device=dev), 2,
+                dom["n_small"], dycore.make_vgrid(grid.cz, grid.fz, dev), ms)
+            runs[key] = ([f.cpu().numpy() for f in tend],
+                         [f.cpu().numpy() for f in step])
+        e_t, f_t = _tend_err(names, *(runs[k][0] for k in (
+            "device", "cpu", "cpu_rounded")), TOL_TENDENCY)
+        e_s, f_s = _err_floor(names, *(runs[k][1] for k in (
+            "device", "cpu", "cpu_rounded")), ens0)
+        out[lateral] = {"tendencies": e_t, "tendencies_floor": f_t,
+                        "si_steps": e_s, "si_steps_floor": f_s,
+                        "finite": all(bool(np.isfinite(f).all()) for f in (
+                            *runs["device"][0], *runs["device"][1]))}
+    # Σ J·ρ·dzc of an unforced SI forecast over the hills, on the device
+    ms = terrain.make_metrics(torch.as_tensor(topo_s, device=device),
+                              grid.cz, grid.fz, grid.dx, grid.dy)
+    vg = dycore.make_vgrid(grid.cz, grid.fz, device)
+    s0 = type(ens0)(*(f.to(device) for f in ens0))
+    s1 = dycore_si.integrate_si(
+        s0, dycfg, split, *(c.to(device) for c in cols),
+        torch.as_tensor(grid.cz, dtype=torch.float32, device=device),
+        STEPS_TERRAIN, dom["n_small"], vg, ms)
+    m0 = jacobian_mass(s0.rho, ms.jac, vg.dzc)
+    out["mass"] = {"steps": STEPS_TERRAIN,
+                   "jacobian_mass_rel_change":
+                       abs(jacobian_mass(s1.rho, ms.jac, vg.dzc) - m0) / m0,
+                   "max_abs_rhow": float(s1.rhow.abs().max())}
+    return out
+
+
+def topo_vs_cpu(device: torch.device, config: str, seed: int = 0) -> dict:
+    """prepare_topo of a synthetic DEM raster (a 2-km Gaussian ridge with
+    300-m seeded roughness and sea west of it, 0.02° spacing) onto the
+    configuration coarsened to COARSE_TERRAIN, the smoothing on `device`
+    and on the CPU: the same passes, the fields to 1e-5 of the highest."""
+    from scale_letkf_torch.model.topo import prepare_topo
+    _, grid, _, _ = load_config_and_grid(config, COARSE_TERRAIN)
+    lon = grid.proj.basepoint_lon + np.arange(-4.0, 4.0, 0.02)
+    lat = grid.proj.basepoint_lat + np.arange(-4.0, 4.0, 0.02)
+    lo, la = np.meshgrid(lon, lat)
+    elev = (2000.0 * np.exp(-(((lo - lon.mean()) / 1.0) ** 2
+                              + ((la - lat.mean()) / 0.5) ** 2))
+            + 300.0 * np.random.default_rng(seed).standard_normal(lo.shape))
+    elev = np.where(lo < lon.mean() - 2.0, -50.0, elev)
+    out = {k: prepare_topo(elev, lon, lat, grid, max_slope_ratio=0.01,
+                           device=dev)
+           for k, dev in (("device", device), ("cpu", torch.device("cpu")))}
+    (got, n_dev), (want, n_cpu) = out["device"], out["cpu"]
+    return {"grid": f"{grid.nx}x{grid.ny}", "passes": {"device": n_dev,
+                                                       "cpu": n_cpu},
+            "max_topo": float(want.max()),
+            "max_err_over_tol": float(np.abs(got - want).max()
+                                      / (1e-5 * want.max()))}
+
+
+def _plev_check(got, want, cols) -> dict:
+    """Sensitive pressures (..., nobs) of two devices: the share that
+    differs, and whether each differing one is an adjacent level's pressure
+    of its column cols (..., nobs, nz)."""
+    diff = got != want
+    adjacent = True
+    for idx in zip(*np.nonzero(diff)):
+        col = cols[idx]
+        k = np.nonzero(col == want[idx])[0]
+        adjacent &= bool(len(k)) and got[idx] in col[max(k[0] - 1, 0):k[0] + 2]
+    return {"plev_differ_share": float(diff.mean()),
+            "plev_differ_adjacent": bool(adjacent)}
+
+
+def h08_hx_vs_cpu(device: torch.device, config: str, seed: int = 0,
+                  members: int = 4) -> dict:
+    """The H08 operator in the driver's H(x) (compute_hx_single with the
+    sensitive pressure and clear-sky BT) on hydrometeor_analysis's
+    ensemble over the 18-km configuration at COARSE_TERRAIN (its 36
+    levels) with the synthetic topography, conventional obs beside an H08
+    network (a profile every 3 cells), the configuration's channel gate and
+    cloud threshold 2 K, on `device` against the CPU: QC equal, BT and
+    clear-sky BT to BT_TOL K, the sensitive pressures equal but for a share
+    of at most PLEV_ADJACENT_SHARE on an adjacent level (an argmax over
+    weights that tie to the last bit)."""
+    from scale_letkf_torch.da.obsope import compute_hx_single
+    from scale_letkf_torch.obs.operators import itpl_2d_column
+    from scale_letkf_torch.obs.types import ID_H08IR
+    from scale_letkf_torch.synthetic import synthetic_topo
+    cfg, grid, _, dom = load_config_and_grid(config, COARSE_TERRAIN)
+    cfg.h08 = dataclasses.replace(cfg.h08, h08_cldsky_thrs=2.0)
+    anal = hydrometeor_analysis(seed, members, grid, dom)
+    topo = synthetic_topo(np.random.default_rng(7), grid.ny, grid.nx)
+    obs = Observations.concatenate([
+        synthetic_conv_network(cfg, grid, np.random.default_rng(seed),
+                               n_sonde=20, n_ps=40),
+        synthetic_h08_network(cfg, grid, spacing=3, margin=2)])
+    res, cols = {}, None
+    for key, dev in (("device", device), ("cpu", torch.device("cpu"))):
+        t = torch.as_tensor(topo, device=dev)
+        z = grid.calc_z(t)
+        fields = state_to_history(anal.to(dev), z, t)
+        res[key] = [a.cpu().numpy() for a in compute_hx_single(
+            fields, obs, grid, cfg, z, with_aux=True)]
+        if dev.type == "cpu":
+            ri, rj = grid.lonlat_to_ij(obs.lon, obs.lat)
+            cols = itpl_2d_column(fields["p"], torch.as_tensor(ri).float(),
+                                  torch.as_tensor(rj).float()).numpy()
+    (y, qc, lev, val2), (y_c, qc_c, lev_c, val2_c) = res["device"], res["cpu"]
+    h = obs.elem == ID_H08IR
+    good = (qc_c == 0) & h[None]
+    return {"grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members": members,
+            "h08_obs": int(h.sum()), "h08_good": int(good[0].sum()),
+            "cloudy_share": float((y_c[good] < 0).mean()),
+            "qc_equal": bool(np.array_equal(qc, qc_c)),
+            "bt_max_abs_err_k": float(np.abs(y - y_c)[:, h].max()),
+            "btclr_max_abs_err_k": float(np.abs(val2 - val2_c)[:, h].max()),
+            "bt_tol_k": BT_TOL,
+            "finite": bool(np.isfinite(y[:, h]).all()),
+            **_plev_check(lev[:, h], lev_c[:, h], cols[:, h])}
+
+
+def production_cycle_vs_cpu(device: torch.device, config: str,
+                            seed: int = 0) -> dict:
+    """The production composition coarsened: one run_osse cycle of
+    STEPS_TERRAIN steps (physics once) of production_driver at
+    COARSE_TERRAIN (the 36 levels; Davies over 3 cells), the synthetic
+    topography (synthetic_topo, default_rng(7)), K = MEMBERS_CYCLE, from
+    synthetic ensemble and nature states made on the CPU (qv capped at
+    PROD_RH_MAX of saturation), and obsmake's
+    conventional + H08 obs (the configuration's band 9), on `device` and
+    twice on the CPU. The final states per field as the forecast checks,
+    QC equal, O−B and O−A per obs to 2e-5 of the obs' range plus 4 ulp plus
+    twice the CPU's own floor, the kernels' launches (#2 and #3 none: the
+    slow tendencies are the terrain's)."""
+    from scale_letkf_torch.obs.types import ID_H08IR
+    from scale_letkf_torch.synthetic import synthetic_topo
+    cfg, grid, dycfg, dom = load_config_and_grid(config, COARSE_TERRAIN)
+    cfg.ensemble.member = K = MEMBERS_CYCLE
+    cpu = torch.device("cpu")
+    kw = {"u0": 10.0, "amp_theta": 2.0, "rh_max": PROD_RH_MAX}
+    ens0, _, _ = synthetic_ens_dycore_device(seed, K, grid, dom, cpu, **kw)
+    nat, _, _ = synthetic_ens_dycore_device(seed + 1, 1, grid, dom, cpu, **kw)
+    truth0 = type(nat)(*(f[0] for f in nat))
+    topo = synthetic_topo(np.random.default_rng(7), grid.ny, grid.nx)
+    template = Observations.concatenate([
+        synthetic_conv_network(cfg, grid, np.random.default_rng(seed),
+                               n_sonde=30, n_ps=60),
+        synthetic_h08_network(cfg, grid, spacing=4, margin=3)])
+    gen = torch.Generator().manual_seed(seed + 6)
+    runs = {}
+    for key, dev, t0, e0 in (("device", device, truth0, ens0),
+                             ("cpu", cpu, truth0, ens0),
+                             ("cpu_rounded", cpu, _rounded(truth0, gen),
+                              _rounded(ens0, gen))):
+        driver = production_driver(cfg, grid, dycfg, dom, dev, topo=topo,
+                                   bdy_width=3)
+        before = dict(kernels.LAUNCHES)
+        truth, ens, res = driver.run_osse(
+            type(t0)(*(f.to(dev) for f in t0)),
+            type(e0)(*(f.to(dev) for f in e0)), template, n_cycles=1,
+            steps_per_cycle=STEPS_TERRAIN, seed=seed)
+        dep = res.info["obsdep"]
+        runs[key] = {
+            "state": [f.cpu().numpy() for f in (*ens, *truth)],
+            "qc": dep.qc, "omb": dep.omb, "oma": dep.oma, "elem": dep.elem,
+            "dat": dep.dat, "nobs": res.stats_gues[0].nobs,
+            "terrain": driver.metrics is not None,
+            "launches": {k: kernels.LAUNCHES[k] - before[k]
+                         for k in KERNELS}}
+    names = ([f"ens.{n}" for n in ens0._fields]
+             + [f"nature.{n}" for n in truth0._fields])
+    err, floor = _err_floor(names, runs["device"]["state"],
+                            runs["cpu"]["state"], runs["cpu_rounded"]["state"],
+                            (*ens0, *truth0))
+    d, c, r = runs["device"], runs["cpu"], runs["cpu_rounded"]
+    good = c["qc"] == 0
+    for key in ("omb", "oma"):
+        for e in np.unique(c["elem"][good]):
+            m = good & (c["elem"] == e)
+            tol = (2e-5 * np.ptp(c["dat"][m]) + (12 if e == ID_PS else 4)
+                   * np.spacing(np.float32(np.abs(c["dat"][m]).max()))
+                   + 2 * np.abs(r[key][m] - c[key][m]).max())
+            name = OBELM_NAMES[int(uid_obs(np.asarray([e]))[0])]
+            err[f"{key}.{name}"] = float(np.abs(d[key][m] - c[key][m]).max()
+                                         / tol)
+    return {"grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members": K,
+            "steps": STEPS_TERRAIN, "terrain": d["terrain"],
+            "nobs_by_element": d["nobs"],
+            "h08_assimilated": int((good & (c["elem"] == ID_H08IR)).sum()),
+            "kernel_launches": {k: runs[k]["launches"]
+                                for k in ("device", "cpu")},
+            "qc_equal": bool(np.array_equal(d["qc"], c["qc"])),
+            "rounding_floor_over_1e-4_increment": floor,
+            "finite": all(bool(np.isfinite(f).all()) for f in d["state"]),
+            "max_err_over_tol": err}
+
+
+def coarse_terrain_vs_cpu(device: torch.device, config: str,
+                          seed: int = 0) -> dict:
+    """The terrain and H08 checks on `device` against the CPU: the terrain
+    dynamics alone and an unforced terrain forecast's mass, the pp step's
+    smoothing, the H08 operator, and the coarsened production cycle."""
+    return {"modules": terrain_modules_vs_cpu(device, config, seed),
+            "topo": topo_vs_cpu(device, config, seed),
+            "h08": h08_hx_vs_cpu(device, config, seed),
+            "production": production_cycle_vs_cpu(device, config, seed)}
+
+
+def terrain_check_passes(res: dict) -> bool:
+    """Whether coarse_terrain_vs_cpu's result passes: every error within its
+    bound and finite, Σ J·ρ·dzc kept to 1e-5, the same smoothing passes, the
+    H08 QC equal with BTs within BT_TOL and the sensitive pressures as
+    h08_hx_vs_cpu says, and the production cycle on terrain with QC equal,
+    H08 obs assimilated and no launch of the stencil kernels (the solver's
+    on the device only)."""
+    mods, topo_r, h, prod = (res[k] for k in ("modules", "topo", "h08",
+                                              "production"))
+    launches = prod["kernel_launches"]
+    return (all(r["finite"] and all(e <= 1 for part in ("tendencies",
+                                                        "si_steps")
+                                    for e in r[part].values())
+                for r in (mods["periodic"], mods["open"]))
+            and mods["mass"]["jacobian_mass_rel_change"] <= 1e-5
+            and mods["mass"]["max_abs_rhow"] > 0
+            and topo_r["passes"]["device"] == topo_r["passes"]["cpu"] > 0
+            and topo_r["max_err_over_tol"] <= 1
+            and h["finite"] and h["qc_equal"] and h["h08_good"] > 0
+            and h["bt_max_abs_err_k"] <= BT_TOL
+            and h["btclr_max_abs_err_k"] <= BT_TOL
+            and h["plev_differ_adjacent"]
+            and h["plev_differ_share"] <= PLEV_ADJACENT_SHARE
+            and prod["terrain"] and prod["finite"] and prod["qc_equal"]
+            and prod["h08_assimilated"] > 0
+            and all(e <= 1 for e in prod["max_err_over_tol"].values())
+            and launches["device"]["invsqrt_ns"] > 0
+            and launches["device"]["dyn_tendency"] == 0
+            and launches["device"]["adv_ud3"] == 0
+            and not any(launches["cpu"].values()))

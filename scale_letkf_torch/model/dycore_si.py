@@ -2,8 +2,9 @@
 
 Port of scale_letkf_tpu/model/dycore_si.py: the Wicker–Skamarock (2002)
 scheme around the explicit core in dycore.py. Each RK3 stage evaluates the
-full slow tendencies (dycore.tendencies: on CUDA tensors the two
-hand-written kernels) at the stage state, then integrates n acoustic
+full slow tendencies at the stage state — dycore.tendencies (on CUDA
+tensors the two hand-written kernels), or with terrain metrics
+terrain.tendencies_terrain (plain PyTorch on either device) — then integrates n acoustic
 substeps linearized around it: horizontal momenta explicit; w, ρ and ρθ
 implicit in the vertical, one tridiagonal solve per column (Thomas
 algorithm). p'' = c²·(ρθ)'' with c² = (cp/cv)·p*/(ρθ)*. The acoustic step
@@ -25,6 +26,9 @@ from scale_letkf_torch.constants import RD, CVDRY, GRAV
 from scale_letkf_torch.model.dycore import (
     DycoreConfig, DycoreState, VGrid, metric, mixing_ratios, moist_pressure,
     rayleigh_sponge, roll_x, roll_y, tendencies, zsl,
+)
+from scale_letkf_torch.model.terrain import (
+    TerrainMetrics, tendencies_terrain,
 )
 from scale_letkf_torch.utils.timing import Timer, maybe_section
 
@@ -172,21 +176,24 @@ def acoustic_substeps(s_start: DycoreState, s_stage: DycoreState,
 
 def rk3_step_si(s: DycoreState, cfg: DycoreConfig, split: SplitConfig,
                 rho_ref, p_ref, z_center, n_small: int,
-                vg: VGrid | None = None, metrics=None,
+                vg: VGrid | None = None,
+                metrics: TerrainMetrics | None = None,
                 timer: Timer | None = None) -> DycoreState:
     """One split-explicit RK3 step of length cfg.dt with n_small acoustic
     substeps in the final stage (the earlier stages n_small//3 and
-    n_small//2). timer: optional sections `tendencies`, `acoustic` and
-    `sponge`."""
-    if metrics is not None:
-        raise NotImplementedError(
-            "terrain-following metrics (model/terrain.py) are not ported "
-            "yet (ROADMAP queue 1, terrain)")
+    n_small//2). metrics: terrain metrics — the slow tendencies then carry
+    the full terrain-following metric terms (terrain.tendencies_terrain)
+    while the acoustic operator stays flat-metric, as in the reference (the
+    acoustic deviations are linearized around the stage state without
+    Gx/Gy corrections; J enters only through the slow forcing). timer:
+    optional sections `tendencies`, `acoustic` and `sponge`."""
     dt = cfg.dt
 
     def stage(s_from, dt_stage, ns):
         with maybe_section(timer, "tendencies"):
-            slow = tendencies(s_from, cfg, rho_ref, p_ref, vg)
+            slow = (tendencies(s_from, cfg, rho_ref, p_ref, vg)
+                    if metrics is None else tendencies_terrain(
+                        s_from, cfg, rho_ref, p_ref, metrics, vg))
         with maybe_section(timer, "acoustic"):
             return acoustic_substeps(s, s_from, slow, cfg, split, ns,
                                      dt_stage, vg)
@@ -199,7 +206,8 @@ def rk3_step_si(s: DycoreState, cfg: DycoreConfig, split: SplitConfig,
 
 
 def integrate_si(s, cfg, split, rho_ref, p_ref, z_center, nsteps, n_small,
-                 vg: VGrid | None = None, metrics=None,
+                 vg: VGrid | None = None,
+                 metrics: TerrainMetrics | None = None,
                  timer: Timer | None = None):
     """nsteps split-explicit steps."""
     for _ in range(nsteps):

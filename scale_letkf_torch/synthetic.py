@@ -2,7 +2,9 @@
 
 The numpy helpers are copies of the reference's full-size bench generators
 (scale_letkf_tpu/bench_fullsize.py _smooth_noise, _synthetic_gues,
-_synthetic_conv_network), so both packages can be fed the same numbers.
+_synthetic_conv_network, _synthetic_topo), so both packages can be fed the
+same numbers; `synthetic_h08_network` lays out a thinned Himawari-8 network
+in the reference's file layout (one record per profile and band).
 `synthetic_gues_device` and `synthetic_ens_dycore_device` build the same
 kinds of ensemble (analysis variables; the forecast's staggered restart
 state) on a device from a seeded torch.Generator: a full-size ensemble
@@ -15,11 +17,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from scale_letkf_torch.constants import CVDRY, GRAV, PRE00, RD
-from scale_letkf_torch.obs.types import Observations, ID_U, ID_V, ID_T, ID_Q, ID_PS
+from scale_letkf_torch.constants import CVDRY, GRAV, PRE00, RD, T00
+from scale_letkf_torch.obs.types import (
+    ID_H08IR, ID_PS, ID_Q, ID_T, ID_U, ID_V, OBTYPE_NAMES, Observations,
+)
 from scale_letkf_torch.model.boundary import BoundaryData
 from scale_letkf_torch.model.dycore import DycoreState, hydrostatic_reference
 from scale_letkf_torch.model.ideal import standard_theta_profile
+from scale_letkf_torch.model.microphysics6 import qsat
 from scale_letkf_torch.state import (
     NQ, NV3D, IA_U, IA_V, IA_W, IA_T, IA_P, IA_Q0,
 )
@@ -93,29 +98,39 @@ def synthetic_gues_device(seed: int, K: int, nz: int, ny: int, nx: int,
     return out
 
 
-def _base_columns(grid, dom: dict):
+def _base_columns(grid, dom: dict, rh_max: float | None = None):
     """Float32 (θ, ρ, qv) base columns of the grid: the standard θ profile,
     its hydrostatic density, and the [domain] qv profile (qv_surface,
-    qv_scale_height; zero without qv_surface)."""
+    qv_scale_height; zero without qv_surface). rh_max caps qv at that
+    fraction of saturation of the base column (over ice below 0 °C): the
+    exponential profile is supersaturated over ice in the upper troposphere
+    of a deep domain, where the physics suite's first step would deposit
+    it as ice cloud."""
     cz = np.asarray(grid.cz)
     dz0 = float(np.asarray(grid.fz)[1] - np.asarray(grid.fz)[0])
     theta = standard_theta_profile(grid.nz, dz0, cz=cz)
-    rho1d, _ = hydrostatic_reference(theta, dz0, cz=cz)
+    rho1d, p1d = hydrostatic_reference(theta, dz0, cz=cz)
     qv0 = dom.get("qv_surface", 0.0)
     qv = (qv0 * np.exp(-cz / dom.get("qv_scale_height", 3000.0))
           if qv0 > 0 else np.zeros(grid.nz))
+    if rh_max is not None:
+        t = torch.as_tensor(theta * (p1d / PRE00) ** (RD / (RD + CVDRY)))
+        p = torch.as_tensor(p1d)
+        sat = torch.where(t < T00, qsat(t, p, True), qsat(t, p, False))
+        qv = np.minimum(qv, rh_max * sat.numpy())
     return (theta.astype(np.float32), rho1d.astype(np.float32),
             qv.astype(np.float32))
 
 
-def base_boundary(grid, dom: dict, device: torch.device) -> BoundaryData:
+def base_boundary(grid, dom: dict, device: torch.device,
+                  rh_max: float | None = None) -> BoundaryData:
     """The Davies target of the balanced base state, held for all time: the
     base columns broadcast to one member's 3-D fields, at rest, with the
     [domain] qv profile — the reference bench's stand-in for a parent-model
     boundary file (scale_letkf_tpu/bench_fullsize.py _make_fullsize_driver,
     BoundaryData(base, base, 0, 1e9)). The fields are expanded views of the
-    columns."""
-    theta, rho1d, qv = _base_columns(grid, dom)
+    columns; rh_max caps qv as _base_columns does."""
+    theta, rho1d, qv = _base_columns(grid, dom, rh_max)
     nz, ny, nx = grid.nz, grid.ny, grid.nx
 
     def col(prof):
@@ -137,7 +152,8 @@ def synthetic_ens_dycore_device(seed: int, K: int, grid, dom: dict,
                                 device: torch.device, u0: float = 0.0,
                                 amp_theta: float = 0.5,
                                 smooth_passes: int = 1,
-                                qr_blob: float = 0.0):
+                                qr_blob: float = 0.0,
+                                rh_max: float | None = None):
     """A K-member restart ensemble of the dynamical core on `device`: the
     reference's bench_fullsize._synthetic_ens_dycore construction from a
     torch.Generator seeded with `seed` — the hydrostatic base column of the
@@ -158,9 +174,12 @@ def synthetic_ens_dycore_device(seed: int, K: int, grid, dom: dict,
     construction): a 3-D Gaussian of widths 0.12·nx, 0.12·ny and 0.2·nz
     levels, centered at a random point of the middle 30% of the domain at
     0.3·nz, with peak qr_blob [kg/kg] of rain and half that of cloud water,
-    so the radar operator sees echoes and the microphysics hydrometeors."""
+    so the radar operator sees echoes and the microphysics hydrometeors.
+
+    rh_max caps the qv profile at that fraction of the base column's
+    saturation (_base_columns)."""
     nz, ny, nx = grid.nz, grid.ny, grid.nx
-    theta, rho1d, qv = _base_columns(grid, dom)
+    theta, rho1d, qv = _base_columns(grid, dom, rh_max)
     p_ref = PRE00 * (rho1d * theta * RD / PRE00) ** ((RD + CVDRY) / CVDRY)
     tx = np.minimum(np.arange(nx), nx - 1 - np.arange(nx))
     ty = np.minimum(np.arange(ny), ny - 1 - np.arange(ny))
@@ -244,3 +263,49 @@ def synthetic_conv_network(cfg, grid, rng: np.random.Generator,
     return Observations(elem=elem, lon=lon, lat=lat, lev=lev, dat=dat,
                         err=err, typ=np.zeros(nobs, np.int32),
                         dif=np.zeros(nobs))
+
+
+def synthetic_topo(rng: np.random.Generator, ny: int, nx: int,
+                   amp: float = 400.0, n_hills: int = 12) -> np.ndarray:
+    """Smooth synthetic orography (ny, nx) float32: n_hills Gaussian hills
+    of random centers, widths 3-11% of nx and heights up to amp [m], tapered
+    to zero over 12 cells at the lateral edges (the boundary buffer) — the
+    reference bench's stand-in for the scale-rm_pp_ens topography, which
+    its production driver draws with default_rng(7)."""
+    j, i = np.mgrid[0:ny, 0:nx]
+    topo = np.zeros((ny, nx), np.float32)
+    for _ in range(n_hills):
+        cx = nx * rng.random()
+        cy = ny * rng.random()
+        sx = nx * (0.03 + 0.08 * rng.random())
+        h = amp * rng.random()
+        topo += h * np.exp(-(((i - cx) / sx) ** 2 + ((j - cy) / sx) ** 2))
+    tx = np.minimum(i, nx - 1 - i) / 12.0
+    ty = np.minimum(j, ny - 1 - j) / 12.0
+    return (topo * np.clip(np.minimum(tx, ty), 0.0, 1.0)).astype(
+        np.float32)
+
+
+def synthetic_h08_network(cfg, grid, spacing: int = 8,
+                          margin: int = 10) -> Observations:
+    """A thinned Himawari-8 AHI network: one profile of all ten bands
+    (B07..B16, the band number in lev, as read_obs_h08 stores it) at every
+    `spacing`-th cell center in x and y, `margin` cells or more inside the
+    domain's edge; report type H08IRB, the per-band OBSERR_H08 errors, dat
+    a placeholder BT of 250 K (obsmake gives the values)."""
+    from scale_letkf_torch.obs.h08 import NCHAN
+    lon2d, lat2d = grid.lonlat
+    jj, ii = np.meshgrid(np.arange(margin, grid.ny - margin, spacing),
+                         np.arange(margin, grid.nx - margin, spacing),
+                         indexing="ij")
+    n = jj.size * NCHAN
+    band = np.arange(1, NCHAN + 1)
+    return Observations(
+        elem=np.full(n, ID_H08IR, np.int32),
+        lon=np.repeat(lon2d[jj, ii].ravel(), NCHAN),
+        lat=np.repeat(lat2d[jj, ii].ravel(), NCHAN),
+        lev=np.tile(band + 6.0, jj.size), dat=np.full(n, 250.0),
+        err=np.tile(np.asarray(cfg.obs_error.h08, np.float64)[band - 1],
+                    jj.size),
+        typ=np.full(n, OBTYPE_NAMES.index("H08IRB"), np.int32),
+        dif=np.zeros(n))

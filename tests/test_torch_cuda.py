@@ -6,9 +6,11 @@ a GPU machine without jax, with the jax-configuring conftest left out:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 The CUDA kernels are held against their plain PyTorch versions on the
-card, and the analysis, the forecast, the DA cycle and the ensemble H(x)
-(4-D and radar) on the card against the same runs on the CPU (which the
-parity tests hold against the reference package).
+card, and the analysis, the forecast, the DA cycle, the ensemble H(x)
+(4-D, radar and H08), the physics, the terrain dynamics, the pp step's
+smoothing and the coarsened production cycle on the card against the same
+runs on the CPU (which the parity tests hold against the reference
+package).
 Stencil bounds per field, relative to max|plain|: 2e-5 for the whole
 tendency, 1e-5 for the tracers (the reference's bounds for its Pallas
 kernels).
@@ -253,3 +255,86 @@ def test_cuda_physics_paths_match_cpu(cuda_device):
     radar = str(Path(CONFIG).parent / "bda_1km_radar.toml")
     res = gpu_check.coarse_physics_vs_cpu(cuda_device, CONFIG, radar)
     assert gpu_check.physics_check_passes(res), res
+
+
+@pytest.mark.cuda
+def test_cuda_terrain_modules_match_cpu(cuda_device):
+    """tendencies_terrain (plain PyTorch on the card) on hills, uniform
+    fluxes kept away from zero, to 2e-5·max|CPU| plus twice the CPU's own
+    rounding floor, and two SI steps with terrain metrics as the forecast
+    checks, both lateral modes; an unforced terrain forecast keeps
+    Σ J·ρ·dzc to 1e-5 (gpu_check.terrain_modules_vs_cpu)."""
+    res = gpu_check.terrain_modules_vs_cpu(cuda_device, CONFIG)
+    for lateral in ("periodic", "open"):
+        r = res[lateral]
+        assert r["finite"], res
+        assert all(e <= 1 for part in ("tendencies", "si_steps")
+                   for e in r[part].values()), res
+    assert res["mass"]["jacobian_mass_rel_change"] <= 1e-5, res
+
+
+@pytest.mark.cuda
+def test_cuda_terrain_tendencies_launch_no_stencil_kernel(cuda_device):
+    """With terrain metrics the slow tendency leaves kernels #2 and #3;
+    flat metrics on the card give dycore.tendencies' result (the kernels')
+    to the kernels' bounds."""
+    from scale_letkf_torch.model import terrain
+    nz, ny, nx = 12, 24, 40
+    fz = np.concatenate([[0.0], np.cumsum(300.0 * 1.04 ** np.arange(nz))])
+    cz = 0.5 * (fz[1:] + fz[:-1])
+    topo = gpu_check.hills(ny, nx)
+    fields, rho_ref, p_ref = gpu_check.terrain_state(0, 2, cz, fz, topo,
+                                                     gpu_check.DX,
+                                                     gpu_check.DX)
+    s = dycore.DycoreState(*(torch.as_tensor(f, device=cuda_device)
+                             for f in fields))
+    cfg = dycore.DycoreConfig(dx=gpu_check.DX, dy=gpu_check.DX, dz=300.0,
+                              dt=gpu_check.DT)
+    vg = dycore.make_vgrid(cz, fz, cuda_device)
+    cols = [torch.as_tensor(a, device=cuda_device) for a in (rho_ref, p_ref)]
+    m = terrain.make_metrics(torch.as_tensor(topo, device=cuda_device), cz,
+                             fz, cfg.dx, cfg.dy)
+    kernels.reset_launches()
+    terrain.tendencies_terrain(s, cfg, *cols, m, vg)
+    assert kernels.LAUNCHES["dyn_tendency"] == kernels.LAUNCHES["adv_ud3"] == 0
+    flat = terrain.make_metrics(torch.zeros_like(m.jac), cz, fz, cfg.dx,
+                                cfg.dy)
+    got = terrain.tendencies_terrain(s, cfg, *cols, flat, vg)
+    want = dycore.tendencies(s, cfg, *cols, vg)
+    for name, a, b in zip(s._fields, got, want):
+        tol = gpu_check.TOL_STENCIL if name == "rhoq" else gpu_check.TOL_TENDENCY
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max()), name
+
+
+@pytest.mark.cuda
+def test_cuda_topo_and_h08_match_cpu(cuda_device):
+    """The pp step's smoothing on the card takes the CPU's passes and gives
+    its field to 1e-5 of the highest; H08 H(x) on the card: the CPU's QC,
+    BTs to gpu_check.BT_TOL K, sensitive pressures equal but for at most
+    1% on an adjacent level."""
+    topo = gpu_check.topo_vs_cpu(cuda_device, CONFIG)
+    assert topo["passes"]["device"] == topo["passes"]["cpu"] > 0, topo
+    assert topo["max_err_over_tol"] <= 1, topo
+    h = gpu_check.h08_hx_vs_cpu(cuda_device, CONFIG)
+    assert h["finite"] and h["qc_equal"] and h["h08_good"] > 0, h
+    assert h["bt_max_abs_err_k"] <= gpu_check.BT_TOL, h
+    assert h["btclr_max_abs_err_k"] <= gpu_check.BT_TOL, h
+    assert h["plev_differ_adjacent"], h
+    assert h["plev_differ_share"] <= gpu_check.PLEV_ADJACENT_SHARE, h
+
+
+@pytest.mark.cuda
+def test_cuda_production_cycle_matches_cpu(cuda_device):
+    """The coarsened production cycle (terrain, physics suite, Davies,
+    conventional + H08 obs) on the card against the CPU
+    (gpu_check.production_cycle_vs_cpu): states, O−B and O−A within their
+    bounds, QC equal, H08 obs assimilated, no stencil kernel launched."""
+    res = gpu_check.production_cycle_vs_cpu(cuda_device, CONFIG)
+    launches = res["kernel_launches"]
+    assert res["terrain"] and res["finite"] and res["qc_equal"], res
+    assert res["h08_assimilated"] > 0, res
+    assert all(e <= 1 for e in res["max_err_over_tol"].values()), res
+    assert launches["device"]["invsqrt_ns"] > 0, res
+    assert launches["device"]["dyn_tendency"] == 0, res
+    assert launches["device"]["adv_ud3"] == 0, res
+    assert not any(launches["cpu"].values()), res

@@ -216,12 +216,17 @@ def test_unported_options_raise(runs, key, value, item):
 
 
 def test_terrain_and_mesh_raise(runs, tmp_path):
+    """A topo_file, which raised NotImplementedError until model/terrain.py
+    was ported, now builds a driver with terrain metrics and z_full on the
+    topography; a mesh still raises, naming its ROADMAP item."""
     tmp, _, _ = runs
     cfg, grid, dycfg, dom = load_config_and_grid(str(tmp / "exp.toml"))
     np.savez(tmp_path / "topo.npz", topo=np.full((12, 12), 100.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*terrain"):
-        make_driver(cfg, grid, dycfg,
-                    {**dom, "topo_file": str(tmp_path / "topo.npz")}, CPU)
+    driver = make_driver(cfg, grid, dycfg,
+                         {**dom, "topo_file": str(tmp_path / "topo.npz")},
+                         CPU)
+    assert driver.metrics is not None
+    assert float(driver.z_full[0].min()) > 100.0
     cfg.process.mesh_member = 2
     with pytest.raises(NotImplementedError, match="ROADMAP.*parallel"):
         make_driver(cfg, grid, dycfg, dom, CPU)

@@ -25,7 +25,8 @@ def test_every_module_imports_without_jax():
               "model.ideal", "ops.finite_diff", "ops.tendency", "ops.stencil",
               "model.physics", "model.microphysics6", "model.radiation",
               "model.surface", "model.pbl", "model.physics_suite",
-              "model.boundary", "cycle",
+              "model.boundary", "model.terrain", "model.topo", "obs.h08",
+              "cycle",
               "io.checkpoint", "io.convert", "cli.main", "synthetic",
               "gpu_check", "__main__"):
         assert f"scale_letkf_torch.{m}" in mods, m

@@ -236,14 +236,36 @@ def test_obsope_slots_matches_reference():
 
 
 def test_h08_obs_raise():
+    """H08 obs in a conventional set, which raised NotImplementedError
+    until obs/h08.py was ported, now go through the radiance operator as in
+    the reference: QC equal, the BT and the clear-sky BT to 2e-3 K (the
+    float32 band model; tests/test_torch_h08.py), the sensitive pressure to
+    a level spacing over K (an argmax flip in one member), the other obs
+    untouched."""
     g_r, g = grids()
+    cfg_r, cfg = configs()
     arrays = obs_arrays(g, 4, n_radar=0)
     arrays["elem"][:3] = ID_H08IR
-    fields = state_to_history(torch.from_numpy(analysis_ensemble(4)),
-                              z_full(g))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*h08"):
-        obsope.obsope_ensemble(fields, types.Observations(**arrays), g,
-                               config.Config(), z_full(g))
+    arrays["lev"][:3] = (9.0, 13.0, 16.0)        # AHI bands
+    anal = analysis_ensemble(4)
+    obs_r, obs = both_obs(arrays)
+    z_r = g_r.calc_z(np.zeros((NY, NX), np.float32))
+    hx_r = ref_obsope.obsope_ensemble(ref_fields(anal, g_r), obs_r, g_r,
+                                      cfg_r, z_r)
+    fields = state_to_history(torch.from_numpy(anal), z_full(g))
+    hx = obsope.obsope_ensemble(fields, obs, g, cfg, z_full(g))
+    np.testing.assert_array_equal(hx.qc, hx_r.qc)
+    h = np.arange(obs.nobs) < 3
+    y, y_r = hx.ensval.numpy(), np.asarray(hx_r.ensval)
+    assert np.isfinite(y[:, h]).all() and (np.abs(y[:, h]) > 150).all()
+    np.testing.assert_allclose(y[:, h], y_r[:, h], rtol=0, atol=2e-3)
+    np.testing.assert_allclose(hx.val2, hx_r.val2, rtol=0, atol=2e-3)
+    dp = np.abs(np.diff(fields["p"].numpy(), axis=1)).max()
+    np.testing.assert_allclose(hx.lev, hx_r.lev, rtol=0, atol=dp / K)
+    assert (hx.lev[~h] == 0).all() and (hx.lev[h] > 0).all()
+    _assert_hx_close(hx.ensval[:, ~h], y_r[:, ~h],
+                     np.broadcast_to(hx_r.qc, (K, obs.nobs))[:, ~h],
+                     obs.elem[~h])
 
 
 def test_obsmake_same_seed_same_obs():
