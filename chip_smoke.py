@@ -113,6 +113,36 @@ the radar configuration's forecast (configs/bda_1km_radar.toml, unchanged:
                       Σ J·ρ·dzc, the pp step's smoothing, H08 H(x) and a
                       coarsened production cycle with H08 on the card
                       against the CPU
+ 24. det_cycle      — the configuration with det_run and INFL_ADD 0.1: one
+                      cycle of 2 steps through CycleDriver as the cycle
+                      verb composes it — nature run and obsmake, ensemble
+                      forecast, forecast_one of the deterministic member
+                      (the ensemble construction with seed 3), and the
+                      analysis with it and the additive-inflation source
+                      (that construction with seed 2, in pinned host
+                      memory); sections, peak memory by stage, launches
+                      (#2 and #3 at 3 × steps × (batches + nature + the
+                      member)); the member moved and finite, its O−A below
+                      its O−B for T and PS, member 0's additive increment
+                      equal to 0.1·(addi − mean(addi)) within float32
+                      rounding, the peak within the cycle phase's plus one
+                      source ensemble
+ 25. det_real       — every kernel vs plain on the operands of phase 24, as
+                      phase 13 (the nature state standing for the nature
+                      run's and the member's batches of one)
+ 26. efso           — efso_impact at full width on phase 24's analysis
+                      (perturbations 50 × 11 × 36 × 360 × 480, ē = analysis
+                      mean − nature, HORI_LOCAL 400 km, eft 0), timed, and
+                      a coarsened copy on the card against the CPU
+ 27. det_small      — the coarsened deterministic + additive analysis and
+                      the letkf and cycle verbs with 'mdet' and 'addi'
+                      files on the card against the CPU
+ 28. jacobi         — the ported Jacobi eigensolver against
+                      torch.linalg.eigh on one 18-km level of K = 8 and 16
+                      Grams (B = 172,800): times and errors against float64
+                      eigh, and the solver 'auto' takes at K ≤ 16
+ 29. h08_calibrate  — the H08 band-model fit on the card against the CPU
+                      fit, the misfit after below the misfit before
 
 Each phase prints one JSON line; any failed check raises, so the script
 exits non-zero. Every kernel-vs-plain check runs the kernel twice and holds
@@ -120,14 +150,15 @@ both runs to the bound (invsqrt_ns, which has no atomics, must also give
 bit-identical runs). Kernel and plain versions are timed with CUDA events,
 in turns (plain, kernel, kernel, plain), after a warm-up. The line before
 the last lists every kernel: route, source, the TPU kernel it replaces,
-its launches in phase 15, the last path that runs all three (each path's
+its launches in phase 24, the main path, which runs all three (each path's
 own beside them under launches_by_path, counts reset before each — the
 production cycle's: #1 only), its error and time against the plain
-version on phase 15's operands (phase 16; for the stencil kernels the mean
+version on phase 24's operands (phase 25; for the stencil kernels the mean
 over the two batch sizes weighted by their launches, so launches × ms is
-the kernel's time in the cycle, each size under `shapes`; the radar grid's
-row under `radar_grid`, #1 on the production cycle's Grams under
-`production_grams`), and its bound:
+the kernel's time in the cycle, each size under `shapes`; the physics
+cycle's times under `physics_cycle`, the radar grid's under `radar_grid`,
+#1 on the production cycle's Grams under `production_grams`), and its
+bound:
 the larger of the bytes it must move over 3.35 TB/s and its operations
 over the rate of the units that do them, computed from those operands —
 67 TFLOP/s FP32 for the stencils, and for invsqrt_ns's 3xTF32 tensor-core
@@ -810,11 +841,13 @@ def stage_fields(driver, dycfg, dom, s) -> dict:
     return res
 
 
-def phase_cycle_real(cy, operands, phase: str = "cycle_real") -> dict:
+def phase_cycle_real(cy, operands, phase: str = "cycle_real",
+                     singles: int = 1) -> dict:
     """Every kernel of the cycle against its plain version on the cycle's
     own operands (phase_cycle): kernel #1 on one level chunk of its Grams;
     #2 and #3 at the ensemble forecast's member batch and at the nature
-    run's batch of one. Returns per kernel one row for the path: the
+    run's batch of one (the nature state stands for the `singles` forecasts
+    of one member the path runs). Returns per kernel one row for the path: the
     per-launch mean of the time, the plain version's time, the bytes and
     the operations over the shapes the cycle launched it at (weighted by
     those launches, so launches × ms is the kernel's time in the cycle), the
@@ -827,7 +860,7 @@ def phase_cycle_real(cy, operands, phase: str = "cycle_real") -> dict:
     per_stage = 3 * cy["steps_per_cycle"]
     parts = {"dyn_tendency": [], "adv_ud3": []}
     for label, n in (("ensemble", per_stage * cy["batches"]),
-                     ("nature", per_stage)):
+                     ("nature", per_stage * singles)):
         s = operands[label]
         dyn, adv = stencil_operands(s, rho_ref, p_ref, vg, dycfg)
         for name, row in (("dyn_tendency", check_dyn(dyn, f"{phase} {label}")),
@@ -1042,6 +1075,429 @@ def phase_terrain_small(device):
     if not terrain_check_passes(res):
         raise AssertionError(f"GPU terrain or H08 disagrees with the CPU: "
                              f"{res}")
+
+
+# the deterministic-member cycle: INFL_ADD, and the seeds of the synthetic
+# ensemble construction that gives the additive-inflation source and the
+# deterministic member
+DET_INFL_ADD = 0.1
+ADDI_SEED = 2
+DET_SEED = 3
+ADDI_BATCH = 5          # members converted to analysis variables at once
+EFSO_REPS = 3
+JACOBI_KS = (8, 16)
+JACOBI_B = 480 * 360    # one level of the 18-km grid
+JACOBI_REPS = 3
+
+
+def _det_departures(driver, state, obs, obsdep, cfg):
+    """O−B or O−A of one member (a DycoreState) against the analysis's
+    preprocessed obs values, per monitored group."""
+    from scale_letkf_torch.da.monitor import monit_dep
+    from scale_letkf_torch.da.obsope import compute_hx_single
+    from scale_letkf_torch.model.dycore import to_collocated
+    from scale_letkf_torch.state import state_to_history, state_trans
+    y, _ = compute_hx_single(
+        state_to_history(state_trans(to_collocated(state)), driver.z_full,
+                         driver.topo), obs, driver.grid, cfg, driver.z_full)
+    dep = obsdep.dat - y.cpu().numpy().astype(np.float64)
+    st = monit_dep(obsdep.elem, dep, obsdep.qc)
+    return {n: r for n, r in st.rmse.items() if st.nobs[n]}
+
+
+def phase_det_cycle(device, cycle_peak_gb: float):
+    """The deterministic-member cycle at full size: the 18-km configuration
+    unchanged but for ensemble.det_run = True and letkf.infl_add =
+    DET_INFL_ADD; one cycle of CYCLE_STEPS steps, each stage through
+    CycleDriver as the cycle verb composes it: the nature run and obsmake,
+    the ensemble forecast, forecast_one of the deterministic member, and
+    CycleDriver.analysis(ens, obs, det=det, addi_ens=addi). The ensemble
+    and nature states are phase_cycle's; the additive-inflation source is
+    that construction with seed ADDI_SEED, converted to analysis variables
+    on the card ADDI_BATCH members at a time into pinned host memory, from
+    which the analysis uploads one member at a time; the deterministic
+    member is the construction with seed DET_SEED.
+
+    Checks: every kernel launched as expected (#2 and #3 at 3 × steps ×
+    (ensemble batches + nature + the member)); finite ensemble and member;
+    the member moved, and its O−A below its O−B for T and PS, as the
+    ensemble mean's; member 0's additive increment (after − before the stage, captured
+    around apply_additive_inflation) equal to INFL_ADD·(addi_j − mean) in
+    float64 within float32 rounding: 1 ulp of the result, the member-order
+    float32 mean's K·ulp of max|addi| times INFL_ADD, and 1e-6 of the
+    increment; the peak device memory within the cycle phase's plus one
+    source ensemble. Returns the row, the states EFSO takes (the analysis
+    ensemble, the nature state, the analysis info, the obs and the driver)
+    and the operands of the path's kernels, as phase_cycle's (one level
+    chunk of the Grams, the final ensemble at the member batch and the
+    nature state as a batch of one)."""
+    from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
+    from scale_letkf_torch.da import inflation
+    from scale_letkf_torch.da.obsmake import obsmake
+    from scale_letkf_torch.gpu_check import expected_launches
+    from scale_letkf_torch.model.dycore import DycoreState, to_collocated
+    from scale_letkf_torch.ops import invsqrt as invsqrt_mod
+    from scale_letkf_torch.state import (
+        NV3D, V3D_ANAL_NAMES, state_to_history, state_trans)
+    from scale_letkf_torch.synthetic import (
+        synthetic_conv_network, synthetic_ens_dycore_device)
+    from scale_letkf_torch.utils import kernels
+
+    cfg, grid, dycfg, dom = load_config_and_grid(str(CONFIG))
+    cfg.ensemble.det_run = True
+    cfg.letkf.infl_add = DET_INFL_ADD
+    K, steps = cfg.ensemble.member, CYCLE_STEPS
+    kw = {"u0": FCST_U0, "amp_theta": CYCLE_AMP_THETA,
+          "smooth_passes": CYCLE_SMOOTH_PASSES}
+    t0 = time.perf_counter()
+    src, _, _ = synthetic_ens_dycore_device(ADDI_SEED, K, grid, dom, device,
+                                            **kw)
+    addi = torch.empty((K, NV3D, grid.nz, grid.ny, grid.nx),
+                       dtype=torch.float32, pin_memory=True)
+    for b0 in range(0, K, ADDI_BATCH):
+        addi[b0:b0 + ADDI_BATCH].copy_(state_trans(to_collocated(
+            DycoreState(*(f[b0:b0 + ADDI_BATCH] for f in src)))))
+    del src
+    torch.cuda.empty_cache()
+    ens0, _, _ = synthetic_ens_dycore_device(SEED, K, grid, dom, device, **kw)
+    nat, _, _ = synthetic_ens_dycore_device(SEED + 1, 1, grid, dom, device,
+                                            **kw)
+    det0, _, _ = synthetic_ens_dycore_device(DET_SEED, 1, grid, dom, device,
+                                             **kw)
+    truth = DycoreState(*(f[0] for f in nat))
+    det = DycoreState(*(f[0] for f in det0))
+    ens = [ens0]
+    del nat, det0, ens0
+    template = synthetic_conv_network(cfg, grid, np.random.default_rng(SEED))
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    driver = make_driver(cfg, grid, dycfg, dom, device)
+
+    apply = inflation.apply_additive_inflation
+    probe: dict = {}
+
+    def recording(anal, add_ens, infl_add, **kwa):
+        probe["before"] = anal[0].clone()
+        probe["shuffle"] = kwa.get("shuffle")
+        out = apply(anal, add_ens, infl_add, **kwa)
+        probe["after"] = anal[0].clone()
+        return out
+
+    launch = invsqrt_mod.invsqrt_ns_kernel
+    grams: dict = {}
+
+    def recording_grams(a, areg, *args):
+        if not grams:
+            grams["a"], grams["areg"] = a.clone(), areg.clone()
+        return launch(a, areg, *args)
+
+    peaks = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        out = fn()
+        torch.cuda.synchronize()
+        peaks[f"{name}_gb"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        return out
+
+    inflation.apply_additive_inflation = recording
+    invsqrt_mod.invsqrt_ns_kernel = recording_grams
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with driver.timer.section("nature"):
+            truth = stage("nature", lambda: driver.forecast_one(truth, steps))
+        with driver.timer.section("obsmake"):
+            truth_anal = state_trans(to_collocated(truth))
+            obs = obsmake(state_to_history(truth_anal, driver.z_full,
+                                           driver.topo), template, grid, cfg,
+                          driver.z_full, np.random.default_rng(SEED))
+        ens.append(stage("forecast", lambda: driver.forecast(ens.pop(),
+                                                             steps)))
+        with driver.timer.section("det_forecast"):
+            det = stage("det_forecast", lambda: driver.forecast_one(det,
+                                                                    steps))
+        anal, info = stage("analysis", lambda: driver.analysis(
+            ens.pop(), obs, det=det, addi_ens=addi,
+            rng=np.random.default_rng(SEED)))
+    finally:
+        inflation.apply_additive_inflation = apply
+        invsqrt_mod.invsqrt_ns_kernel = launch
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in KERNELS}
+    batches = -(-K // driver.batch)
+    expected = expected_launches(cfg, grid, steps, batches,
+                                 info["diag"].chunk)
+    for k in ("dyn_tendency", "adv_ud3"):
+        expected[k] += 3 * steps          # the deterministic member
+
+    # member 0's additive increment against float64
+    j = int(probe["shuffle"][0]) if probe["shuffle"] is not None else 0
+    mean64 = torch.zeros(addi.shape[1:], dtype=torch.float64, device=device)
+    for m in range(K):
+        mean64 += addi[m].to(device).double()
+    mean64 /= K
+    want = DET_INFL_ADD * (addi[j].to(device).double() - mean64)
+    got = probe["after"].double() - probe["before"].double()
+    addi_err = {}
+    for v, n in enumerate(V3D_ANAL_NAMES):
+        tol = (float(torch.finfo(torch.float32).eps)
+               * (float(probe["after"][v].abs().max())
+                  + DET_INFL_ADD * K * float(addi[:, v].abs().max()))
+               + 1e-6 * float(want[v].abs().max()))
+        diff = float((got[v] - want[v]).abs().max())
+        addi_err[n] = diff / tol if tol > 0 else (0.0 if diff == 0 else
+                                                   float("inf"))
+    del mean64, want, got, probe
+
+    det_a = info["det"]
+    finite = (all(bool(torch.isfinite(f).all()) for f in (*anal, *det_a))
+              and all(bool(torch.isfinite(info[k]).all()) for k in (
+                  "anal_mean", "anal_sprd")))
+    det_change = float((det_a.rhot - det.rhot).abs().max())
+    obsdep = info["obsdep"]
+    det_omb = _det_departures(driver, det, obs, obsdep, cfg)
+    det_oma = _det_departures(driver, det_a, obs, obsdep, cfg)
+    st_g, st_a = info["stats_gues"], info["stats_anal"]
+    omb = {n: r for n, r in st_g.rmse.items() if st_g.nobs[n]}
+    oma = {n: r for n, r in st_a.rmse.items() if st_a.nobs[n]}
+    sprd_g = {n: float(info["gues_sprd"][v].mean())
+              for v, n in enumerate(V3D_ANAL_NAMES)}
+    sprd_a = {n: float(info["anal_sprd"][v].mean())
+              for v, n in enumerate(V3D_ANAL_NAMES)}
+    peak = max(v for k, v in peaks.items())
+    addi_gb = nbytes(addi) / 2 ** 30
+    row = {"phase": "det_cycle", "config": CONFIG.name,
+           "grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members": K,
+           "cycles": 1, "steps_per_cycle": steps, "det_run": True,
+           "infl_add": DET_INFL_ADD, "addi_seed": ADDI_SEED,
+           "det_seed": DET_SEED, "addi_on": "host (pinned)",
+           "generate_s": generate_s, "wall_s": wall,
+           "sections_s": dict(driver.timer.records),
+           "section_counts": dict(driver.timer.counts),
+           "obs_kept": int(obs.nobs), "member_batch": driver.batch,
+           "batches": batches, "chunk": info["diag"].chunk,
+           "kernel_launches": launches, "expected_launches": expected,
+           "peak_mem_gb": peak, "peak_by_stage": peaks,
+           "addi_source_gb": addi_gb, "cycle_peak_gb": cycle_peak_gb,
+           "omb_rmse": omb, "oma_rmse": oma,
+           "det_omb_rmse": det_omb, "det_oma_rmse": det_oma,
+           "det_max_abs_change_rhot": det_change,
+           "mean_spread_gues": sprd_g, "mean_spread_anal": sprd_a,
+           "addi_member": j, "addi_err_over_tol": addi_err,
+           "finite": finite}
+    emit(row)
+    if not finite:
+        raise AssertionError("the deterministic cycle is not finite")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{expected}")
+    if not det_change > 0:
+        raise AssertionError("the deterministic member did not move")
+    for label, b, a in (("member", det_omb, det_oma), ("mean", omb, oma)):
+        if not all(n in b and a[n] < b[n] for n in ("T", "PS")):
+            raise AssertionError(f"{label} O-A above O-B: {a} vs {b}")
+    if not all(e <= 1 for e in addi_err.values()):
+        raise AssertionError(f"additive increment off: {addi_err}")
+    if not peak <= cycle_peak_gb + addi_gb:
+        raise AssertionError(f"peak {peak:.2f} GiB above the cycle's "
+                             f"{cycle_peak_gb:.2f} + {addi_gb:.2f}")
+    del addi
+    operands = {"grams": (grams["a"], grams["areg"]),
+                "ensemble": type(anal)(*(f[:driver.batch] for f in anal)),
+                "nature": type(truth)(*(f[None] for f in truth)),
+                "column": (driver.rho_ref, driver.p_ref, driver.vg, dycfg)}
+    return row, {"ens": anal, "truth": truth, "info": info, "obs": obs,
+                 "driver": driver, "cfg": cfg}, operands
+
+
+def phase_efso(device, st: dict) -> dict:
+    """EFSO at full size on the deterministic cycle's analysis, with no
+    forecast from it (eft = 0): the analysis ensemble's perturbations in
+    analysis variables (K × 11 × 36 × 360 × 480), ē = analysis mean −
+    nature, the analysis ensemble's H(x) perturbations at the obs QC kept,
+    their O−B and error variances, HORI_LOCAL gpu_check.EFSO_HORI (400 km),
+    no vertical localization, obs levels by phys2ijk on the mean pressure
+    (0 for surface obs). efso_impact timed with CUDA events (EFSO_REPS
+    calls after a warm-up), with its peak memory; then the coarsened
+    comparison with the CPU (gpu_check.coarse_efso_vs_cpu)."""
+    from scale_letkf_torch.da.efso import efso_impact
+    from scale_letkf_torch.da.obsope import compute_hx_single
+    from scale_letkf_torch.gpu_check import EFSO_HORI, coarse_efso_vs_cpu
+    from scale_letkf_torch.model.dycore import DycoreState, to_collocated
+    from scale_letkf_torch.obs.operators import phys2ijk
+    from scale_letkf_torch.state import (
+        IA_P, NV3D, state_to_history, state_trans)
+    driver, info, cfg = st["driver"], st["info"], st["cfg"]
+    grid, z, topo = driver.grid, driver.z_full, driver.topo
+    ens = st.pop("ens")
+    K = ens.rho.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pert = torch.empty((K, NV3D, grid.nz, grid.ny, grid.nx), device=device)
+    for b0 in range(0, K, ADDI_BATCH):
+        pert[b0:b0 + ADDI_BATCH] = state_trans(to_collocated(
+            DycoreState(*(f[b0:b0 + ADDI_BATCH] for f in ens))))
+    del ens
+    good = info["obsdep"].qc == 0
+    obs = st["obs"].select(good)
+    y = torch.cat([compute_hx_single(
+        state_to_history(pert[b0:b0 + ADDI_BATCH], z, topo), obs, grid, cfg,
+        z)[0] for b0 in range(0, K, ADDI_BATCH)])          # (K, nobs)
+    hdxa = (y - y.mean(dim=0)).T.contiguous()
+    mean = pert.mean(dim=0)
+    pert -= mean
+    err = mean - state_trans(to_collocated(st["truth"]))
+    ri, rj = (torch.as_tensor(a, dtype=torch.float32, device=device)
+              for a in grid.lonlat_to_ij(obs.lon, obs.lat))
+    elem = torch.as_tensor(obs.elem, device=device)
+    rk, _ = phys2ijk(mean[IA_P], elem, ri, rj,
+                     torch.as_tensor(obs.lev, dtype=torch.float32,
+                                     device=device))
+    rk = torch.where(elem > 9999, 0.0, rk)
+    dep = torch.as_tensor(info["obsdep"].omb[good], dtype=torch.float32,
+                          device=device)
+    rdiag = torch.as_tensor(obs.err ** 2, dtype=torch.float32, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def run():
+        return efso_impact(ri, rj, rk, dep, rdiag, hdxa, pert, err, grid,
+                           EFSO_HORI)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    dj = run()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    work_gb = (torch.cuda.max_memory_allocated(device) - base) / 2 ** 30
+    ms = cuda_ms(run, EFSO_REPS)
+    row = {"phase": "efso", "grid": f"{grid.nx}x{grid.ny}x{grid.nz}",
+           "members": K, "pert_gb": nbytes(pert) / 2 ** 30,
+           "hori_local_m": EFSO_HORI, "eft_s": 0.0, "nobs": int(obs.nobs),
+           "setup_s": setup_s, "ms": ms, "reps": EFSO_REPS,
+           "peak_mem_gb": peak_gb, "working_set_gb": work_gb,
+           "finite": bool(torch.isfinite(dj).all()),
+           "dj_sum": float(dj.sum()), "dj_negative_share":
+           float((dj < 0).float().mean())}
+    del pert, hdxa, err, dj
+    torch.cuda.empty_cache()
+    row["small"] = coarse_efso_vs_cpu(device, str(CONFIG), SEED)
+    emit(row)
+    if not (row["finite"] and row["small"]["finite"] and all(
+            e <= 1 for e in row["small"]["max_err_over_tol"].values())):
+        raise AssertionError(f"EFSO failed: {row}")
+    return row
+
+
+def phase_det_small(device):
+    """The coarsened deterministic + additive analysis and the letkf and
+    cycle verbs with 'mdet' and 'addi' files on the card against the CPU
+    (scale_letkf_torch/gpu_check.py)."""
+    from scale_letkf_torch.gpu_check import (
+        coarse_det_addi_vs_cpu, det_check_passes, det_verbs_vs_cpu)
+    res = {"analysis": coarse_det_addi_vs_cpu(device, str(CONFIG), SEED),
+           "verbs": det_verbs_vs_cpu(device, SEED)}
+    emit({"phase": "det_small", **res})
+    if not (det_check_passes(res)
+            and res["analysis"]["kernel_launches"]["device"] > 0
+            and res["verbs"]["kernel_launches"]["letkf.device"] > 0):
+        raise AssertionError(f"GPU deterministic member or additive "
+                             f"inflation disagrees with the CPU: {res}")
+
+
+def phase_jacobi(device) -> dict:
+    """The ported Jacobi eigensolver against torch.linalg.eigh on batched
+    LETKF-shaped float32 Grams (hᵀh over 40 obs · (K−1)/40 + (K−1)·I) at
+    K in JACOBI_KS with B = one 18-km level (480 × 360): both timed in turns
+    with CUDA events, each one's eigenvalue error (relative to max|λ|),
+    reconstruction error (relative to max|A|) and transform error
+    (W = V·sqrt((K−1)/Λ)·Vᵀ, relative to max|W|) against float64 eigh of the
+    same Grams; the float32 bounds of tests/test_eigh_jacobi.py (2e-4,
+    5e-5) must hold for the Jacobi. 'eigh' is the solver's own call
+    (letkf_core._eigh: EIGH_MAX_BATCH matrices a call); whether
+    torch.linalg.eigh takes the whole batch at once is recorded (cuSOLVER
+    refused it in this phase's first run). Returns the faster solver per K
+    beside letkf_core.AUTO_SMALL_K_SOLVER, 'auto''s choice at K ≤ 16; and
+    gpu_check.jacobi_vs_cpu at both K."""
+    from scale_letkf_torch.gpu_check import jacobi_vs_cpu
+    from scale_letkf_torch.ops.eigh_jacobi import eigh_jacobi
+    from scale_letkf_torch.ops.letkf_core import (
+        AUTO_SMALL_K_SOLVER, EIGH_MAX_BATCH, _eigh)
+    from scale_letkf_torch.utils.device import full_fp32
+    B = JACOBI_B
+    rows = {}
+    for K in JACOBI_KS:
+        gen = torch.Generator(device).manual_seed(SEED + K)
+        h = torch.randn((B, 40, K), generator=gen, device=device)
+        with full_fp32():
+            a = (h.transpose(1, 2) @ h) * ((K - 1) / 40.0)
+        del h
+        a.diagonal(dim1=1, dim2=2).add_(K - 1.0)
+        w64, v64 = _eigh(a.double())
+        wt64 = (v64 * torch.sqrt((K - 1) / w64)[:, None, :]) @ v64.mT
+
+        def errors(w, v):
+            w, v = w.double(), v.double()
+            rec = (v * w[:, None, :]) @ v.mT
+            wt = (v * torch.sqrt((K - 1) / w)[:, None, :]) @ v.mT
+            return {"eigval_rel_err": float((w - w64).abs().max()
+                                            / w64.abs().max()),
+                    "recon_rel_err": float((rec - a.double()).abs().max()
+                                           / a.abs().max()),
+                    "transform_rel_err": float((wt - wt64).abs().max()
+                                               / wt64.abs().max())}
+        err_j = errors(*eigh_jacobi(a))
+        try:
+            torch.linalg.eigh(a)
+            torch.cuda.synchronize()
+            eigh_error = None
+        except RuntimeError as e:
+            eigh_error = str(e).split("\n")[0][:200]
+
+        def eig():
+            return _eigh(a)
+        err_e = errors(*eig())
+        del w64, v64, wt64
+
+        def jac():
+            eigh_jacobi(a)
+        e1 = cuda_ms(eig, JACOBI_REPS)
+        j1 = cuda_ms(jac, JACOBI_REPS)
+        j2 = cuda_ms(jac, JACOBI_REPS)
+        e2 = cuda_ms(eig, JACOBI_REPS)
+        rows[K] = {"K": K, "B": B, "jacobi_ms": (j1 + j2) / 2,
+                   "eigh_ms": (e1 + e2) / 2, "jacobi_ms_runs": [j1, j2],
+                   "eigh_ms_runs": [e1, e2],
+                   "eigh_full_batch_error": eigh_error,
+                   "eigh_max_batch": EIGH_MAX_BATCH,
+                   "jacobi_err": err_j, "eigh_err": err_e,
+                   "faster": "jacobi" if j1 + j2 < e1 + e2 else "eigh",
+                   "vs_cpu": jacobi_vs_cpu(device, K)}
+        emit({"phase": "jacobi", **rows[K]})
+        del a
+        if not (err_j["eigval_rel_err"] <= 2e-4
+                and err_j["recon_rel_err"] <= 5e-5
+                and rows[K]["vs_cpu"]["passes"]):
+            raise AssertionError(f"Jacobi off at K = {K}: {rows[K]}")
+    res = {"phase": "jacobi", "auto_small_k_solver": AUTO_SMALL_K_SOLVER,
+           "faster_by_k": {K: r["faster"] for K, r in rows.items()}}
+    emit(res)
+    return res
+
+
+def phase_h08_calibrate(device):
+    """The H08 band-model calibration's fit (600 Adam steps, 64 profiles,
+    float64) on the card against the CPU fit, timed, and the BT misfit
+    after below the misfit before (gpu_check.h08_fit_vs_cpu)."""
+    from scale_letkf_torch.gpu_check import h08_fit_vs_cpu
+    t0 = time.perf_counter()
+    res = h08_fit_vs_cpu(device)
+    emit({"phase": "h08_calibrate", "seconds": time.perf_counter() - t0,
+          **res})
+    if not res["passes"]:
+        raise AssertionError(f"H08 calibration fit disagrees: {res}")
 
 
 def timed_turns(kernel, plain, reps: int = 5) -> dict:
@@ -1407,40 +1863,55 @@ def main() -> int:
     del operands
     torch.cuda.empty_cache()
     phase_terrain_small(device)
-    # the kernels line: launches and times of the physics cycle, the last
-    # path that runs all three (times on its own operands, phase
-    # physics_real); launches_by_path: each path's own run, counts reset
-    # before it — the production cycle's (this slice's main path) beside
-    # the others; production_grams: kernel #1 on the production cycle's
-    # Grams (phase production_real); radar_grid: the stencil kernels on the
-    # radar forecast's operands (phase radar_real)
+    torch.cuda.empty_cache()
+    dc, st, operands = phase_det_cycle(device, cy["peak_mem_gb"])
+    dc_rows = phase_cycle_real(dc, operands, "det_real", singles=2)
+    del operands
+    phase_efso(device, st)
+    del st
+    torch.cuda.empty_cache()
+    phase_det_small(device)
+    phase_jacobi(device)
+    phase_h08_calibrate(device)
+    # the kernels line: launches and times of the deterministic cycle, this
+    # slice's main path, which runs all three (times on its own operands,
+    # phase det_real); launches_by_path: each path's own run, counts reset
+    # before it; physics_cycle: the times on the physics cycle's operands
+    # (phase physics_real), the line of earlier slices; production_grams:
+    # kernel #1 on the production cycle's Grams (phase production_real);
+    # radar_grid: the stencil kernels on the radar forecast's operands
+    # (phase radar_real)
+    timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "bound_share")
     for name in KERNELS:
-        pc_rows[name]["launches"] = pc["kernel_launches"][name]
-        pc_rows[name]["launches_by_path"] = {
+        dc_rows[name]["launches"] = dc["kernel_launches"][name]
+        dc_rows[name]["launches_by_path"] = {
             "forecast": fc["kernel_launches"].get(name, 0),
             "analysis": sl["kernel_launches"] if name == "invsqrt_ns" else 0,
             "cycle": cy["kernel_launches"][name],
             "physics_cycle": pc["kernel_launches"][name],
             "radar_forecast": rf["kernel_launches"].get(name, 0),
-            "production_cycle": pr["kernel_launches"][name]}
-        pc_rows[name]["radar_grid"] = (
-            {k: radar_rows[name][k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "bound_share")} if name in radar_rows else None)
-        pc_rows[name]["production_grams"] = (
-            {k: prod_real[k] for k in (
-                "B", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "bound_share")} if name == "invsqrt_ns" else None)
+            "production_cycle": pr["kernel_launches"][name],
+            "det_cycle": dc["kernel_launches"][name]}
+        dc_rows[name]["physics_cycle"] = {k: pc_rows[name][k]
+                                          for k in timing}
+        dc_rows[name]["radar_grid"] = (
+            {k: radar_rows[name][k] for k in timing}
+            if name in radar_rows else None)
+        dc_rows[name]["production_grams"] = (
+            {"B": prod_real["B"], **{k: prod_real[k] for k in timing}}
+            if name == "invsqrt_ns" else None)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     # no single PyTorch call computes any of the three functions (no matrix
     # inverse square root, no such stencil), so library_ms is null
     keys = ("launches", "launches_by_path", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_fp32_ms", "bound_by", "bound_share",
-            "gb_per_s", "tflops", "shapes", "radar_grid", "production_grams")
+            "gb_per_s", "tflops", "shapes", "physics_cycle", "radar_grid",
+            "production_grams")
     emit({"kernels": [{"name": name, "route": "cuda",
                        "source": f"scale_letkf_torch/csrc/{name}.cu",
                        "replaces": REPLACES[name],
-                       **{k: pc_rows[name][k] for k in keys},
+                       **{k: dc_rows[name][k] for k in keys},
                        "library_ms": None}
                       for name in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -15,10 +15,13 @@ Port of scale_letkf_tpu/cli/main.py: the experiment loader, the driver
 factory and the verbs, with the reference's arguments. States are
 checkpoint directories in the reference's format (io/checkpoint.py) and obs
 the reference's binary formats (obs/io.py), so either package's output
-loads in the other. Not ported yet, each raising NotImplementedError that
-names its ROADMAP item: `cycle --streamed` (the full-size executors), a [nest] section (nesting), additive inflation
-(INFL_ADD > 0) and a deterministic member in the checkpoint of `letkf` or
-`cycle`.
+loads in the other. A deterministic member in the checkpoint (the 'mdet'
+file) is analysed by `letkf` and forecast and analysed every cycle by
+`cycle` (DET_RUN_CYCLED), and INFL_ADD > 0 reads its source ensemble from
+the INFL_ADD_IN_BASENAME files (`letkf --addi DIR`, else the guess or init
+directory). Not ported yet, each raising NotImplementedError that names its
+ROADMAP item: `cycle --streamed` (the full-size executors) and a [nest]
+section (nesting).
 """
 
 from __future__ import annotations
@@ -148,26 +151,31 @@ def _setup(args):
                                               device), device
 
 
-def _no_additive_inflation(cfg, addi):
-    if cfg.letkf.infl_add > 0 or addi:
-        raise NotImplementedError(
-            "additive inflation (INFL_ADD > 0, load_addi_ens, "
-            "da/inflation.py) is not ported yet (ROADMAP queue 1, the "
-            "deterministic member and da/inflation.py)")
+def load_addi_ens(cfg, dirpath, device: torch.device):
+    """The additive-inflation source ensemble in analysis variables on
+    `device` (the INFL_ADD_IN_BASENAME read, common_mpi_scale.f90:
+    1163-1202); None unless INFL_ADD > 0."""
+    if cfg.letkf.infl_add <= 0:
+        return None
+    from scale_letkf_torch.io.checkpoint import load_ensemble
+    from scale_letkf_torch.io.convert import dycore_state_to_torch
+    from scale_letkf_torch.model.dycore import to_collocated
+    from scale_letkf_torch.state import state_trans
+    addi, _, _ = load_ensemble(dirpath,
+                               basename=cfg.letkf.infl_add_in_basename)
+    return state_trans(to_collocated(dycore_state_to_torch(addi, device)))
 
 
 def _load_ens(path: str, device: torch.device):
-    """(ensemble on `device`, aux, meta) of a checkpoint that holds no
-    deterministic member."""
+    """(ensemble on `device`, deterministic member on `device` or None,
+    aux, meta) of a checkpoint."""
     from scale_letkf_torch.io.checkpoint import load_det, load_ensemble
     from scale_letkf_torch.io.convert import dycore_state_to_torch
-    if load_det(path) is not None:
-        raise NotImplementedError(
-            f"{path} holds a deterministic member (DET_RUN): its analysis "
-            f"is not ported yet (ROADMAP queue 1, the deterministic member "
-            f"and da/inflation.py)")
     ens, aux, meta = load_ensemble(path)
-    return dycore_state_to_torch(ens, device), aux, meta
+    det = load_det(path)
+    return (dycore_state_to_torch(ens, device),
+            None if det is None else dycore_state_to_torch(det, device),
+            aux, meta)
 
 
 def _load_state(path: str, driver):
@@ -215,8 +223,7 @@ def cmd_letkf(args):
         filename_replace_mem, load_history, save_ensemble)
     from scale_letkf_torch.obs import io as obsio
     cfg, grid, dycfg, dom, driver, device = _setup(args)
-    _no_additive_inflation(cfg, args.addi)
-    ens, aux, meta = _load_ens(args.gues, device)
+    ens, det, aux, meta = _load_ens(args.gues, device)
     obs = read_obs_files(cfg, args.obs)
     precomputed = None
     if args.obsda:
@@ -231,8 +238,10 @@ def cmd_letkf(args):
     # 4-D obsope: the per-slot history snapshots written by fcst
     hist = load_history(args.gues)
     ens_a, info = driver.analysis(
-        ens, obs, infl_field=aux.get("infl"), precomputed_hx=precomputed,
-        hist_slots=hist,
+        ens, obs, infl_field=aux.get("infl"), det=det,
+        precomputed_hx=precomputed,
+        addi_ens=load_addi_ens(cfg, args.addi or args.gues, device),
+        rng=np.random.default_rng(args.seed), hist_slots=hist,
         slots=assign_slots(obs.dif, cfg) if hist is not None else None)
     _print_stats(cfg, info)
     d = info["diag"]
@@ -243,7 +252,7 @@ def cmd_letkf(args):
     for k in ("anal_mean", "anal_sprd", "gues_mean", "gues_sprd"):
         aux_out[k] = info[k]
     save_ensemble(args.anal, ens_a, basename="anal.@@@@", aux=aux_out,
-                  meta={**meta, "step": "letkf"})
+                  det=info["det"], meta={**meta, "step": "letkf"})
     if cfg.monitor.obsdep_out:
         base = f"{args.anal}/{cfg.monitor.obsdep_out_basename}"
         info["obsdep"].save(f"{base}.npz")
@@ -261,7 +270,7 @@ def cmd_obsope(args):
     from scale_letkf_torch.obs.types import ID_H08IR
     from scale_letkf_torch.state import state_to_history, state_trans
     cfg, grid, dycfg, dom, driver, device = _setup(args)
-    ens, _, _ = _load_ens(args.gues, device)
+    ens, _, _, _ = _load_ens(args.gues, device)
     obs = read_obs_files(cfg, args.obs)
     hist = load_history(args.gues)
     if hist is not None:
@@ -393,9 +402,12 @@ def cmd_cycle(args):
     if "nest" in dom or args.nest_init or args.nest_obs_pattern:
         raise NotImplementedError(
             "a [nest] section (one-way nesting, model/nesting.py, nested.py) "
-            "is not ported yet (ROADMAP queue 1, nesting and EFSO)")
-    _no_additive_inflation(cfg, None)
-    ens, aux, _ = _load_ens(args.init, device)
+            "is not ported yet (ROADMAP queue 1, nesting)")
+    # DET_RUN_CYCLED: a deterministic member in the initial checkpoint is
+    # forecast and analysed (transmd weights) every cycle
+    ens, det, aux, _ = _load_ens(args.init, device)
+    addi = load_addi_ens(cfg, args.init, device)
+    rng = np.random.default_rng(0)
     if "tsfc" in aux:
         # resume the persisted slab skin temperature (physics-suite runs)
         driver.tsfc = torch.as_tensor(aux["tsfc"], dtype=torch.float32,
@@ -414,12 +426,17 @@ def cmd_cycle(args):
             del fc
         else:
             ens.append(driver.forecast(ens.pop(), args.steps_per_cycle))
+        if det is not None:
+            det = driver.forecast_one(det, args.steps_per_cycle)
         obs = read_obs_files(cfg, [args.obs_pattern.format(cycle=c)])
         anal, info = driver.analysis(
-            ens.pop(), obs, infl_field=infl, hist_slots=hist,
+            ens.pop(), obs, infl_field=infl, det=det, addi_ens=addi, rng=rng,
+            hist_slots=hist,
             slots=assign_slots(obs.dif, cfg) if hist is not None else None)
         ens.append(anal)
         del anal
+        if det is not None:
+            det = info["det"]
         if info["diag"].infl_field is not None:
             infl = info["diag"].infl_field
         print(f"=== cycle {c} ===")
@@ -429,7 +446,7 @@ def cmd_cycle(args):
     if driver.tsfc is not None:
         aux_out["tsfc"] = driver.tsfc
     save_ensemble(args.out, ens.pop(), basename="anal.@@@@", aux=aux_out,
-                  meta={"cycles": args.cycles})
+                  det=det, meta={"cycles": args.cycles})
     print(driver.timer.report())
 
 
@@ -452,8 +469,10 @@ def main(argv=None):
     q.add_argument("--obsda", default=None,
                    help="read precomputed H(x) files (basename with @@@@)")
     q.add_argument("--addi", default=None,
-                   help="additive-inflation ensemble directory (not ported; "
-                        "raises)")
+                   help="directory with the additive-inflation ensemble "
+                        "(INFL_ADD_IN_BASENAME files; default: --gues dir)")
+    q.add_argument("--seed", type=int, default=0,
+                   help="RNG seed (INFL_ADD_SHUFFLE)")
     _add_device(q)
     q.set_defaults(fn=cmd_letkf)
 

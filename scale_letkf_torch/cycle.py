@@ -17,7 +17,10 @@ device; with topography the slow tendencies are terrain.tendencies_terrain,
 plain PyTorch on either device, as the physics and the relaxation are: all
 three were plain XLA in the reference. The analysis step runs the obs operator
 on the whole ensemble (a leading member axis), the host obs context, and
-`analyze`, whose solver is the hand-written Newton–Schulz kernel.
+`analyze`, whose solver is the hand-written Newton–Schulz kernel; a
+deterministic member (DET_RUN) goes through H(x) beside the ensemble and is
+analysed with its transmd weights, and an additive-inflation source
+ensemble (INFL_ADD) is passed on to `analyze`.
 
 At the full 18-km size each ensemble-sized tensor is freed as soon as the
 next one exists (restart → guess → analysis → restart): `run_osse` hands
@@ -28,8 +31,7 @@ without keeping a reference). The analysis results carry the guess and
 analysis ensemble mean and spread, not the ensembles.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: a device mesh and the explicit halo backends; the deterministic
-member and additive inflation (`analyze` raises).
+item: a device mesh and the explicit halo backends.
 """
 
 from __future__ import annotations
@@ -395,13 +397,14 @@ class CycleDriver:
     # -- analysis step (obsope + letkf equivalents) --
     def analysis(self, ens: DycoreState, obs: Observations,
                  infl_field=None, det: DycoreState | None = None,
-                 precomputed_hx=None, addi_ens=None, hist_slots=None,
+                 precomputed_hx=None, addi_ens=None,
+                 rng: np.random.Generator | None = None, hist_slots=None,
                  slots: np.ndarray | None = None):
         """The analysis of the ensemble `ens` (K leading). Returns (analysis
         DycoreState ensemble, info): info holds 'gues_mean', 'gues_sprd',
         'anal_mean', 'anal_sprd' (NV3D, nz, ny, nx tensors), the departure
         statistics 'stats_gues' / 'stats_anal' and by report type, the
-        AnalysisDiag 'diag', the ObsDepRecord 'obsdep' and 'det' (None).
+        AnalysisDiag 'diag', the ObsDepRecord 'obsdep' and 'det'.
 
         infl_field (nz, ny, nx), array or tensor: the adaptive inflation of
         the previous cycle. precomputed_hx: an (ensval (K, nobs), qc (nobs,)
@@ -409,8 +412,14 @@ class CycleDriver:
         common_nml.f90:95). hist_slots (K, S, NV3D, nz, ny, nx, on the host
         or the device) with per-obs `slots`: the 4-D observation operator,
         each obs against its slot's snapshot (obsope_tools.f90:431-508); the
-        update itself stays 3-D. `det` (DET_RUN) and `addi_ens` (INFL_ADD)
-        reach `analyze`, which raises NotImplementedError for them.
+        update itself stays 3-D. `det`: the deterministic member (DET_RUN,
+        common_nml.f90:46), whose H(x) gives the obs context's depd and whose
+        analysis (transmd weights, letkf_tools.f90:489-497) comes back under
+        'det' (None without it). `addi_ens` (K, NV3D, nz, ny, nx), on the
+        device or the host: the additive-inflation source ensemble in
+        analysis variables, required when INFL_ADD > 0 (reference
+        INFL_ADD_IN_BASENAME files, common_nml.f90:117); rng shuffles its
+        members under INFL_ADD_SHUFFLE.
 
         `ens` is dropped once the guess exists: a caller that hands it over
         (keeps no reference) frees it before the analysis.
@@ -443,10 +452,19 @@ class CycleDriver:
                     state_to_history(gues, self.z_full, self.topo,
                                      tsfc=self.tsfc), obs,
                     self.grid, cfg, self.z_full)
+            ensval_det = None
+            if gues_det is not None:
+                # the reference's deterministic H(x): neutral screen
+                # diagnostics (no tsfc)
+                y_det, _ = compute_hx_single(
+                    state_to_history(gues_det, self.z_full, self.topo), obs,
+                    self.grid, cfg, self.z_full)
+                ensval_det = y_det.cpu().numpy()
 
         with self.timer.section("process_obs"):
             ctx = build_obs_context(obs, hx.ensval.cpu().numpy(), hx.qc, cfg,
-                                    self.grid, hx_lev=hx.lev)
+                                    self.grid, ensval_det=ensval_det,
+                                    hx_lev=hx.lev)
             stats_gues = monit_dep(ctx.elem, ctx.dep, ctx.qc)
 
         with self.timer.section("das_letkf"):
@@ -455,8 +473,8 @@ class CycleDriver:
             anal, diag = analyze(gues, ctx, cfg, self.grid, self.z_full,
                                  infl_field=infl, device=self.device,
                                  gues_det=gues_det, addi_ens=addi_ens,
-                                 timer=self.timer)
-            del gues
+                                 rng=rng, timer=self.timer)
+            del gues, gues_det
 
         with self.timer.section("state_trans_inv"):
             anal_mean, anal_sprd = ensemble_mean(anal), ensemble_spread(anal)
@@ -469,6 +487,13 @@ class CycleDriver:
             ens_out = ens_out._replace(rho=ens_out.rho.clone(),
                                        rhot=ens_out.rhot.clone())
             del restart
+            det_out = None
+            if diag.anal_det is not None:
+                det_out = from_collocated(state_trans_inv(
+                    diag.anal_det,
+                    positive_definite_q=cfg.letkf.positive_definite_q,
+                    positive_definite_qhyd=cfg.letkf.positive_definite_qhyd))
+                diag.anal_det = None
 
         # O−A from the analysis mean against the preprocessed obs values
         # (ctx.dat: radar reflectivity in dBZ, as H(x) returns it)
@@ -496,7 +521,7 @@ class CycleDriver:
                                                   ctx.dep, ctx.qc),
             "stats_anal_bytype": monit_dep_bytype(ctx.elem, ctx.typ, oma,
                                                   ctx.qc),
-            "diag": diag, "obsdep": obsdep, "det": None,
+            "diag": diag, "obsdep": obsdep, "det": det_out,
         }
 
     # -- full OSSE twin experiment --

@@ -11,6 +11,8 @@ and, within a level, over chunks of gridpoints, each chunk one batch:
              → batched K×K letkf_core per var-local group
              → RTPP/RTPS relaxation, boundary β damping, weight application
              → Q_UPDATE_TOP and the q-spread limiter (both per gridpoint)
+             → deterministic-member update (transmd weights)
+  post:      additive inflation (da/inflation.py), one member at a time
 
 Var-local dedup (letkf_tools.f90:129-163) is exact: the selection uses
 factor-1 weights; within one ctype the factor is one constant, so it never
@@ -30,9 +32,11 @@ import numpy as np
 import torch
 
 from scale_letkf_torch.config import Config
+from scale_letkf_torch.da import inflation
 from scale_letkf_torch.da.letkf_obs import ObsContext
 from scale_letkf_torch.grid import Grid
 from scale_letkf_torch.io.convert import DeviceObsContext, obs_context_to_device
+from scale_letkf_torch.obs.types import ID_RADAR_REF
 from scale_letkf_torch.ops.letkf_core import (
     letkf_core, weight_rtpp, weight_rtps, total_weight, relax_beta,
 )
@@ -52,7 +56,7 @@ CPU_CHUNK_BYTES = 1 << 30
 
 # cfg.letkf.eigh_impl (the reference's solver names) → letkf_core solver
 _SOLVER_OF_EIGH_IMPL = {"auto": "auto", "ns_pallas": "ns_kernel", "ns": "ns",
-                        "lax": "eigh", "jacobi": "eigh"}
+                        "lax": "eigh", "jacobi": "jacobi"}
 
 
 @dataclass
@@ -64,6 +68,9 @@ class AnalysisDiag:
     nobs_field: np.ndarray | None = None  # (nz, ny, nx) local obs counts
                                           # (NOBS_OUT, letkf_tools.f90:763-798)
     chunk: int = 0                   # gridpoints per chunk (gridpoint_chunk)
+    anal_det: torch.Tensor | None = None  # (NV3D, nz, ny, nx) analysed
+                                          # deterministic member, on the
+                                          # analysis device (DET_RUN)
 
 
 @dataclass(frozen=True)
@@ -166,11 +173,12 @@ def _select(plan: _Plan, dctx: DeviceObsContext, gp_x, gp_y, logp, z):
     return idx, rloc, rdiag, [p[0].shape[-1] for p in parts]
 
 
-def _group_inputs(facs, widths, rloc0, rdiag0, dep_l, hdxb_l):
-    """One var-local group's (rloc, rdiag, dep, hdxb): the shared selection
-    scaled by the group's per-ctype factors, factor-0 slots zeroed."""
+def _group_inputs(facs, widths, rloc0, rdiag0, dep_l, hdxb_l, depd_l=None):
+    """One var-local group's (rloc, rdiag, dep, hdxb, depd): the shared
+    selection scaled by the group's per-ctype factors, factor-0 slots
+    zeroed (depd None stays None)."""
     if not facs or all(f == 1.0 for f in facs):
-        return rloc0, rdiag0, dep_l, hdxb_l
+        return rloc0, rdiag0, dep_l, hdxb_l, depd_l
     fac = torch.cat([torch.full((w,), f, dtype=rloc0.dtype,
                                 device=rloc0.device)
                      for w, f in zip(widths, facs)])
@@ -179,7 +187,15 @@ def _group_inputs(facs, widths, rloc0, rdiag0, dep_l, hdxb_l):
     rdiag_g = torch.where(sel, rdiag0 / torch.clamp(fac, min=1e-30), 1.0)
     dep_g = dep_l.masked_fill(~sel, 0.0)
     hdxb_g = hdxb_l.masked_fill(~sel[..., None], 0.0)
-    return rloc_g, rdiag_g, dep_g, hdxb_g
+    depd_g = None if depd_l is None else depd_l.masked_fill(~sel, 0.0)
+    return rloc_g, rdiag_g, dep_g, hdxb_g, depd_g
+
+
+def _gather(idx: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """values (nobs,) at the selected ids idx (Bc, L), zero in the padding."""
+    if values.shape[0] == 0:
+        return values.new_zeros(idx.shape)
+    return values[idx.clamp(min=0)].masked_fill_(idx < 0, 0.0)
 
 
 def _q_limits(plan: _Plan, anal_q, pert_q, mean_c):
@@ -218,22 +234,24 @@ def analyze(
     device: torch.device,
     gues_det: torch.Tensor | None = None,
     addi_ens: torch.Tensor | None = None,
+    rng: np.random.Generator | None = None,
     mesh=None,
     timer: Timer | None = None,
 ) -> tuple[torch.Tensor, AnalysisDiag]:
     """Analysis update of the ensemble `gues` on `device`. Returns (anal,
-    diag): anal a new (K, NV3D, nz, ny, nx) tensor, diag on the host.
+    diag): anal a new (K, NV3D, nz, ny, nx) tensor, diag on the host but
+    for diag.anal_det.
+
+    gues_det (NV3D, nz, ny, nx): the deterministic member (DET_RUN,
+    letkf_tools.f90:489-497), analysed with the transmd weights of the
+    obs context's depd into diag.anal_det. addi_ens (K, NV3D, nz, ny, nx),
+    on the device or on the host: the additive-inflation source ensemble,
+    required when INFL_ADD > 0 (da/inflation.py; rng shuffles its members
+    under INFL_ADD_SHUFFLE, default_rng(0) when None).
+
     timer, when given, gets the sections 'level', 'select', 'gather',
-    'gram', 'solve', 'weights' and 'apply'. Float32 products run in full
-    FP32 whatever matmul precision the caller set (full_fp32)."""
-    if gues_det is not None:
-        raise NotImplementedError(
-            "deterministic member: not ported yet (ROADMAP queue 1, the "
-            "deterministic member and da/inflation.py)")
-    if addi_ens is not None or cfg.letkf.infl_add > 0:
-        raise NotImplementedError(
-            "additive inflation: not ported yet (ROADMAP queue 1, the "
-            "deterministic member and da/inflation.py)")
+    'gram', 'solve', 'weights', 'apply' and 'addi'. Float32 products run in
+    full FP32 whatever matmul precision the caller set (full_fp32)."""
     if mesh is not None:
         raise NotImplementedError(
             "multi-device mesh: not ported yet (ROADMAP queue 1, "
@@ -242,6 +260,13 @@ def analyze(
         raise ValueError(f"gues is on {gues.device}, analysis on {device}")
     if cfg.letkf.relax_spread_out and cfg.letkf.relax_alpha_spread == 0.0:
         raise ValueError("RELAX_SPREAD_OUT requires RELAX_ALPHA_SPREAD")
+    if cfg.letkf.infl_add > 0 and addi_ens is None:
+        raise ValueError(
+            "INFL_ADD > 0 requires an additive-inflation ensemble "
+            "(addi_ens; reference INFL_ADD_IN_BASENAME files)")
+    if gues_det is not None and ctx.depd is None:
+        raise ValueError("a deterministic member needs the obs context's "
+                         "depd (build_obs_context(..., ensval_det=))")
     K, nv, nz, ny, nx = gues.shape
     dtype = gues.dtype
     B = ny * nx
@@ -276,6 +301,9 @@ def analyze(
     nobs_out = torch.empty((nz, B), dtype=torch.int32, device=device)
     rtps_out = (torch.ones((nv, nz, B), dtype=dtype, device=device)
                 if plan.relax_spread_out else None)
+    det = (None if gues_det is None
+           else gues_det.to(device=device, dtype=dtype).reshape(nv, nz, B))
+    anal_det = None if det is None else torch.empty_like(det)
 
     cand_w = sum(candidate_width(ct.buckets) for ct in ctx.ctypes)
     sel_w = sum(cp.max_nobs if cp.max_nobs > 0
@@ -304,6 +332,7 @@ def analyze(
                                               dtype=torch.int32)
             with maybe_section(timer, "gather"):
                 dep_l, hdxb_l = gather_obs_data(idx, dctx.dep, dctx.hdxb)
+                depd_l = None if det is None else _gather(idx, dctx.depd)
                 del idx
             mean_c = mean_l[:, sl]                                # (nv, Bc)
             pert = (g_l[:, :, sl] - mean_c[None]).permute(1, 2, 0)  # (nv,Bc,K)
@@ -311,15 +340,16 @@ def analyze(
                 else torch.ones_like(infl_c)
             anal_c = torch.empty_like(pert)
             for gi, vidx in enumerate(plan.group_vars):
-                rloc_g, rdiag_g, dep_g, hdxb_g = _group_inputs(
+                rloc_g, rdiag_g, dep_g, hdxb_g, depd_g = _group_inputs(
                     plan.group_factors[gi], widths, rloc0, rdiag0, dep_l,
-                    hdxb_l)
+                    hdxb_l, depd_l)
                 res = letkf_core(hdxb_g, rdiag_g, rloc_g, dep_g, infl_c,
                                  rdiag_wloc=True,
                                  infl_update=plan.adaptive and gi == 0,
+                                 depd=depd_g,
                                  min_infl=max(plan.min_infl, 0.0),
                                  solver=plan.solver, timer=timer)
-                del rloc_g, rdiag_g, dep_g, hdxb_g
+                del rloc_g, rdiag_g, dep_g, hdxb_g, depd_g
                 if gi == 0 and plan.adaptive:
                     infl_out[lev, sl] = res.infl
                 with maybe_section(timer, "apply"):
@@ -341,9 +371,22 @@ def analyze(
                         w_tot = total_weight(trans, res.transm, beta)
                         upd = torch.einsum("vbk,bkm->vbm", pert_g, w_tot)
                     anal_c[vi] = upd.add_(mean_c[vi][..., None])
+                    if det is not None:
+                        # det + β·Σ_k Xb'_k transmd_k (letkf_tools.f90:489-497)
+                        incr = torch.einsum("vbk,bk->vb", pert_g, res.transmd)
+                        anal_det[vi, lev, sl] = (det[vi, lev, sl]
+                                                 + incr * beta[None])
             with maybe_section(timer, "apply"):
                 _q_limits(plan, anal_c[IA_Q0:], pert[IA_Q0:], mean_c)
                 anal[:, :, lev, sl] = anal_c.permute(2, 0, 1)
+
+    anal = anal.reshape(K, nv, nz, ny, nx)
+    if cfg.letkf.infl_add > 0:
+        with maybe_section(timer, "addi"):
+            gues_mean = (g.mean(dim=0).reshape(nv, nz, ny, nx)
+                         if cfg.letkf.infl_add_q_ratio else None)
+            _additive_inflation(anal, addi_ens, cfg, ctx, gp_x, gp_y,
+                                gues_mean, rng)
 
     nobs_np = nobs_out.cpu().numpy()
     diag = AnalysisDiag(
@@ -354,5 +397,33 @@ def analyze(
                     if rtps_out is not None else None),
         nobs_field=(nobs_np.reshape(nz, ny, nx).astype(np.float64)
                     if cfg.letkf.nobs_out else None),
-        chunk=chunk)
-    return anal.reshape(K, nv, nz, ny, nx), diag
+        chunk=chunk,
+        anal_det=None if anal_det is None else anal_det.reshape(
+            nv, nz, ny, nx))
+    return anal, diag
+
+
+def _additive_inflation(anal, addi_ens, cfg: Config, ctx: ObsContext,
+                        gp_x, gp_y, gues_mean, rng):
+    """The additive-inflation stage (letkf_tools.f90:804-929), in place on
+    anal: the INFL_ADD_REF_ONLY weight from the radar reflectivity obs
+    (zero without them), the INFL_ADD_SHUFFLE permutation and the
+    INFL_ADD_Q_RATIO factor (the guess mean gues_mean)."""
+    K, _, _, ny, nx = anal.shape
+    weight = None
+    if cfg.letkf.infl_add_ref_only:
+        ref_ct = [ct for ct in ctx.ctypes if ct.elem == ID_RADAR_REF]
+        if ref_ct:
+            ct = ref_ct[0]
+            weight = inflation.radar_proximity_weight(
+                gp_x, gp_y, ctx.x[ct.obs_idx], ctx.y[ct.obs_idx],
+                ct.hori_scale, buckets=ct.buckets, obs_x_all=ctx.x,
+                obs_y_all=ctx.y)
+        else:
+            weight = torch.zeros_like(gp_x)
+        weight = weight.to(anal.dtype).reshape(ny, nx)
+    shuffle = (inflation.knuth_shuffle(rng or np.random.default_rng(0), K)
+               if cfg.letkf.infl_add_shuffle else None)
+    inflation.apply_additive_inflation(
+        anal, addi_ens, cfg.letkf.infl_add, shuffle=shuffle, weight=weight,
+        q_ratio=cfg.letkf.infl_add_q_ratio, gues_mean=gues_mean)

@@ -1293,3 +1293,325 @@ def terrain_check_passes(res: dict) -> bool:
             and launches["device"]["dyn_tendency"] == 0
             and launches["device"]["adv_ud3"] == 0
             and not any(launches["cpu"].values()))
+
+
+# --- the deterministic member, additive inflation, Jacobi, EFSO ------------
+# The deterministic-member + additive-inflation analysis (INFL_ADD 0.1,
+# shuffled, q ratio) at COARSE with K = MEMBERS; the letkf and cycle verbs
+# on DET_VERB_CONFIG's small checkpoints (K = 20, so the solver is the CUDA
+# kernel on the card); EFSO at COARSE_FCST with K = MEMBERS_CYCLE.
+DET_VERB_CONFIG = """
+[domain]
+nx = 16
+ny = 12
+nz = 8
+dx = 2000.0
+dy = 2000.0
+dz = 500.0
+dt = 1.0
+qv_surface = 0.008
+
+[ensemble]
+member = 20
+
+[letkf]
+infl_mul = 1.1
+infl_add = 0.1
+infl_add_shuffle = true
+
+[letkf_obs]
+hori_local = [6.0e3, {rest}]
+""".format(rest=", ".join(["-1.0"] * 23))
+DET_VERB_STEPS = 2
+EFSO_HORI = 400.0e3     # HORI_LOCAL of the 18-km configuration's sondes
+TOL_EFSO = 1e-5         # ΔJ, relative to max|ΔJ|
+
+
+def _incr_over_tol(out, out_cpu, base, ulps=2) -> dict:
+    """Per variable of (..., NV3D, nz, ny, nx) analyses from `base`:
+    max|Δ − Δ_cpu| over 1e-4·max|Δ_cpu| + ulps ulp of max|base_v|."""
+    err = {}
+    for v, name in enumerate(V3D_ANAL_NAMES):
+        inc = out[:, v] - base[:, v]
+        inc_cpu = out_cpu[:, v] - base[:, v]
+        tol = (1e-4 * np.abs(inc_cpu).max()
+               + ulps * np.spacing(np.abs(base[:, v]).max()))
+        err[name] = float(np.abs(inc - inc_cpu).max() / tol)
+    return err
+
+
+def coarse_det_addi_vs_cpu(device: torch.device, config: str,
+                           seed: int = 0) -> dict:
+    """The analysis with a deterministic member (another seed's synthetic
+    member; its H(x) the obs plus half their error) and additive inflation
+    (INFL_ADD 0.1, INFL_ADD_SHUFFLE with default_rng(seed + 3),
+    INFL_ADD_Q_RATIO; a third seed's synthetic ensemble, kept on the host
+    and uploaded a member at a time) at COARSE with K = MEMBERS, on `device`
+    and on the CPU. Returns per variable the worst |Δ increment| over its
+    tolerance (1e-4·max|Δ_v| + 2 ulp) of the ensemble and of the member
+    (≤ 1 passes), the solver's launches and finiteness."""
+    cfg, grid, _, _ = load_config_and_grid(config, COARSE)
+    cfg.ensemble.member = K = MEMBERS
+    cfg.letkf.infl_add = 0.1
+    cfg.letkf.infl_add_shuffle = cfg.letkf.infl_add_q_ratio = True
+    rng = np.random.default_rng(seed)
+    shape = (grid.nz, grid.ny, grid.nx, grid.cz)
+    gues = synthetic_gues(rng, K, *shape)
+    det = synthetic_gues(np.random.default_rng(seed + 1), 1, *shape)
+    addi = torch.from_numpy(synthetic_gues(np.random.default_rng(seed + 2),
+                                           K, *shape))
+    obs = synthetic_conv_network(cfg, grid, rng, n_sonde=30, n_ps=60)
+    ensval = (obs.dat[None] + rng.standard_normal((K, obs.nobs))
+              * obs.err[None]).astype(np.float32)
+    ensval_det = (obs.dat + 0.5 * rng.standard_normal(obs.nobs)
+                  * obs.err).astype(np.float32)
+    ctx = build_obs_context(obs, ensval, np.zeros(obs.nobs, np.int32), cfg,
+                            grid, ensval_det=ensval_det)
+    out, launches = {}, {}
+    for key, dev in (("device", device), ("cpu", torch.device("cpu"))):
+        before = kernels.LAUNCHES["invsqrt_ns"]
+        a, diag = analyze(
+            torch.as_tensor(gues, device=dev), ctx, cfg, grid,
+            grid.calc_z(torch.zeros((grid.ny, grid.nx), device=dev)),
+            device=dev, gues_det=torch.as_tensor(det[0], device=dev),
+            addi_ens=addi, rng=np.random.default_rng(seed + 3))
+        out[key] = (a.cpu().numpy(), diag.anal_det.cpu().numpy()[None])
+        launches[key] = kernels.LAUNCHES["invsqrt_ns"] - before
+    err = {f"ens.{k}": v for k, v in _incr_over_tol(
+        out["device"][0], out["cpu"][0], gues).items()}
+    err.update({f"det.{k}": v for k, v in _incr_over_tol(
+        out["device"][1], out["cpu"][1], det).items()})
+    return {"grid": "{nx}x{ny}x{nz}".format(**COARSE), "members": K,
+            "levels": grid.nz, "kernel_launches": launches,
+            "det_moved": bool(np.abs(out["cpu"][1] - det).max() > 0),
+            "finite": all(bool(np.isfinite(a).all()) for a in out["device"]),
+            "max_err_over_tol": err}
+
+
+def _verb_members(n: int, seed: int, grid) -> list:
+    """n float32 numpy members of DET_VERB_CONFIG: the balanced state with
+    its qv profile, a warm bubble, seeded wind and ρθ noise."""
+    from scale_letkf_torch.model.ideal import add_warm_bubble, balanced_state
+    dz = float(grid.fz[1] - grid.fz[0])
+    s, _, _ = balanced_state(grid.nz, grid.ny, grid.nx, dz,
+                             qv_prof=0.008 * np.exp(-grid.cz / 3000.0))
+    s = add_warm_bubble(s, dz, grid.dx, grid.dy, amplitude=2.0)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        f = [a.numpy().copy() for a in s]
+        f[1] += (2.0 * rng.standard_normal(f[1].shape) * f[0]).astype(
+            np.float32)
+        f[4] += (0.3 * rng.standard_normal(f[4].shape) * f[0]).astype(
+            np.float32)
+        out.append(dycore.DycoreState(*f))
+    return out
+
+
+def det_verbs_vs_cpu(device: torch.device, seed: int = 0) -> dict:
+    """The letkf and cycle verbs with a deterministic member ('mdet' in the
+    checkpoint) and additive inflation (the 'addi' files beside it) on
+    DET_VERB_CONFIG's small checkpoints, run with --device on `device` and
+    on the CPU, in a temporary directory: obsmake from a nature member,
+    letkf, then cycle (1 cycle of DET_VERB_STEPS steps) — and the cycle
+    once more on the CPU from an init perturbed by one rounding, whose
+    distance is the cycle's rounding floor. Per restart field of the
+    ensemble and the member: letkf within 1e-4·max|Δ| + 6 ulp, the cycle
+    within 1e-4·max|Δ|·(1 + 2·floor) (≤ 1 passes); the solver's launches."""
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+    from scale_letkf_torch.cli.main import main
+    from scale_letkf_torch.da.obsmake import make_obs_network
+    from scale_letkf_torch.grid import Grid
+    from scale_letkf_torch.io import checkpoint
+    from scale_letkf_torch.obs import io as obsio
+    K = 20
+    grid = Grid.uniform(nx=16, ny=12, nz=8, dx=2000.0, dy=2000.0, dz=500.0)
+    members = _verb_members(2 * K + 2, seed, grid)
+
+    def stack(ms):
+        return dycore.DycoreState(*(np.stack(f) for f in zip(*ms)))
+
+    err, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = Path(tmp)
+        (t / "exp.toml").write_text(DET_VERB_CONFIG)
+        ens0, det0 = stack(members[:K]), members[K]
+        gen = torch.Generator().manual_seed(seed)
+
+        def rounded(s):
+            return dycore.DycoreState(*(f.numpy() for f in _rounded(
+                dycore.DycoreState(*(torch.from_numpy(f) for f in s)), gen)))
+        for name, e, d in (("init", ens0, det0),
+                           ("init_rounded", rounded(ens0), rounded(det0))):
+            checkpoint.save_ensemble(t / name, e, basename="anal.@@@@",
+                                     det=d)
+            for m in range(K):
+                checkpoint.save_member(
+                    t / name / checkpoint.filename_replace_mem(
+                        "addi.@@@@.npz", m), members[K + 1 + m])
+        checkpoint.save_member(t / "nature.npz", members[2 * K + 1])
+        obsio.write_obs(str(t / "template.dat"), make_obs_network(
+            grid, np.random.default_rng(seed), n_profiles=15,
+            levels_hpa=(900.0, 800.0)))
+        cfg = ["--config", str(t / "exp.toml")]
+
+        def run(*args, dev):
+            before = kernels.LAUNCHES["invsqrt_ns"]
+            with contextlib.redirect_stdout(io.StringIO()):
+                main([*args, *cfg, "--device", dev])
+            return kernels.LAUNCHES["invsqrt_ns"] - before
+
+        run("obsmake", "--nature", str(t / "nature.npz"), "--obs-template",
+            str(t / "template.dat"), "--out", str(t / "obs.dat"), "--seed",
+            "5", dev="cpu")
+        for key, dev in (("device", str(device)), ("cpu", "cpu")):
+            launches[f"letkf.{key}"] = run(
+                "letkf", "--gues", str(t / "init"), "--obs",
+                str(t / "obs.dat"), "--anal", str(t / f"anal_{key}"),
+                "--seed", "3", dev=dev)
+        for key, dev, init in (("device", str(device), "init"),
+                               ("cpu", "cpu", "init"),
+                               ("cpu_rounded", "cpu", "init_rounded")):
+            launches[f"cycle.{key}"] = run(
+                "cycle", "--init", str(t / init), "--cycles", "1",
+                "--steps-per-cycle", str(DET_VERB_STEPS), "--obs-pattern",
+                str(t / "obs.dat"), "--out", str(t / f"cyc_{key}"), dev=dev)
+
+        def load(d):
+            ens, _, _ = checkpoint.load_ensemble(t / d)
+            return [*ens, *checkpoint.load_det(t / d)]
+        names = ([f"ens.{n}" for n in dycore.DycoreState._fields]
+                 + [f"det.{n}" for n in dycore.DycoreState._fields])
+        init = [*ens0, *det0]
+        for name, a, b, f0 in zip(names, load("anal_device"),
+                                  load("anal_cpu"), init):
+            tol = (1e-4 * np.abs(b - f0).max()
+                   + 6 * np.spacing(np.float32(np.abs(f0).max())))
+            err[f"letkf.{name}"] = float(np.abs(a - b).max() / tol)
+        cyc, floor = _err_floor(names, load("cyc_device"), load("cyc_cpu"),
+                                load("cyc_cpu_rounded"), init)
+        err.update({f"cycle.{k}": v for k, v in cyc.items()})
+        det_moved = bool(np.abs(load("anal_cpu")[10] - init[10]).max() > 0)
+    return {"grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members": K,
+            "cycle_steps": DET_VERB_STEPS, "kernel_launches": launches,
+            "det_moved": det_moved,
+            "rounding_floor_over_1e-4_increment": floor,
+            "max_err_over_tol": err}
+
+
+def jacobi_vs_cpu(device: torch.device, K: int, B: int = 512,
+                  seed: int = 0) -> dict:
+    """ops/eigh_jacobi.py on `device` against the CPU and against float64
+    LAPACK on B LETKF-shaped float32 Grams (hᵀh over 40 obs + (K-1)·I):
+    eigenvalues relative to their largest, reconstruction V·diag(w)·Vᵀ
+    relative to max|A| (tests/test_eigh_jacobi.py's float32 bounds: 2e-4
+    and 5e-5)."""
+    from scale_letkf_torch.ops.eigh_jacobi import eigh_jacobi
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((B, 40, K))
+    a = (np.einsum("blk,blj->bkj", h, h) + (K - 1) * np.eye(K)).astype(
+        np.float32)
+    w_ref = np.linalg.eigh(a.astype(np.float64))[0]
+    res = {"K": K, "B": B}
+    for key, dev in (("device", device), ("cpu", torch.device("cpu"))):
+        w, v = (x.cpu().double().numpy() for x in eigh_jacobi(
+            torch.as_tensor(a, device=dev)))
+        rec = np.einsum("bik,bk,bjk->bij", v, w, v)
+        res[key] = {"eigval_rel_err": float(np.abs(w - w_ref).max()
+                                            / np.abs(w_ref).max()),
+                    "recon_rel_err": float(np.abs(rec - a).max()
+                                           / np.abs(a).max()),
+                    "w": w}
+    res["device_vs_cpu_eigval"] = float(
+        np.abs(res["device"].pop("w") - res["cpu"].pop("w")).max()
+        / np.abs(w_ref).max())
+    res["passes"] = all(
+        r["eigval_rel_err"] <= 2e-4 and r["recon_rel_err"] <= 5e-5
+        for r in (res["device"], res["cpu"])) and \
+        res["device_vs_cpu_eigval"] <= 2e-4
+    return res
+
+
+def efso_inputs(seed: int, K: int, nz: int, ny: int, nx: int,
+                nobs: int = 200) -> dict:
+    """Seeded numpy EFSO inputs: centred perturbations, an error field, obs
+    at fractional indices with innovations, error variances and analysis
+    obs perturbations, and a mean wind for advected localization."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    pert = rng.standard_normal((K, NV3D, nz, ny, nx)).astype(f32)
+    pert -= pert.mean(axis=0, keepdims=True)
+    return dict(
+        ri=rng.uniform(0, nx - 1, nobs).astype(f32),
+        rj=rng.uniform(0, ny - 1, nobs).astype(f32),
+        rk=rng.uniform(0, nz - 1, nobs).astype(f32),
+        dep=rng.standard_normal(nobs).astype(f32),
+        rdiag=rng.uniform(0.5, 2.0, nobs).astype(f32),
+        hdxa=rng.standard_normal((nobs, K)).astype(f32),
+        pert=pert, err=rng.standard_normal((NV3D, nz, ny, nx)).astype(f32),
+        u=(10.0 + rng.standard_normal((nz, ny, nx))).astype(f32),
+        v=rng.standard_normal((nz, ny, nx)).astype(f32))
+
+
+def coarse_efso_vs_cpu(device: torch.device, config: str,
+                       seed: int = 0) -> dict:
+    """efso_impact at COARSE_FCST's grid of the configuration (18-km
+    cells) with K = MEMBERS_CYCLE and HORI_LOCAL EFSO_HORI, without and
+    with advected localization (600 s) and vertical localization (2
+    cells), on `device` against the CPU: max|ΔJ − ΔJ_cpu| over
+    TOL_EFSO·max|ΔJ_cpu| (≤ 1 passes)."""
+    from scale_letkf_torch.da.efso import efso_impact
+    _, grid, _, _ = load_config_and_grid(config, COARSE_FCST)
+    inp = efso_inputs(seed, MEMBERS_CYCLE, grid.nz, grid.ny, grid.nx)
+    err = {}
+    for case, kw in (("plain", {}),
+                     ("advected", {"adv_time": 600.0,
+                                   "vert_scale_cells": 2.0})):
+        dj = {}
+        for key, dev in (("device", device), ("cpu", torch.device("cpu"))):
+            t = {k: torch.as_tensor(v, device=dev) for k, v in inp.items()}
+            adv = ({"u_adv": t["u"], "v_adv": t["v"]} if kw else {})
+            dj[key] = efso_impact(
+                t["ri"], t["rj"], t["rk"], t["dep"], t["rdiag"], t["hdxa"],
+                t["pert"], t["err"], grid, EFSO_HORI, **adv, **kw
+            ).cpu().numpy()
+        err[case] = float(np.abs(dj["device"] - dj["cpu"]).max()
+                          / (TOL_EFSO * np.abs(dj["cpu"]).max()))
+    return {"grid": "{nx}x{ny}x{nz}".format(**COARSE_FCST),
+            "members": MEMBERS_CYCLE, "finite": bool(np.isfinite(
+                dj["device"]).all()), "max_err_over_tol": err}
+
+
+def h08_fit_vs_cpu(device: torch.device, steps: int = 600) -> dict:
+    """obs/h08_calibrate.fit (the default 64 profiles, float64) on `device`
+    and on the CPU: the fitted coefficients' largest relative difference
+    (rtol 1e-3, the parity tests' bound, passes) and the BT misfit before
+    and after."""
+    from scale_letkf_torch.obs.h08_calibrate import fit
+    out = {key: fit(steps=steps, device=dev) for key, dev in (
+        ("device", device), ("cpu", torch.device("cpu")))}
+    (f, st), (fc, _) = out["device"], out["cpu"]
+    rel = max(float(np.abs(np.asarray(f[k]) / np.asarray(fc[k]) - 1).max())
+              for k in ("k_wv", "k_fix", "wv_p_exp"))
+    return {"steps": steps, "coef_max_rel_diff": rel,
+            "bt_rmse_before_K": st["bt_rmse_before_K"],
+            "bt_rmse_after_K": st["bt_rmse_after_K"],
+            "passes": rel <= 1e-3
+            and st["bt_rmse_after_K"] < st["bt_rmse_before_K"]}
+
+
+def det_check_passes(res: dict) -> bool:
+    """Whether the det_small results pass: the deterministic + additive
+    analysis and the verbs within their bounds, finite, the member moved,
+    the solver launched on the device and never on the CPU."""
+    ana, verbs = res["analysis"], res["verbs"]
+    lv = verbs["kernel_launches"]
+    return (ana["finite"] and ana["det_moved"]
+            and all(e <= 1 for e in ana["max_err_over_tol"].values())
+            and ana["kernel_launches"]["cpu"] == 0
+            and verbs["det_moved"]
+            and all(e <= 1 for e in verbs["max_err_over_tol"].values())
+            and lv["letkf.cpu"] == lv["cycle.cpu"] == 0)

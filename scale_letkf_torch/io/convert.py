@@ -42,6 +42,8 @@ class DeviceObsContext:
     hdxb: torch.Tensor           # (nobs, K)
     ctypes: list[CtypeContext]
     tables: list[torch.Tensor]   # (mesh_ny, mesh_nx, cap) int32
+    depd: torch.Tensor | None = None   # (nobs,) deterministic-member
+                                       # departures (DET_RUN)
 
 
 def obs_context_to_device(ctx: ObsContext, device: torch.device,
@@ -55,7 +57,8 @@ def obs_context_to_device(ctx: ObsContext, device: torch.device,
         dep=f(ctx.dep), hdxb=f(ctx.hdxb),
         ctypes=list(ctx.ctypes),
         tables=[torch.as_tensor(ct.buckets.table, device=device)
-                for ct in ctx.ctypes])
+                for ct in ctx.ctypes],
+        depd=None if ctx.depd is None else f(ctx.depd))
 
 
 def dycore_state_to_torch(arrays, device: torch.device,

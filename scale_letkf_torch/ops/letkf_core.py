@@ -17,10 +17,13 @@ Solvers for the K×K inverse square root (`solver=`):
                 invsqrt_ns): the CUDA kernel on a CUDA tensor, its plain
                 torch version on a CPU tensor; float32, K ≤ 128
   'ns'        — the plain coupled Newton–Schulz iteration
-  'eigh'      — torch.linalg.eigh (stands in for the reference's 'lax' and
-                'jacobi' eigendecompositions)
-  'auto'      — 'eigh' for K ≤ 16, 'ns_kernel' for float32 with K ≤ 128,
-                else 'ns' (letkf_core.py:90-97 of the reference)
+  'eigh'      — torch.linalg.eigh (the reference's 'lax'), EIGH_MAX_BATCH
+                matrices a call
+  'jacobi'    — the parallel cyclic Jacobi eigensolver (ops/eigh_jacobi.py),
+                even K
+  'auto'      — AUTO_SMALL_K_SOLVER for even K ≤ 16, 'ns_kernel' for
+                float32 with K ≤ 128, else 'ns' (letkf_core.py:90-97 of the
+                reference, whose choice at K ≤ 16 is its Jacobi)
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from scale_letkf_torch.ops.eigh_jacobi import eigh_jacobi
 from scale_letkf_torch.ops.invsqrt import invsqrt_newton_schulz, invsqrt_ns
 from scale_letkf_torch.utils.device import full_fp32
 from scale_letkf_torch.utils.timing import Timer, maybe_section
@@ -37,7 +41,28 @@ from scale_letkf_torch.utils.timing import Timer, maybe_section
 # filter (Miyoshi 2011): the reference constant sigma_b (common_letkf.f90:79).
 SIGMA_B_INFL = 0.04
 
-SOLVERS = ("auto", "ns_kernel", "ns", "eigh")
+SOLVERS = ("auto", "ns_kernel", "ns", "eigh", "jacobi")
+# 'auto''s solver at even K ≤ 16: the faster of 'jacobi' and 'eigh' on the
+# card (chip_smoke.py's `jacobi` phase, PERF.md §5)
+AUTO_SMALL_K_SOLVER = "eigh"
+# Matrices per torch.linalg.eigh call: cuSOLVER's batched eigensolver
+# refuses one 18-km level (172,800 Grams) with CUSOLVER_STATUS_INVALID_VALUE
+# and takes 16,384 (chip_smoke.py's `jacobi` phase on an NVIDIA H100 80GB
+# HBM3 at 700.00 W)
+EIGH_MAX_BATCH = 16384
+
+
+def _eigh(gram: torch.Tensor):
+    """torch.linalg.eigh of (..., K, K) in calls of at most EIGH_MAX_BATCH
+    matrices."""
+    K = gram.shape[-1]
+    flat = gram.reshape(-1, K, K)
+    if flat.shape[0] <= EIGH_MAX_BATCH:
+        return torch.linalg.eigh(gram)
+    parts = [torch.linalg.eigh(flat[b0:b0 + EIGH_MAX_BATCH])
+             for b0 in range(0, flat.shape[0], EIGH_MAX_BATCH)]
+    return (torch.cat([w for w, _ in parts]).reshape(gram.shape[:-1]),
+            torch.cat([v for _, v in parts]).reshape(gram.shape))
 
 
 class LetkfResult(NamedTuple):
@@ -45,6 +70,8 @@ class LetkfResult(NamedTuple):
     transm: torch.Tensor    # (..., K)    mean-update weight w̄
     pao: torch.Tensor       # (..., K, K) analysis covariance in ensemble space
     infl: torch.Tensor      # (...,)      updated inflation parameter
+    transmd: torch.Tensor   # (..., K)    deterministic-member weight
+                            #             (zeros when depd is not given)
 
 
 def pick_solver(solver: str, K: int, dtype: torch.dtype) -> str:
@@ -53,8 +80,8 @@ def pick_solver(solver: str, K: int, dtype: torch.dtype) -> str:
         raise ValueError(f"unknown LETKF solver {solver!r}; one of {SOLVERS}")
     if solver != "auto":
         return solver
-    if K <= 16:
-        return "eigh"
+    if K <= 16 and K % 2 == 0:
+        return AUTO_SMALL_K_SOLVER
     if K <= 128 and dtype == torch.float32:
         return "ns_kernel"
     return "ns"
@@ -70,13 +97,15 @@ def letkf_core(
     *,
     rdiag_wloc: bool = False,  # rdiag already includes /rloc (common_letkf.f90:111)
     infl_update: bool = False,
+    depd: torch.Tensor | None = None,  # (..., L) deterministic-member departures
     min_infl: float = 0.0,
     solver: str = "auto",
     timer: Timer | None = None,
 ) -> LetkfResult:
     """LETKF transform for a batch of local analysis problems. The compute
-    dtype follows the inputs. timer, when given, gets the sections 'gram',
-    'solve' and 'weights'."""
+    dtype follows the inputs. transmd = Pa (HδX)ᵀR⁻¹·depd, the weight of
+    the deterministic member (letkf_tools.f90:489-497), when depd is given.
+    timer, when given, gets the sections 'gram', 'solve' and 'weights'."""
     K = hdxb.shape[-1]
     dtype = hdxb.dtype
     km1 = K - 1
@@ -102,7 +131,8 @@ def letkf_core(
             inv_sqrt, pao = invsqrt_newton_schulz(gram)
             trans = inv_sqrt * km1 ** 0.5
         else:
-            eival, eivec = torch.linalg.eigh(gram)
+            eival, eivec = (eigh_jacobi(gram) if solver == "jacobi"
+                            else _eigh(gram))
             # Pa = V Λ⁻¹ Vᵀ (common_letkf.f90:151-157)
             pao = (eivec / eival[..., None, :]) @ eivec.transpose(-1, -2)
             # W = V sqrt((K-1) Λ⁻¹) Vᵀ (common_letkf.f90:199)
@@ -114,6 +144,11 @@ def letkf_core(
         # w̄ = Pa (HδX)ᵀ R⁻¹ d (common_letkf.f90:169-187), obs dim first
         t = (hdxb_rinv.transpose(-1, -2) @ dep[..., None])[..., 0]
         transm = (pao @ t[..., None])[..., 0]
+        if depd is not None:
+            td = (hdxb_rinv.transpose(-1, -2) @ depd[..., None])[..., 0]
+            transmd = (pao @ td[..., None])[..., 0]
+        else:
+            transmd = torch.zeros_like(transm)
 
         # adaptive multiplicative inflation (Miyoshi 2011;
         # common_letkf.f90:233-254); rows without obs keep parm_infl
@@ -136,7 +171,8 @@ def letkf_core(
             infl_out = torch.where(has_obs, new_infl, parm_infl)
         else:
             infl_out = parm_infl
-    return LetkfResult(trans=trans, transm=transm, pao=pao, infl=infl_out)
+    return LetkfResult(trans=trans, transm=transm, pao=pao, infl=infl_out,
+                       transmd=transmd)
 
 
 def _eye_like(K: int, ref: torch.Tensor) -> torch.Tensor:

@@ -19,15 +19,18 @@ def require_cuda(index: int = 0) -> torch.device:
 
 @contextlib.contextmanager
 def full_fp32():
-    """Float32 matrix products on CUDA in full FP32 ("ieee", no TF32) for
-    the duration, whatever precision the caller chose, which comes back on
-    exit. The analysis's Gram and weight products and the kernel's plain
-    yardstick need it: the reference computes them at HIGHEST precision.
-    Also a decorator."""
-    matmul = torch.backends.cuda.matmul
-    saved = matmul.fp32_precision
-    matmul.fp32_precision = "ieee"
+    """Float32 matrix products and cuDNN convolutions on CUDA in full FP32
+    ("ieee", no TF32) for the duration, whatever precision the caller
+    chose, which comes back on exit. The analysis's Gram and weight
+    products, the kernel's plain yardstick and EFSO's convolutions (cuDNN's
+    default is TF32) need it: the reference computes them at HIGHEST
+    precision. Also a decorator."""
+    knobs = (torch.backends.cuda.matmul, torch.backends.cudnn.conv)
+    saved = [k.fp32_precision for k in knobs]
+    for k in knobs:
+        k.fp32_precision = "ieee"
     try:
         yield
     finally:
-        matmul.fp32_precision = saved
+        for k, v in zip(knobs, saved):
+            k.fp32_precision = v

@@ -214,6 +214,29 @@ def test_cycle_verbs_agree(exp):
             np.testing.assert_array_equal(np.asarray(x), y)
 
 
+def _write_addi(path, seed=9):
+    """Additive-inflation source members (the INFL_ADD_IN_BASENAME files,
+    addi.0001.npz …) into the checkpoint directory `path`."""
+    members = _members(K, seed)
+    for m, mem in enumerate(members):
+        checkpoint.save_member(path / checkpoint.filename_replace_mem(
+            "addi.@@@@.npz", m), DycoreState(*mem))
+
+
+def _det_init(tmp, dst):
+    """The init checkpoint with a deterministic member (member 0 of
+    another draw) and additive-inflation source members."""
+    ens, _, _ = checkpoint.load_ensemble(tmp / "init")
+    checkpoint.save_ensemble(dst, ens, basename="anal.@@@@",
+                             det=DycoreState(*_members(1, 8)[0]))
+    _write_addi(dst)
+    return ens
+
+
+INFL_ADD_CONFIG = CONFIG.replace(
+    "infl_mul = 1.1", "infl_mul = 1.1\ninfl_add = 0.1\ninfl_add_shuffle = true")
+
+
 @pytest.mark.parametrize("case,item", [
     ("streamed", "full-size executors"),
     ("nest", "nesting"),
@@ -221,25 +244,66 @@ def test_cycle_verbs_agree(exp):
     ("infl_add", "da/inflation.py"),
 ])
 def test_cycle_unported_options_raise(exp, tmp_path, case, item):
+    """--streamed and a [nest] section raise, naming their ROADMAP item; a
+    deterministic member in the init checkpoint (DET_RUN_CYCLED) and
+    INFL_ADD (shuffled, from the init's addi files) run, and one cycle of
+    one step matches the reference's verb, the member saved as 'mdet'."""
     tmp, _, _ = exp
     cfg_text, init, extra = CONFIG, str(tmp / "init"), []
     if case == "streamed":
         extra = ["--streamed"]
     elif case == "nest":
         extra = ["--nest-init", init]
-    elif case == "det":
-        ens, _, _ = checkpoint.load_ensemble(tmp / "init")
-        init = str(tmp_path / "init_det")
-        checkpoint.save_ensemble(init, ens, basename="anal.@@@@",
-                                 det=DycoreState(*(f[0] for f in ens)))
     else:
-        cfg_text = CONFIG.replace("infl_mul = 1.1", "infl_mul = 1.1\ninfl_add = 0.1")
+        init = str(tmp_path / "init_det")
+        ens = _det_init(tmp, tmp_path / "init_det")
+        if case == "infl_add":
+            cfg_text = INFL_ADD_CONFIG
     (tmp_path / "exp.toml").write_text(cfg_text)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        main(["cycle", "--config", str(tmp_path / "exp.toml"), "--init", init,
-              "--cycles", "1", "--steps-per-cycle", "1", "--obs-pattern",
-              str(tmp / "ref_obs.dat"), "--out", str(tmp_path / "out"),
-              "--device", "cpu", *extra])
+    args = ["cycle", "--config", str(tmp_path / "exp.toml"), "--init", init,
+            "--cycles", "1", "--steps-per-cycle", "1", "--obs-pattern",
+            str(tmp / "ref_obs.dat")]
+    if case in ("streamed", "nest"):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            main([*args, "--out", str(tmp_path / "out"), "--device", "cpu",
+                  *extra])
+        return
+    run(ref_main, *args, "--out", str(tmp_path / "ref"))
+    run(main, *args, "--out", str(tmp_path / "port"), "--device", "cpu")
+    ref, _, _ = ref_ckpt.load_ensemble(tmp_path / "ref")
+    got, _, _ = checkpoint.load_ensemble(tmp_path / "port")
+    assert_increments(got, ens, ref)
+    det0 = checkpoint.load_det(init)
+    det, det_r = (checkpoint.load_det(tmp_path / d) for d in ("port", "ref"))
+    assert_increments(det, det0, det_r)
+    assert np.abs(det.rhot - det0.rhot).max() > 0
+
+
+def test_letkf_verbs_agree_with_det_and_addi(exp, tmp_path):
+    """letkf on a guess with a deterministic member and INFL_ADD from
+    --addi (shuffled by --seed 3) in both packages: the ensemble and 'mdet'
+    to the restart increments bound."""
+    tmp, _, _ = exp
+    ens = _det_init(tmp, tmp_path / "gues")
+    checkpoint.save_ensemble(tmp_path / "addi", DycoreState(*(
+        np.stack(f) for f in zip(*_members(K, 10)))), basename="addi.@@@@")
+    (tmp_path / "exp.toml").write_text(INFL_ADD_CONFIG)
+    args = ["letkf", "--config", str(tmp_path / "exp.toml"), "--gues",
+            str(tmp_path / "gues"), "--obs", str(tmp / "ref_obs.dat"),
+            "--addi", str(tmp_path / "addi"), "--seed", "3"]
+    run(ref_main, *args, "--anal", str(tmp_path / "ref"))
+    run(main, *args, "--anal", str(tmp_path / "port"), "--device", "cpu")
+    ref, _, _ = ref_ckpt.load_ensemble(tmp_path / "ref")
+    got, _, _ = checkpoint.load_ensemble(tmp_path / "port")
+    assert_increments(got, ens, ref)
+    det0 = checkpoint.load_det(tmp_path / "gues")
+    det, det_r = (checkpoint.load_det(tmp_path / d) for d in ("port", "ref"))
+    assert_increments(det, det0, det_r)
+    # the source ensemble came from --addi: without it the analysis differs
+    run(main, *args[:-4], "--anal", str(tmp_path / "port_gues_addi"),
+        "--device", "cpu")
+    other, _, _ = checkpoint.load_ensemble(tmp_path / "port_gues_addi")
+    assert np.abs(other.rhot - got.rhot).max() > 0
 
 
 @pytest.mark.parametrize("verb,flag", [
@@ -248,8 +312,9 @@ def test_cycle_unported_options_raise(exp, tmp_path, case, item):
 ])
 def test_options_of_unported_paths_are_refused(exp, tmp_path, capsys, verb,
                                                flag):
-    """The streamed executor's options and additive inflation's seed are
-    not accepted until their paths are ported: argparse refuses them."""
+    """The streamed executor's options are not accepted until its path is
+    ported: argparse refuses them. letkf's --seed (INFL_ADD_SHUFFLE's
+    generator) is accepted: with INFL_ADD 0 it changes nothing."""
     tmp, cfg, _ = exp
     common = [*cfg, "--obs" if verb == "letkf" else "--obs-pattern",
               str(tmp / "ref_obs.dat"), "--device", "cpu"]
@@ -257,6 +322,13 @@ def test_options_of_unported_paths_are_refused(exp, tmp_path, capsys, verb,
              str(tmp_path / "a")] if verb == "letkf" else
             ["cycle", *common, "--init", str(tmp / "init"), "--cycles", "1",
              "--steps-per-cycle", "1", "--out", str(tmp_path / "o")])
+    if verb == "letkf":
+        run(main, *args, flag)
+        got, _, _ = checkpoint.load_ensemble(tmp_path / "a")
+        want, _, _ = checkpoint.load_ensemble(tmp / "port_anal")
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        return
     with pytest.raises(SystemExit):
         main([*args, flag])
     assert f"unrecognized arguments: {flag}" in capsys.readouterr().err

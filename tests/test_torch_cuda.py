@@ -8,7 +8,9 @@ a GPU machine without jax, with the jax-configuring conftest left out:
 The CUDA kernels are held against their plain PyTorch versions on the
 card, and the analysis, the forecast, the DA cycle, the ensemble H(x)
 (4-D, radar and H08), the physics, the terrain dynamics, the pp step's
-smoothing and the coarsened production cycle on the card against the same
+smoothing, the coarsened production cycle, the analysis with a
+deterministic member and additive inflation, the letkf and cycle verbs
+with them, the Jacobi eigensolver and EFSO on the card against the same
 runs on the CPU (which the parity tests hold against the reference
 package).
 Stencil bounds per field, relative to max|plain|: 2e-5 for the whole
@@ -338,3 +340,47 @@ def test_cuda_production_cycle_matches_cpu(cuda_device):
     assert launches["device"]["dyn_tendency"] == 0, res
     assert launches["device"]["adv_ud3"] == 0, res
     assert not any(launches["cpu"].values()), res
+
+
+@pytest.mark.cuda
+def test_cuda_det_addi_analysis_matches_cpu(cuda_device):
+    """The coarsened analysis with a deterministic member and additive
+    inflation (shuffled, q ratio, the source on the host) on the card
+    against the CPU: ensemble and member increments within
+    1e-4·max|Δ| + 2 ulp per variable."""
+    res = gpu_check.coarse_det_addi_vs_cpu(cuda_device, CONFIG)
+    assert res["finite"] and res["det_moved"]
+    assert res["kernel_launches"]["device"] > 0
+    assert res["kernel_launches"]["cpu"] == 0
+    assert all(e <= 1 for e in res["max_err_over_tol"].values()), res
+
+
+@pytest.mark.cuda
+def test_cuda_det_verbs_match_cpu(cuda_device):
+    """letkf and cycle with 'mdet' and 'addi' files, --device cuda against
+    --device cpu on the same files."""
+    res = gpu_check.det_verbs_vs_cpu(cuda_device)
+    launches = res["kernel_launches"]
+    assert res["det_moved"], res
+    assert all(e <= 1 for e in res["max_err_over_tol"].values()), res
+    assert launches["letkf.device"] > 0 and launches["cycle.device"] > 0
+    assert launches["letkf.cpu"] == launches["cycle.cpu"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [8, 16])
+def test_cuda_jacobi_matches_cpu(cuda_device, K):
+    """The Jacobi eigensolver on the card against the CPU and float64
+    LAPACK at tests/test_eigh_jacobi.py's float32 bounds."""
+    res = gpu_check.jacobi_vs_cpu(cuda_device, K)
+    assert res["passes"], res
+
+
+@pytest.mark.cuda
+def test_cuda_efso_matches_cpu(cuda_device):
+    """efso_impact at the coarsened 18-km grid, with and without advected
+    and vertical localization: ΔJ on the card within 1e-5·max|ΔJ| of the
+    CPU's (the convolutions pinned to full FP32)."""
+    res = gpu_check.coarse_efso_vs_cpu(cuda_device, CONFIG)
+    assert res["finite"]
+    assert all(e <= 1 for e in res["max_err_over_tol"].values()), res

@@ -306,14 +306,48 @@ def test_gpu_check_hx_helpers_on_cpu():
 @pytest.mark.parametrize("kw", ["det", "addi_ens"])
 def test_analysis_unported_members_raise(case, kw):
     """A deterministic member (DET_RUN) and an additive-inflation ensemble
-    (INFL_ADD) reach analyze, which names their ROADMAP item."""
-    d, ens, obs = case[1], case[6], case[10]
-    e = dycore_state_to_torch(ens, CPU)
-    arg = (DycoreState(*(f[0] for f in e)) if kw == "det"
-           else state_trans(to_collocated(e)))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.*deterministic member"):
-        d.analysis(e, obs, **{kw: arg})
+    (INFL_ADD 0.1, its members shuffled by default_rng(5)) go through the
+    port's analysis as through the reference's: the ensemble and the
+    analysed deterministic member to the restart increments bound."""
+    d_r, d, g_r, g, cfg, nature, ens, _, _, obs_r, obs = case
+    kw_r, kw_p = {}, {}
+    if kw == "det":
+        det = DycoreState(*(np.ascontiguousarray(f) for f in nature))
+        kw_r["det"] = to_ref(det)
+        kw_p["det"] = dycore_state_to_torch(det, CPU)
+    else:
+        _, addi = states(g_r, {**case_dom()}, seed=4)
+        addi_r = ref_trans(jax_vmap_collocated(to_ref(addi)))
+        kw_r.update(addi_ens=addi_r, rng=np.random.default_rng(5))
+        kw_p.update(addi_ens=torch.from_numpy(np.array(addi_r)),
+                    rng=np.random.default_rng(5))
+    saved = (d_r.cfg.letkf.infl_add, d_r.cfg.letkf.infl_add_shuffle,
+             cfg.letkf.infl_add, cfg.letkf.infl_add_shuffle)
+    if kw == "addi_ens":
+        for c in (d_r.cfg, cfg):
+            c.letkf.infl_add, c.letkf.infl_add_shuffle = 0.1, True
+    try:
+        ens_a_r, info_r = d_r.analysis(to_ref(ens), obs_r, **kw_r)
+        ens_a, info = d.analysis(dycore_state_to_torch(ens, CPU), obs,
+                                 **kw_p)
+    finally:
+        (d_r.cfg.letkf.infl_add, d_r.cfg.letkf.infl_add_shuffle,
+         cfg.letkf.infl_add, cfg.letkf.infl_add_shuffle) = saved
+    assert_increments(dycore_state_to_numpy(ens_a), ens,
+                      [np.asarray(f) for f in ens_a_r])
+    assert_stats(info["stats_anal"], info_r["stats_anal"], info["obsdep"])
+    if kw == "det":
+        det_a = DycoreState(*dycore_state_to_numpy(info["det"]))
+        assert_increments(det_a, nature, [np.asarray(f)
+                                          for f in info_r["det"]])
+        assert np.abs(det_a.rhot - nature.rhot).max() > 0
+    else:
+        assert info["det"] is None
+
+
+def case_dom():
+    """The [domain] table of the cycle tests' configuration."""
+    return ref_load(CONFIG, OVER)[3]
 
 
 # --- the physics suite, Kessler physics and Davies boundary forcing --------

@@ -26,7 +26,9 @@ def test_every_module_imports_without_jax():
               "model.physics", "model.microphysics6", "model.radiation",
               "model.surface", "model.pbl", "model.physics_suite",
               "model.boundary", "model.terrain", "model.topo", "obs.h08",
-              "cycle",
+              "ops.eigh_jacobi", "da.inflation", "da.efso",
+              "obs.h08_calibrate", "obs.decoders", "obs.superob",
+              "obs.precip", "cycle",
               "io.checkpoint", "io.convert", "cli.main", "synthetic",
               "gpu_check", "__main__"):
         assert f"scale_letkf_torch.{m}" in mods, m
