@@ -143,6 +143,43 @@ the radar configuration's forecast (configs/bda_1km_radar.toml, unchanged:
                       eigh, and the solver 'auto' takes at K ≤ 16
  29. h08_calibrate  — the H08 band-model fit on the card against the CPU
                       fit, the misfit after below the misfit before
+ 30. streamed_cycle — the configuration's 7-slot 4-D window (slot_base 4)
+                      through StreamedCycle, its slot interval cut from
+                      3600 to 150 s (5 steps: the analysis at step 15, the
+                      window's end at 30, against 720 and 1080 as
+                      shipped), the physics cycle's composition, member
+                      batches of 10, analysis tiles of 20 rows; the ensemble
+                      made on the card and brought to the host as analysis
+                      variables and their restart, the obs the conventional
+                      network spread over the 7 slots with values from the
+                      nature run (obs_from_truth). Phase table, obs per
+                      slot, peak device memory (below the in-core cycle's
+                      48.9 GiB) and host RSS, bytes and rates each way,
+                      launches (#1 levels × tiles × chunks, #2 and #3 3 ×
+                      30 × batches), O−B / O−A (T and PS must fall on the
+                      analysis-time slot's obs; the whole window's beside
+                      them), spreads, seconds a member-step and the shipped
+                      window extrapolated from it
+ 31. streamed_real  — invsqrt_ns vs plain on phase 30's first tile's Grams
+                      (B = 9,600)
+ 32. resident_cycle — phase 30's analysis-variable ensemble, obs and driver
+                      through ResidentCycle (6.84 GB of bfloat16 deviations
+                      on the card): launches, peak, the bytes the cycle
+                      moved across the host link, and the reference's
+                      yardstick against phase 30 — each member's H(x)
+                      within 0.2 of the ensemble spread, O−B and O−A RMSE
+                      within 10% — with the analysis mean's distance to
+                      phase 30's over the analysis spread
+ 33. radar_cycle    — configs/bda_1km_radar.toml as shipped through
+                      StreamedCycle (15 steps, tiles of 48 rows): the radar
+                      forecast's rain-blob ensemble and nature member, the
+                      synthetic PAWR volume (~888k REF and VR obs) with
+                      values from the nature run; ≥ 800k obs into the
+                      analysis, O−A below O−B for REF
+ 34. executors_small — the coarsened tiled analysis (plain and pipelined),
+                      StreamedCycle (terrain, physics, per-member Davies,
+                      4-D slots), ResidentCycle and the cycle --streamed
+                      verb on the card against the CPU
 
 Each phase prints one JSON line; any failed check raises, so the script
 exits non-zero. Every kernel-vs-plain check runs the kernel twice and holds
@@ -150,10 +187,11 @@ both runs to the bound (invsqrt_ns, which has no atomics, must also give
 bit-identical runs). Kernel and plain versions are timed with CUDA events,
 in turns (plain, kernel, kernel, plain), after a warm-up. The line before
 the last lists every kernel: route, source, the TPU kernel it replaces,
-its launches in phase 24, the main path, which runs all three (each path's
+its launches in phase 30, the main path, which runs all three (each path's
 own beside them under launches_by_path, counts reset before each — the
 production cycle's: #1 only), its error and time against the plain
-version on phase 24's operands (phase 25; for the stencil kernels the mean
+version on phase 24's operands (phase 25; #1 on phase 30's tile under
+`streamed_tile`; for the stencil kernels the mean
 over the two batch sizes weighted by their launches, so launches × ms is
 the kernel's time in the cycle, each size under `shapes`; the physics
 cycle's times under `physics_cycle`, the radar grid's under `radar_grid`,
@@ -1809,6 +1847,467 @@ def phase_forecast_small(device):
         raise AssertionError(f"GPU forecast disagrees with the CPU one: {res}")
 
 
+# --- the full-size executors: the member-streamed cycle, the tiled and the
+# device-resident analyses ---------------------------------------------------
+# configs/18km_japan.toml's 7-slot 4-D window (slot_base 4) with one cut of
+# depth: slot_tinterval 3600 → 150 s (5 steps at dt 30 s), so the analysis
+# falls at step 15 and the window ends at step 30 (1080 in the shipped run).
+# Each slot segment is one physics-suite call, whose cadence is
+# min(phys_interval, steps): 5 steps keep the shipped run's.
+STREAMED_SLOT_S = 150.0
+STREAMED_BATCH = 10
+STREAMED_ROWS = 20
+RADAR_ROWS = 48
+RADAR_BATCH = 10
+RADAR_OBS_TARGET = 1_000_000
+SHIPPED_WINDOW_STEPS = 1080   # 6-h cycle + 3 slots of 1 h beyond, at 30 s
+INCORE_PEAK_GB = 48.9         # the in-core cycle's peak (PERF.md §5)
+
+
+def host_peak_gb() -> float:
+    """The process's peak resident set size (GiB) so far."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def host_ensemble(ens) -> "object":
+    """A device DycoreState ensemble copied to host numpy arrays (through
+    pinned buffers)."""
+    from scale_letkf_torch.utils.staging import Stager
+    stager = Stager(ens.rho.device)
+    out = type(ens)(*(np.empty(f.shape, np.float32) for f in ens))
+    for f, o in zip(ens, out):
+        for i0 in range(0, f.shape[0], STREAMED_BATCH):
+            stager.download(f[i0:i0 + STREAMED_BATCH],
+                            o[i0:i0 + STREAMED_BATCH])
+    return out
+
+
+def transfers(rep: dict) -> dict:
+    """Bytes each way of a streamed report and their rates (GB/s over the
+    blocking sections that moved them)."""
+    up = rep["h2d_bytes"] + rep["letkf_h2d_bytes"] + rep["trans_inv_h2d_bytes"]
+    down = (rep["d2h_bytes"] + rep["letkf_d2h_bytes"]
+            + rep["trans_inv_d2h_bytes"])
+    return {"h2d_gb": up / 1e9, "d2h_gb": down / 1e9,
+            "fcst_upload_gb_per_s": rep["h2d_bytes"] / 1e9
+            / max(rep["upload_s"], 1e-9),
+            "fcst_download_gb_per_s": rep["d2h_bytes"] / 1e9
+            / max(rep["download_s"], 1e-9),
+            "letkf_gb_per_s": (rep["letkf_h2d_bytes"] + rep["letkf_d2h_bytes"])
+            / 1e9 / max(rep["letkf_transfer_s"], 1e-9)}
+
+
+def rmse_of(st) -> dict:
+    return {n: r for n, r in st.rmse.items() if st.nobs[n]}
+
+
+def center_slot_rmse(ex, obs, cfg) -> tuple[dict, dict]:
+    """O−B and O−A RMSE of the obs of the analysis-time slot (SLOT_BASE)
+    alone, from the executor's last obs context and O−A: the monitor's
+    analysis is the analysis-time state, so the other slots' O−A also
+    holds the nature run's change between their time and the analysis
+    time; this subset is the time-consistent comparison."""
+    from scale_letkf_torch.da.monitor import monit_dep
+    from scale_letkf_torch.da.obsope import assign_slots
+    ctx = ex.last_ctx
+    m = assign_slots(obs.dif, cfg) == cfg.obsope.slot_base
+    return (rmse_of(monit_dep(ctx.elem[m], ctx.dep[m], ctx.qc[m])),
+            rmse_of(monit_dep(ctx.elem[m], ex.last_oma[m], ctx.qc[m])))
+
+
+def record_analysis(ex, store: dict):
+    """Wraps ex.analysis (an instance attribute) to keep the H(x) and QC it
+    is given and, for a host ensemble (the streamed cycle), the domain-mean
+    spreads of T and PRES of the guess and the analysis and the analysis
+    mean and spread fields."""
+    from scale_letkf_torch.state import V3D_ANAL_NAMES
+    fn = ex.analysis
+
+    def spreads(anal):
+        x = torch.from_numpy(anal)
+        return {n: float(x[:, v].std(dim=0).mean())
+                for v, n in enumerate(V3D_ANAL_NAMES) if n in ("T", "PRES")}
+
+    def wrapped(ens, obs, ensval, qc, *a, **kw):
+        store["ensval"] = (ensval.cpu().numpy() if isinstance(
+            ensval, torch.Tensor) else np.array(ensval))
+        store["qc"] = np.array(qc)
+        if isinstance(ens, np.ndarray):
+            store["sprd_gues"] = spreads(ens)
+        res = fn(ens, obs, ensval, qc, *a, **kw)
+        if isinstance(ens, np.ndarray):
+            store["sprd_anal"] = spreads(res[0])
+            store["anal_mean"] = torch.from_numpy(res[0]).mean(dim=0)
+            store["anal_sprd"] = torch.from_numpy(res[0]).std(dim=0)
+        return res
+
+    ex.analysis = wrapped
+
+
+def streamed_inputs(device):
+    """Phase streamed_cycle's inputs: the configuration with the cut slot
+    interval, the physics cycle's driver (physics suite, Davies toward the
+    balanced base state), the ensemble made on the card and brought down
+    both as analysis variables (anal0, for the resident phase) and as their
+    restart (ens_rt, for the streamed one), the nature member on the host
+    and the conventional network spread over the 7 slots."""
+    from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
+    from scale_letkf_torch.gpu_check import PHYS_PROD
+    from scale_letkf_torch.model.dycore import from_collocated, to_collocated
+    from scale_letkf_torch.state import NV3D, state_trans, state_trans_inv
+    from scale_letkf_torch.synthetic import (
+        base_boundary, synthetic_conv_network, synthetic_ens_dycore_device)
+    from scale_letkf_torch.utils.staging import Stager
+    cfg, grid, dycfg, dom = load_config_and_grid(str(CONFIG))
+    cfg.obsope.slot_tinterval = STREAMED_SLOT_S
+    dom = {**dom, "physics": PHYS_PROD}
+    K = cfg.ensemble.member
+    kw = {"u0": FCST_U0, "amp_theta": CYCLE_AMP_THETA,
+          "smooth_passes": CYCLE_SMOOTH_PASSES}
+    t0 = time.perf_counter()
+    ens, _, _ = synthetic_ens_dycore_device(SEED, K, grid, dom, device, **kw)
+    nat, _, _ = synthetic_ens_dycore_device(SEED + 1, 1, grid, dom, device,
+                                            **kw)
+    nz, ny, nx = grid.nz, grid.ny, grid.nx
+    anal0 = np.empty((K, NV3D, nz, ny, nx), np.float32)
+    ens_rt = type(ens)(*(np.empty((K,) + f.shape[1:], np.float32)
+                         for f in ens))
+    stager = Stager(device)
+    b = STREAMED_BATCH
+    for i0 in range(0, K, b):
+        a = state_trans(to_collocated(type(ens)(*(f[i0:i0 + b]
+                                                  for f in ens))))
+        stager.download(a, anal0[i0:i0 + b])
+        for dst, src in zip(ens_rt, from_collocated(state_trans_inv(a))):
+            stager.download(src, dst[i0:i0 + b])
+        del a
+    del ens
+    truth = host_ensemble(nat)
+    del nat
+    driver = make_driver(cfg, grid, dycfg, dom, device)
+    driver.bdy = base_boundary(grid, dom, device)
+    rng = np.random.default_rng(SEED)
+    obs = synthetic_conv_network(cfg, grid, rng)
+    o = cfg.obsope
+    slot_times = (np.arange(o.slot_start, o.slot_end + 1)
+                  - o.slot_base) * o.slot_tinterval
+    obs.dif = rng.choice(slot_times, obs.nobs)
+    torch.cuda.synchronize()
+    return (cfg, grid, dycfg, dom, driver, anal0, ens_rt, truth, obs, rng,
+            time.perf_counter() - t0)
+
+
+def phase_streamed_cycle(device):
+    """configs/18km_japan.toml's 7-slot 4-D window through StreamedCycle at
+    full width (480×360×36, K = 50), the physics cycle's composition, the
+    slot interval cut to STREAMED_SLOT_S: the nature run's H(x) makes the
+    obs (obs_from_truth, its own one-member stream), then one cycle —
+    member batches of STREAMED_BATCH up, segmented forecast with each
+    slot's H(x), guess down, the tiled analysis in row tiles of
+    STREAMED_ROWS, the O−A monitor, the restart down. Returns the row, the
+    inputs the resident phase shares, and kernel #1's operands at the tile
+    shape (its first launch)."""
+    from scale_letkf_torch.da.bigcycle import (
+        StreamedCycle, phase_table, slot_parts)
+    from scale_letkf_torch.gpu_check import var_local_groups
+    from scale_letkf_torch.ops import invsqrt as invsqrt_mod
+    from scale_letkf_torch.synthetic import obs_from_truth
+    from scale_letkf_torch.utils import kernels
+
+    (cfg, grid, dycfg, dom, driver, anal0, ens_rt, truth, template, rng,
+     generate_s) = streamed_inputs(device)
+    K = cfg.ensemble.member
+    o = cfg.obsope
+    spb = int(round(o.slot_tinterval / dycfg.dt))      # steps a slot
+    nsteps = spb * (o.slot_base - o.slot_start)        # the analysis time
+    window = spb * (o.slot_end - o.slot_start)         # the window's end
+    sc = StreamedCycle(driver, member_batch=STREAMED_BATCH,
+                       tile_rows=STREAMED_ROWS)
+    t0 = time.perf_counter()
+    obs = obs_from_truth(sc, truth, template, nsteps, rng)
+    torch.cuda.synchronize()
+    obs_s = time.perf_counter() - t0
+    parts, _ = slot_parts(obs, cfg, dycfg.dt, nsteps)
+    store: dict = {}
+    record_analysis(sc, store)
+    launch = invsqrt_mod.invsqrt_ns_kernel
+    grams: dict = {}
+
+    def recording(a, areg, *args):
+        if not grams:
+            grams["a"], grams["areg"] = a.clone(), areg.clone()
+        return launch(a, areg, *args)
+
+    invsqrt_mod.invsqrt_ns_kernel = recording
+    rss0 = host_peak_gb()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    # handed over with no reference kept here, so that the cycle frees it
+    # once the guess exists
+    ens_rt = [ens_rt]
+    try:
+        out, _, rep = sc.cycle(ens_rt.pop(), obs, nsteps)
+        torch.cuda.synchronize()
+    finally:
+        invsqrt_mod.invsqrt_ns_kernel = launch
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    batches, tiles = rep["batches"], rep["letkf_tiles"]
+    fcst = 3 * window * batches
+    expected = {"invsqrt_ns": grid.nz * rep["letkf_chunks"]
+                * var_local_groups(cfg),
+                "dyn_tendency": fcst, "adv_ud3": fcst}
+    st_g, st_a = rep["stats_gues"], rep["stats_anal"]
+    omb_all, oma_all = rmse_of(st_g), rmse_of(st_a)
+    omb, oma = center_slot_rmse(sc, obs, cfg)
+    per_member_step = rep["fcst_s"] / (K * window)
+    finite = (all(bool(np.isfinite(f).all()) for f in out)
+              and bool(torch.isfinite(store["anal_mean"]).all()))
+    sg, sa = store["sprd_gues"], store["sprd_anal"]
+    row = {"phase": "streamed_cycle", "config": CONFIG.name,
+           "grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members": K,
+           "slots": cfg.obsope.slot_end - cfg.obsope.slot_start + 1,
+           "slot_base": cfg.obsope.slot_base,
+           "reduced": {"slot_tinterval_s": [3600.0, STREAMED_SLOT_S],
+                       "window_steps": [SHIPPED_WINDOW_STEPS, window]},
+           "analysis_step": nsteps, "window_steps": window,
+           "composition": "physics suite + Davies, flat",
+           "member_batch": STREAMED_BATCH, "batches": batches,
+           "tile_rows": rep["letkf_tile_rows"], "tiles": tiles,
+           "chunks": rep["letkf_chunks"], "generate_s": generate_s,
+           "obs_from_truth_s": obs_s, "wall_s": wall,
+           "phase_table": phase_table(rep).splitlines()[1:],
+           "timers": {k: v for k, v in rep.items()
+                      if isinstance(v, (int, float))},
+           "template_obs": int(template.nobs), "nobs": int(obs.nobs),
+           "obs_per_slot": {int(pt): int(n) for pt, _, _, n in parts},
+           "nobs_by_element": st_g.nobs,
+           "peak_mem_gb": peak, "incore_peak_gb": INCORE_PEAK_GB,
+           "host_peak_rss_gb_before": rss0,
+           "host_peak_rss_gb": host_peak_gb(), **transfers(rep),
+           "kernel_launches": launches, "expected_launches": expected,
+           "omb_rmse_all_slots": omb_all, "oma_rmse_all_slots": oma_all,
+           "omb_rmse": omb, "oma_rmse": oma,
+           "rmse_note": "omb_rmse / oma_rmse: the analysis-time slot's "
+                        "obs; all_slots: the whole window against the "
+                        "analysis-time mean (the 3-D monitor)",
+           "mean_spread_gues": sg, "mean_spread_anal": sa,
+           "s_per_member_step": per_member_step,
+           "fcst_full_window_extrapolated_s":
+               per_member_step * K * SHIPPED_WINDOW_STEPS,
+           "extrapolation": "fcst_s per member-step times K times the "
+                            "shipped window's 1080 steps; not measured",
+           "finite": finite}
+    emit(row)
+    if not finite:
+        raise AssertionError("the streamed cycle is not finite")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{expected}")
+    if not all(n in omb and oma[n] < omb[n] for n in ("T", "PS")):
+        raise AssertionError(f"O-A RMSE above O-B RMSE: {oma} vs {omb}")
+    if not all(sa[n] < sg[n] for n in ("T", "PRES")):
+        raise AssertionError("analysis spread not below guess spread")
+    if not peak < INCORE_PEAK_GB:
+        raise AssertionError(f"peak memory {peak:.2f} GiB")
+    del out
+    shared = {"cfg": cfg, "driver": driver, "anal0": anal0, "obs": obs,
+              "nsteps": nsteps, "store": store, "rep": rep,
+              "window": window}
+    return row, shared, (grams["a"], grams["areg"])
+
+
+def phase_resident_cycle(device, shared: dict):
+    """Phase streamed_cycle's inputs through ResidentCycle: the same
+    analysis-variable ensemble (float32 mean and bfloat16 deviations on
+    the card), driver, obs and window. Held to the streamed cycle by the
+    reference's yardstick (tests/test_resident.py): each member's H(x)
+    within 0.2 of the ensemble spread, O−B and O−A RMSE within 10%; the
+    analysis mean against the streamed one reported relative to the
+    analysis spread."""
+    from scale_letkf_torch.da.bigcycle import phase_table
+    from scale_letkf_torch.da.resident import ResidentCycle, ResidentEnsemble
+    from scale_letkf_torch.gpu_check import var_local_groups
+    from scale_letkf_torch.state import V3D_ANAL_NAMES
+    from scale_letkf_torch.utils import kernels
+    cfg, driver, obs = shared["cfg"], shared["driver"], shared["obs"]
+    nsteps, window, s_store = shared["nsteps"], shared["window"], \
+        shared["store"]
+    K = cfg.ensemble.member
+    t0 = time.perf_counter()
+    re = ResidentEnsemble.from_host_gues(shared.pop("anal0"), batch=5,
+                                         device=device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    dev_gb = re.dev.numel() * re.dev.element_size() / 1e9
+    rc = ResidentCycle(driver, member_batch=STREAMED_BATCH,
+                       tile_rows=STREAMED_ROWS)
+    store: dict = {}
+    record_analysis(rc, store)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rep = rc.cycle(re, obs, nsteps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    srep = shared["rep"]
+    fcst = 3 * window * rep["batches"]
+    expected = {"invsqrt_ns": driver.grid.nz * rep["letkf_chunks"]
+                * var_local_groups(cfg),
+                "dyn_tendency": fcst, "adv_ud3": fcst}
+    good = s_store["qc"] == 0
+    y_s, y_r = s_store["ensval"][:, good], store["ensval"][:, good]
+    sprd = y_s.std(axis=0)
+    hx_ratio = float(np.max((np.abs(y_r - y_s) - 1e-3) / np.maximum(
+        sprd[None], 1e-30)))
+    rmse = {}
+    for key in ("stats_gues", "stats_anal"):
+        rs, rr = rmse_of(srep[key]), rmse_of(rep[key])
+        rmse[key] = {n: [rs[n], rr[n], abs(rr[n] - rs[n]) / rs[n]]
+                     for n in rs}
+    # RMS over the domain of the difference of the analysis means over the
+    # RMS of the streamed analysis spread (None where the spread is zero)
+    sprd_rms = s_store["anal_sprd"].to(device).pow(2).mean(
+        dim=(1, 2, 3)).sqrt()
+    diff_rms = (re.mean - s_store["anal_mean"].to(device)).pow(2).mean(
+        dim=(1, 2, 3)).sqrt()
+    mean_vs_sprd = {n: (float(diff_rms[v] / sprd_rms[v])
+                        if float(sprd_rms[v]) > 0 else None)
+                    for v, n in enumerate(V3D_ANAL_NAMES)}
+    finite = bool(torch.isfinite(re.mean).all()) and bool(
+        torch.isfinite(re.dev.float()[:, :, 0]).all())
+    row = {"phase": "resident_cycle", "config": CONFIG.name,
+           "grid": f"{driver.grid.nx}x{driver.grid.ny}x{driver.grid.nz}",
+           "members": K, "window_steps": window, "analysis_step": nsteps,
+           "max_steps_per_call": rc.max_steps_per_call,
+           "bf16_deviations_gb": dev_gb, "from_host_gues_s": upload_s,
+           "wall_s": wall,
+           "phase_table": phase_table(rep).splitlines()[1:],
+           "timers": {k: v for k, v in rep.items()
+                      if isinstance(v, (int, float))},
+           "cycle_h2d_bytes": rep["h2d_bytes"],
+           "cycle_d2h_bytes": rep["d2h_bytes"],
+           "peak_mem_gb": peak, "kernel_launches": launches,
+           "expected_launches": expected,
+           "hx_diff_over_spread_max": hx_ratio,
+           "rmse_streamed_resident_rel": rmse,
+           "anal_mean_diff_rms_over_anal_spread_rms": mean_vs_sprd,
+           "finite": finite}
+    emit(row)
+    if not finite:
+        raise AssertionError("the resident cycle is not finite")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{expected}")
+    if not hx_ratio <= 0.2:
+        raise AssertionError(f"resident H(x) off the streamed one by "
+                             f"{hx_ratio} of the spread")
+    if not all(v[2] < 0.1 + 1e-3 / v[0] for r in rmse.values()
+               for v in r.values()):
+        raise AssertionError(f"O-B / O-A RMSE off by 10% or more: {rmse}")
+    del re
+    return row
+
+
+def phase_radar_cycle(device):
+    """configs/bda_1km_radar.toml as shipped (192×192×48, K = 50, Kessler,
+    RTPS 0.9, the 30-s window of 15 steps) through StreamedCycle, analysis
+    tiles of RADAR_ROWS rows: the radar forecast's rain-blob ensemble and a
+    nature member made on the card, synthetic_radar_volume at
+    RADAR_OBS_TARGET (~888k REF and VR obs) with its values from the
+    nature run (obs_from_truth, dBZ → linear Z, weak echoes relabelled)."""
+    from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
+    from scale_letkf_torch.da.bigcycle import StreamedCycle, phase_table
+    from scale_letkf_torch.gpu_check import (
+        RADAR_QR_BLOB, RADAR_STEPS, var_local_groups)
+    from scale_letkf_torch.synthetic import (
+        obs_from_truth, synthetic_ens_dycore_device, synthetic_radar_volume)
+    from scale_letkf_torch.utils import kernels
+    cfg, grid, dycfg, dom = load_config_and_grid(str(RADAR_CONFIG))
+    K = cfg.ensemble.member
+    t0 = time.perf_counter()
+    ens, _, _ = synthetic_ens_dycore_device(SEED, K, grid, dom, device,
+                                            u0=FCST_U0, qr_blob=RADAR_QR_BLOB)
+    nat, _, _ = synthetic_ens_dycore_device(SEED + 1, 1, grid, dom, device,
+                                            u0=FCST_U0, qr_blob=RADAR_QR_BLOB)
+    ens_host, truth = host_ensemble(ens), host_ensemble(nat)
+    del ens, nat
+    generate_s = time.perf_counter() - t0
+    driver = make_driver(cfg, grid, dycfg, dom, device)
+    sc = StreamedCycle(driver, member_batch=RADAR_BATCH, tile_rows=RADAR_ROWS)
+    rng = np.random.default_rng(SEED)
+    template = synthetic_radar_volume(cfg, dom, rng, RADAR_OBS_TARGET)
+    t0 = time.perf_counter()
+    obs = obs_from_truth(sc, truth, template, RADAR_STEPS, rng, radar=True,
+                         cfg=cfg)
+    torch.cuda.synchronize()
+    obs_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out, _, rep = sc.cycle(ens_host, obs, RADAR_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    batches, tiles = rep["batches"], rep["letkf_tiles"]
+    fcst = 3 * RADAR_STEPS * batches
+    expected = {"invsqrt_ns": grid.nz * rep["letkf_chunks"]
+                * var_local_groups(cfg),
+                "dyn_tendency": fcst, "adv_ud3": fcst}
+    st_g, st_a = rep["stats_gues"], rep["stats_anal"]
+    omb, oma = rmse_of(st_g), rmse_of(st_a)
+    finite = all(bool(np.isfinite(f).all()) for f in out)
+    row = {"phase": "radar_cycle", "config": RADAR_CONFIG.name,
+           "grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members": K,
+           "steps": RADAR_STEPS, "member_batch": RADAR_BATCH,
+           "batches": batches, "tile_rows": rep["letkf_tile_rows"],
+           "tiles": tiles, "chunks": rep["letkf_chunks"],
+           "generate_s": generate_s, "obs_from_truth_s": obs_s,
+           "wall_s": wall, "template_obs": int(template.nobs),
+           "nobs": int(obs.nobs),
+           "nobs_good": int(sum(st_g.nobs.values())),
+           "nobs_by_element": st_g.nobs,
+           "phase_table": phase_table(rep).splitlines()[1:],
+           "timers": {k: v for k, v in rep.items()
+                      if isinstance(v, (int, float))},
+           "peak_mem_gb": peak, "host_peak_rss_gb": host_peak_gb(),
+           **transfers(rep), "kernel_launches": launches,
+           "expected_launches": expected, "omb_rmse": omb, "oma_rmse": oma,
+           "finite": finite}
+    emit(row)
+    if not finite:
+        raise AssertionError("the radar cycle is not finite")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{expected}")
+    if not row["nobs"] >= 800_000:
+        raise AssertionError(f"{row['nobs']} radar obs, expected 800k")
+    if not ("REF" in omb and oma["REF"] < omb["REF"]):
+        raise AssertionError(f"O-A RMSE above O-B RMSE: {oma} vs {omb}")
+    return row
+
+
+def phase_executors_small(device):
+    """Coarsened copies of the executors and the cycle --streamed verb on
+    the card against the CPU (scale_letkf_torch/gpu_check.py)."""
+    from scale_letkf_torch.gpu_check import (
+        executors_check_passes, executors_vs_cpu)
+    res = executors_vs_cpu(device, str(CONFIG), SEED)
+    emit({"phase": "executors_small", **res})
+    if not executors_check_passes(res):
+        raise AssertionError(f"the executors on the GPU disagree with the "
+                             f"CPU: {res}")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the GPU smoke run cannot run here",
@@ -1873,6 +2372,17 @@ def main() -> int:
     phase_det_small(device)
     phase_jacobi(device)
     phase_h08_calibrate(device)
+    torch.cuda.empty_cache()
+    sc, shared, tile_grams = phase_streamed_cycle(device)
+    streamed_tile = check_invsqrt(*tile_grams, "streamed_real")
+    del tile_grams
+    torch.cuda.empty_cache()
+    rs = phase_resident_cycle(device, shared)
+    del shared
+    torch.cuda.empty_cache()
+    rd = phase_radar_cycle(device)
+    torch.cuda.empty_cache()
+    phase_executors_small(device)
     # the kernels line: launches and times of the deterministic cycle, this
     # slice's main path, which runs all three (times on its own operands,
     # phase det_real); launches_by_path: each path's own run, counts reset
@@ -1884,7 +2394,7 @@ def main() -> int:
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "bound_share")
     for name in KERNELS:
-        dc_rows[name]["launches"] = dc["kernel_launches"][name]
+        dc_rows[name]["launches"] = sc["kernel_launches"][name]
         dc_rows[name]["launches_by_path"] = {
             "forecast": fc["kernel_launches"].get(name, 0),
             "analysis": sl["kernel_launches"] if name == "invsqrt_ns" else 0,
@@ -1892,7 +2402,10 @@ def main() -> int:
             "physics_cycle": pc["kernel_launches"][name],
             "radar_forecast": rf["kernel_launches"].get(name, 0),
             "production_cycle": pr["kernel_launches"][name],
-            "det_cycle": dc["kernel_launches"][name]}
+            "det_cycle": dc["kernel_launches"][name],
+            "streamed_cycle": sc["kernel_launches"][name],
+            "resident_cycle": rs["kernel_launches"][name],
+            "radar_cycle": rd["kernel_launches"][name]}
         dc_rows[name]["physics_cycle"] = {k: pc_rows[name][k]
                                           for k in timing}
         dc_rows[name]["radar_grid"] = (
@@ -1901,13 +2414,17 @@ def main() -> int:
         dc_rows[name]["production_grams"] = (
             {"B": prod_real["B"], **{k: prod_real[k] for k in timing}}
             if name == "invsqrt_ns" else None)
+        dc_rows[name]["streamed_tile"] = (
+            {"B": streamed_tile["B"], **{k: streamed_tile[k]
+                                         for k in timing}}
+            if name == "invsqrt_ns" else None)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     # no single PyTorch call computes any of the three functions (no matrix
     # inverse square root, no such stencil), so library_ms is null
     keys = ("launches", "launches_by_path", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_fp32_ms", "bound_by", "bound_share",
             "gb_per_s", "tflops", "shapes", "physics_cycle", "radar_grid",
-            "production_grams")
+            "production_grams", "streamed_tile")
     emit({"kernels": [{"name": name, "route": "cuda",
                        "source": f"scale_letkf_torch/csrc/{name}.cu",
                        "replaces": REPLACES[name],

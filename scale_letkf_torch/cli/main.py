@@ -19,9 +19,10 @@ loads in the other. A deterministic member in the checkpoint (the 'mdet'
 file) is analysed by `letkf` and forecast and analysed every cycle by
 `cycle` (DET_RUN_CYCLED), and INFL_ADD > 0 reads its source ensemble from
 the INFL_ADD_IN_BASENAME files (`letkf --addi DIR`, else the guess or init
-directory). Not ported yet, each raising NotImplementedError that names its
-ROADMAP item: `cycle --streamed` (the full-size executors) and a [nest]
-section (nesting).
+directory). `cycle --streamed` runs the member-streamed executor
+(da/bigcycle.py: the ensemble in host memory, --member-batch, --tile-rows,
+--pipeline). Not ported yet, raising NotImplementedError that names its
+ROADMAP item: a [nest] section (nesting).
 """
 
 from __future__ import annotations
@@ -390,15 +391,45 @@ def cmd_fcst(args):
     print(driver.timer.report())
 
 
+def _cycle_streamed(args, cfg, dom, driver):
+    """cycle --streamed: the member-streamed executor (da/bigcycle.py),
+    the ensemble in host memory, the slab skin temperature resumed from
+    and saved to the checkpoint's aux."""
+    from scale_letkf_torch.da.bigcycle import StreamedCycle, phase_table
+    from scale_letkf_torch.io.checkpoint import (
+        load_det, load_ensemble, save_ensemble)
+    if ("nest" in dom or load_det(args.init) is not None
+            or cfg.letkf.infl_add > 0):
+        sys.exit("error: --streamed does not combine with [nest], "
+                 "DET_RUN, or additive inflation yet")
+    ens_host, aux, _ = load_ensemble(args.init)
+    sc = StreamedCycle(driver, member_batch=args.member_batch,
+                       tile_rows=args.tile_rows, pipeline=args.pipeline)
+    if "tsfc" in aux:
+        sc.tsfc_host = np.asarray(aux["tsfc"], np.float32)
+    infl = aux.get("infl")
+    for c in range(args.cycles):
+        obs = read_obs_files(cfg, [args.obs_pattern.format(cycle=c)])
+        ens_host, infl, rep = sc.cycle(ens_host, obs, args.steps_per_cycle,
+                                       infl_field=infl)
+        print(f"=== cycle {c} ===")
+        print(rep["stats_gues"].format("O-B"))
+        if "stats_anal" in rep:
+            print(rep["stats_anal"].format("O-A"))
+        print(phase_table(rep))
+    aux_out = {"infl": infl} if infl is not None else {}
+    if sc.tsfc_host is not None:
+        aux_out["tsfc"] = sc.tsfc_host
+    save_ensemble(args.out, ens_host, basename="anal.@@@@", aux=aux_out,
+                  meta={"cycles": args.cycles, "streamed": True})
+
+
 def cmd_cycle(args):
     from scale_letkf_torch.da.obsope import assign_slots
     from scale_letkf_torch.io.checkpoint import save_ensemble
-    if args.streamed:
-        raise NotImplementedError(
-            "cycle --streamed (the member-streamed executor, "
-            "da/bigcycle.py) is not ported yet (ROADMAP queue 1, the "
-            "full-size executors)")
     cfg, grid, dycfg, dom, driver, device = _setup(args)
+    if args.streamed:
+        return _cycle_streamed(args, cfg, dom, driver)
     if "nest" in dom or args.nest_init or args.nest_obs_pattern:
         raise NotImplementedError(
             "a [nest] section (one-way nesting, model/nesting.py, nested.py) "
@@ -535,7 +566,17 @@ def main(argv=None):
                    help="per-cycle child-domain obs path (nesting; not "
                         "ported, raises)")
     q.add_argument("--streamed", action="store_true",
-                   help="member-streamed executor (not ported; raises)")
+                   help="member-streamed executor (da/bigcycle.py): the "
+                        "ensemble in host memory, member batches and "
+                        "analysis row tiles through the device")
+    q.add_argument("--member-batch", type=int, default=5,
+                   help="--streamed: members per device batch (rounded "
+                        "down to a divisor of K)")
+    q.add_argument("--tile-rows", type=int, default=24,
+                   help="--streamed: row-tile height of the tiled analysis")
+    q.add_argument("--pipeline", action="store_true",
+                   help="--streamed: overlap the next batch's or tile's "
+                        "upload with the current one's work")
     _add_device(q)
     q.set_defaults(fn=cmd_cycle)
 

@@ -27,6 +27,7 @@ share of the free device memory (gridpoint_chunk).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -222,6 +223,150 @@ def _q_limits(plan: _Plan, anal_q, pert_q, mean_c):
         anal_q[0] = q_mean + q_pert * scale
 
 
+def chunk_for(plan: _Plan, ctx, B: int, K: int,
+              device: torch.device) -> int:
+    """gridpoint_chunk of a block of B gridpoints, from the widths of the
+    obs context's (host or device) candidate tables and of the selection
+    (max_nobs per ctype, the candidate width where unlimited)."""
+    cand_w = sum(candidate_width(ct.buckets) for ct in ctx.ctypes)
+    sel_w = sum(cp.max_nobs if cp.max_nobs > 0
+                else candidate_width(ct.buckets)
+                for cp, ct in zip(plan.ctypes, ctx.ctypes)) or 1
+    return gridpoint_chunk(B, cand_w, sel_w, K, device)
+
+
+def gridpoint_coords(grid: Grid, device: torch.device, dtype: torch.dtype):
+    """(gp_x, gp_y, dist_bdy), each (ny·nx,) in `dtype` on `device`: the
+    gridpoints' projection coordinates (the bucket-cell floor sees the same
+    float32 coordinates as the reference) and their distance to the
+    nearest lateral edge."""
+    ny, nx = grid.ny, grid.nx
+
+    def host(a):
+        return torch.as_tensor(np.ascontiguousarray(a).reshape(-1),
+                               dtype=dtype, device=device)
+
+    xs, ys = grid.xy
+    xx = np.broadcast_to(xs[None, :], (ny, nx))
+    yy = np.broadcast_to(ys[:, None], (ny, nx))
+    return host(xx), host(yy), host(
+        np.minimum(np.minimum(xx - xs[0], xs[-1] - xx),
+                   np.minimum(yy - ys[0], ys[-1] - yy)))
+
+
+class PointsResult(NamedTuple):
+    anal: torch.Tensor               # (K, nv, nz, B)
+    infl: torch.Tensor | None        # (nz, B) when adaptive
+    nobs: torch.Tensor               # (nz, B) int32 local obs counts
+    rtps: torch.Tensor | None        # (nv, nz, B) under RELAX_SPREAD_OUT
+    anal_det: torch.Tensor | None    # (nv, nz, B) with a det member
+    chunk: int                       # gridpoints per chunk
+
+
+def analyze_points(plan: _Plan, dctx: DeviceObsContext,
+                   members: torch.Tensor, mean: torch.Tensor | None,
+                   infl0: torch.Tensor, gp_x: torch.Tensor,
+                   gp_y: torch.Tensor, dist_bdy: torch.Tensor,
+                   z: torch.Tensor, *, det: torch.Tensor | None = None,
+                   timer: Timer | None = None) -> PointsResult:
+    """The LETKF update of a block of B gridpoints (any set: the whole
+    domain for `analyze`, a row tile for the tile executors), level by
+    level and, within a level, in chunks sized from the device memory
+    left once the outputs exist (chunk_for).
+
+    members (K, nv, nz, B): the ensemble when `mean` is None (its mean is
+    taken level by level), else its perturbations about `mean` (nv, nz, B).
+    infl0 and z (nz, B): the prior multiplicative inflation and the
+    heights; gp_x, gp_y, dist_bdy (B,): the gridpoints' coordinates
+    (gridpoint_coords); det (nv, nz, B): a deterministic member, analysed
+    with the transmd weights of dctx.depd.
+
+    Returns a PointsResult."""
+    K, nv, nz, B = members.shape
+    dtype, device = members.dtype, members.device
+    # preallocated and written chunk by chunk, so the peak is the input,
+    # this output and one chunk's working set; within a chunk the mean is
+    # added and the padding zeroed in place, on buffers nothing else holds
+    anal = torch.empty_like(members)
+    infl_out = infl0.clone() if plan.adaptive else None
+    nobs_out = torch.empty((nz, B), dtype=torch.int32, device=device)
+    rtps_out = (torch.ones((nv, nz, B), dtype=dtype, device=device)
+                if plan.relax_spread_out else None)
+    anal_det = None if det is None else torch.empty_like(det)
+    chunk = chunk_for(plan, dctx, B, K, device)
+    use_rtps = plan.relax_alpha == 0.0 and plan.relax_alpha_spread != 0.0
+
+    for lev in range(nz):
+        with maybe_section(timer, "level"):
+            g_l = members[:, :, lev]                    # (K, nv, B) view
+            mean_l = g_l.mean(dim=0) if mean is None else mean[:, lev]
+            logp_l = torch.log(torch.clamp(mean_l[IA_P], min=1e-3))
+        for b0 in range(0, B, chunk):
+            sl = slice(b0, min(B, b0 + chunk))
+            infl_c = infl0[lev, sl]
+            with maybe_section(timer, "select"):
+                if plan.boundary_buffer_width > 0:
+                    beta = relax_beta(dist_bdy[sl], z[lev, sl],
+                                      buffer_width=plan.boundary_buffer_width)
+                else:
+                    beta = torch.ones_like(infl_c)
+                idx, rloc0, rdiag0, widths = _select(
+                    plan, dctx, gp_x[sl], gp_y[sl], logp_l[sl], z[lev, sl])
+                nobs_out[lev, sl] = torch.sum(rloc0 > 0, dim=-1,
+                                              dtype=torch.int32)
+            with maybe_section(timer, "gather"):
+                dep_l, hdxb_l = gather_obs_data(idx, dctx.dep, dctx.hdxb)
+                depd_l = None if det is None else _gather(idx, dctx.depd)
+                del idx
+            mean_c = mean_l[:, sl]                                # (nv, Bc)
+            pert = (g_l[:, :, sl] if mean is not None
+                    else g_l[:, :, sl] - mean_c[None]).permute(1, 2, 0)
+            parm = infl_c if plan.relax_to_inflated_prior \
+                else torch.ones_like(infl_c)
+            anal_c = torch.empty_like(pert)
+            for gi, vidx in enumerate(plan.group_vars):
+                rloc_g, rdiag_g, dep_g, hdxb_g, depd_g = _group_inputs(
+                    plan.group_factors[gi], widths, rloc0, rdiag0, dep_l,
+                    hdxb_l, depd_l)
+                res = letkf_core(hdxb_g, rdiag_g, rloc_g, dep_g, infl_c,
+                                 rdiag_wloc=True,
+                                 infl_update=plan.adaptive and gi == 0,
+                                 depd=depd_g,
+                                 min_infl=max(plan.min_infl, 0.0),
+                                 solver=plan.solver, timer=timer)
+                del rloc_g, rdiag_g, dep_g, hdxb_g, depd_g
+                if gi == 0 and plan.adaptive:
+                    infl_out[lev, sl] = res.infl
+                with maybe_section(timer, "apply"):
+                    vi = list(vidx)
+                    pert_g = pert[vi]                             # (nvg,Bc,K)
+                    if use_rtps:
+                        # RTPS is per variable (xb = that variable's perts)
+                        trans_v, m_g = weight_rtps(
+                            res.trans, res.pao, pert_g, parm,
+                            plan.relax_alpha_spread)
+                        w_tot = total_weight(trans_v, res.transm, beta)
+                        upd = torch.einsum("vbk,vbkm->vbm", pert_g, w_tot)
+                        if rtps_out is not None:
+                            for j, v in enumerate(vi):
+                                rtps_out[v, lev, sl] = m_g[j]
+                    else:
+                        trans = (weight_rtpp(res.trans, parm, plan.relax_alpha)
+                                 if plan.relax_alpha != 0.0 else res.trans)
+                        w_tot = total_weight(trans, res.transm, beta)
+                        upd = torch.einsum("vbk,bkm->vbm", pert_g, w_tot)
+                    anal_c[vi] = upd.add_(mean_c[vi][..., None])
+                    if det is not None:
+                        # det + β·Σ_k Xb'_k transmd_k (letkf_tools.f90:489-497)
+                        incr = torch.einsum("vbk,bk->vb", pert_g, res.transmd)
+                        anal_det[vi, lev, sl] = (det[vi, lev, sl]
+                                                 + incr * beta[None])
+            with maybe_section(timer, "apply"):
+                _q_limits(plan, anal_c[IA_Q0:], pert[IA_Q0:], mean_c)
+                anal[:, :, lev, sl] = anal_c.permute(2, 0, 1)
+    return PointsResult(anal, infl_out, nobs_out, rtps_out, anal_det, chunk)
+
+
 @full_fp32()
 def analyze(
     gues: torch.Tensor,            # (K, NV3D, nz, ny, nx) analysis variables
@@ -272,113 +417,19 @@ def analyze(
     B = ny * nx
     plan = _make_plan(ctx, cfg, nv)
     dctx = obs_context_to_device(ctx, device, dtype)
-
-    def host(a):
-        return torch.as_tensor(np.ascontiguousarray(a).reshape(-1),
-                               dtype=dtype, device=device)
-
-    # gridpoint coordinates in projection space, in the analysis dtype (the
-    # bucket-cell floor sees the same float32 coordinates as the reference)
-    xs, ys = grid.xy
-    xx = np.broadcast_to(xs[None, :], (ny, nx))
-    yy = np.broadcast_to(ys[:, None], (ny, nx))
-    gp_x, gp_y = host(xx), host(yy)
-    dist_bdy = host(np.minimum(np.minimum(xx - xs[0], xs[-1] - xx),
-                               np.minimum(yy - ys[0], ys[-1] - yy)))
+    gp_x, gp_y, dist_bdy = gridpoint_coords(grid, device, dtype)
     z_zb = z_full.to(device=device, dtype=dtype).reshape(nz, B)
     if infl_field is None:
         infl0 = torch.full((nz, B), cfg.letkf.infl_mul, dtype=dtype,
                            device=device)
     else:
         infl0 = infl_field.to(device=device, dtype=dtype).reshape(nz, B)
-
     g = gues.reshape(K, nv, nz, B)
-    # preallocated and written chunk by chunk, so the peak is the guess, this
-    # output and one chunk's working set; within a chunk the mean is added
-    # and the padding zeroed in place, on buffers nothing else holds
-    anal = torch.empty_like(g)
-    infl_out = infl0.clone() if plan.adaptive else None
-    nobs_out = torch.empty((nz, B), dtype=torch.int32, device=device)
-    rtps_out = (torch.ones((nv, nz, B), dtype=dtype, device=device)
-                if plan.relax_spread_out else None)
     det = (None if gues_det is None
            else gues_det.to(device=device, dtype=dtype).reshape(nv, nz, B))
-    anal_det = None if det is None else torch.empty_like(det)
-
-    cand_w = sum(candidate_width(ct.buckets) for ct in ctx.ctypes)
-    sel_w = sum(cp.max_nobs if cp.max_nobs > 0
-                else candidate_width(ct.buckets)
-                for cp, ct in zip(plan.ctypes, ctx.ctypes)) or 1
-    chunk = gridpoint_chunk(B, cand_w, sel_w, K, device)
-    use_rtps = plan.relax_alpha == 0.0 and plan.relax_alpha_spread != 0.0
-
-    for lev in range(nz):
-        with maybe_section(timer, "level"):
-            g_l = g[:, :, lev]                          # (K, nv, B) view
-            mean_l = g_l.mean(dim=0)                    # (nv, B)
-            logp_l = torch.log(torch.clamp(mean_l[IA_P], min=1e-3))
-        for b0 in range(0, B, chunk):
-            sl = slice(b0, min(B, b0 + chunk))
-            infl_c = infl0[lev, sl]
-            with maybe_section(timer, "select"):
-                if plan.boundary_buffer_width > 0:
-                    beta = relax_beta(dist_bdy[sl], z_zb[lev, sl],
-                                      buffer_width=plan.boundary_buffer_width)
-                else:
-                    beta = torch.ones_like(infl_c)
-                idx, rloc0, rdiag0, widths = _select(
-                    plan, dctx, gp_x[sl], gp_y[sl], logp_l[sl], z_zb[lev, sl])
-                nobs_out[lev, sl] = torch.sum(rloc0 > 0, dim=-1,
-                                              dtype=torch.int32)
-            with maybe_section(timer, "gather"):
-                dep_l, hdxb_l = gather_obs_data(idx, dctx.dep, dctx.hdxb)
-                depd_l = None if det is None else _gather(idx, dctx.depd)
-                del idx
-            mean_c = mean_l[:, sl]                                # (nv, Bc)
-            pert = (g_l[:, :, sl] - mean_c[None]).permute(1, 2, 0)  # (nv,Bc,K)
-            parm = infl_c if plan.relax_to_inflated_prior \
-                else torch.ones_like(infl_c)
-            anal_c = torch.empty_like(pert)
-            for gi, vidx in enumerate(plan.group_vars):
-                rloc_g, rdiag_g, dep_g, hdxb_g, depd_g = _group_inputs(
-                    plan.group_factors[gi], widths, rloc0, rdiag0, dep_l,
-                    hdxb_l, depd_l)
-                res = letkf_core(hdxb_g, rdiag_g, rloc_g, dep_g, infl_c,
-                                 rdiag_wloc=True,
-                                 infl_update=plan.adaptive and gi == 0,
-                                 depd=depd_g,
-                                 min_infl=max(plan.min_infl, 0.0),
-                                 solver=plan.solver, timer=timer)
-                del rloc_g, rdiag_g, dep_g, hdxb_g, depd_g
-                if gi == 0 and plan.adaptive:
-                    infl_out[lev, sl] = res.infl
-                with maybe_section(timer, "apply"):
-                    vi = list(vidx)
-                    pert_g = pert[vi]                             # (nvg,Bc,K)
-                    if use_rtps:
-                        # RTPS is per variable (xb = that variable's perts)
-                        trans_v, m_g = weight_rtps(
-                            res.trans, res.pao, pert_g, parm,
-                            plan.relax_alpha_spread)
-                        w_tot = total_weight(trans_v, res.transm, beta)
-                        upd = torch.einsum("vbk,vbkm->vbm", pert_g, w_tot)
-                        if rtps_out is not None:
-                            for j, v in enumerate(vi):
-                                rtps_out[v, lev, sl] = m_g[j]
-                    else:
-                        trans = (weight_rtpp(res.trans, parm, plan.relax_alpha)
-                                 if plan.relax_alpha != 0.0 else res.trans)
-                        w_tot = total_weight(trans, res.transm, beta)
-                        upd = torch.einsum("vbk,bkm->vbm", pert_g, w_tot)
-                    anal_c[vi] = upd.add_(mean_c[vi][..., None])
-                    if det is not None:
-                        # det + β·Σ_k Xb'_k transmd_k (letkf_tools.f90:489-497)
-                        incr = torch.einsum("vbk,bk->vb", pert_g, res.transmd)
-                        anal_det[vi, lev, sl] = (det[vi, lev, sl]
-                                                 + incr * beta[None])
-            with maybe_section(timer, "apply"):
-                _q_limits(plan, anal_c[IA_Q0:], pert[IA_Q0:], mean_c)
-                anal[:, :, lev, sl] = anal_c.permute(2, 0, 1)
+    anal, infl_out, nobs_out, rtps_out, anal_det, chunk = analyze_points(
+        plan, dctx, g, None, infl0, gp_x, gp_y, dist_bdy, z_zb, det=det,
+        timer=timer)
 
     anal = anal.reshape(K, nv, nz, ny, nx)
     if cfg.letkf.infl_add > 0:

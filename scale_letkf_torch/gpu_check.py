@@ -1615,3 +1615,358 @@ def det_check_passes(res: dict) -> bool:
             and verbs["det_moved"]
             and all(e <= 1 for e in verbs["max_err_over_tol"].values())
             and lv["letkf.cpu"] == lv["cycle.cpu"] == 0)
+
+
+# --- the full-size executors -------------------------------------------------
+# Coarsened copies of the streamed, tiled and resident executors and of the
+# cycle --streamed verb, each on the card and twice on the CPU (the second
+# from inputs perturbed by one rounding, where a forecast is in the path).
+# Bounds per analysis variable and element: 1e-4·max|Δ| + 2 ulp of max|x|,
+# plus twice the CPU's own rounding floor, plus one bfloat16 spacing of the
+# analysis perturbation x′ (≤ 2⁻⁷·|x′|), which the tiles carry in bfloat16
+# and a last-bit difference may round the other way. K = MEMBERS (20), so
+# the analysis solver is the CUDA kernel on the card.
+EXEC_ROWS = 8
+EXEC_BATCH = 10
+EXEC_STEPS = 2
+EXEC_CALL = 1            # ResidentCycle's max_steps_per_call, below the steps
+EXEC_SLOTS = {"slot_start": 1, "slot_end": 3, "slot_base": 2}
+
+
+def _vars_over_tol(out, out_cpu, base, alt=None, pert=None) -> dict:
+    """Per analysis variable of (K, NV3D, ...) arrays: the worst |Δ − Δ_cpu|
+    over its bound — 1e-4·max|Δ_cpu| + 2 ulp of max|base|, + 2·max|alt −
+    out_cpu| (alt: the rounded CPU run), + 2⁻⁷·|pert| per element."""
+    err = {}
+    for v, name in enumerate(V3D_ANAL_NAMES):
+        a, b, f0 = out[:, v], out_cpu[:, v], base[:, v]
+        tol = (1e-4 * np.abs(b - f0).max()
+               + 2 * np.spacing(np.float32(np.abs(f0).max()))
+               + (0.0 if alt is None else 2 * np.abs(alt[:, v] - b).max()))
+        if pert is not None:
+            tol = tol + 2.0 ** -7 * np.abs(pert[:, v])
+        err[name] = float(np.max(np.abs(a - b) / np.maximum(tol, 1e-30)))
+    return err
+
+
+def _launches(before: dict) -> dict:
+    return {k: kernels.LAUNCHES[k] - before[k] for k in KERNELS}
+
+
+def tiled_vs_cpu(device: torch.device, config: str, seed: int = 0) -> dict:
+    """analyze_tiled (plain and pipelined) of coarse_analysis_vs_cpu's
+    inputs in tiles of EXEC_ROWS rows on `device` against the CPU: the
+    worst error over its bound per variable, whether the pipelined stream
+    equals the plain one bit for bit, and the solver's launches (levels ×
+    chunks over all tiles × var-local groups on the card)."""
+    from scale_letkf_torch.da.letkf_tiled import analyze_tiled
+    cfg, grid, _, _ = load_config_and_grid(config, COARSE)
+    cfg.ensemble.member = K = MEMBERS
+    rng = np.random.default_rng(seed)
+    gues = synthetic_gues(rng, K, grid.nz, grid.ny, grid.nx, grid.cz)
+    obs = synthetic_conv_network(cfg, grid, rng, n_sonde=30, n_ps=60)
+    ensval = (obs.dat[None] + rng.standard_normal((K, obs.nobs))
+              * obs.err[None]).astype(np.float32)
+    ctx = build_obs_context(obs, ensval, np.zeros(obs.nobs, np.int32), cfg,
+                            grid)
+    z = grid.calc_z(torch.zeros((grid.ny, grid.nx))).numpy()
+    out, launches, stats = {}, {}, {}
+    for key, dev, pipe in (("device", device, False),
+                           ("device_pipelined", device, True),
+                           ("cpu", torch.device("cpu"), False)):
+        before = dict(kernels.LAUNCHES)
+        out[key], _, stats[key] = analyze_tiled(
+            gues, ctx, cfg, grid, z, tile_rows=EXEC_ROWS, pipeline=pipe,
+            device=dev)
+        launches[key] = _launches(before)["invsqrt_ns"]
+    pert = out["cpu"] - out["cpu"].mean(axis=0)
+    tiles = stats["device"]["tiles"]
+    return {"grid": "{nx}x{ny}x{nz}".format(**COARSE), "members": K,
+            "tiles": tiles, "tile_rows": stats["device"]["tile_rows"],
+            "kernel_launches": launches,
+            "expected_launches": grid.nz * stats["device"]["chunks"]
+            * var_local_groups(cfg),
+            "pipeline_bit_equal": bool(np.array_equal(
+                out["device"], out["device_pipelined"])),
+            "finite": bool(np.isfinite(out["device"]).all()),
+            "max_err_over_tol": {
+                **_vars_over_tol(out["device"], out["cpu"], gues, pert=pert),
+                **{f"pipelined.{k}": v for k, v in _vars_over_tol(
+                    out["device_pipelined"], out["cpu"], gues,
+                    pert=pert).items()}}}
+
+
+def _exec_case(config: str, seed: int, topo: bool, slots: bool):
+    """(cfg, grid, dycfg, dom, ensemble, obs) of the coarsened 18-km
+    executors' runs: COARSE_FCST with K = MEMBERS, the physics suite,
+    Davies forcing (3-cell buffer); a nature member's obsmake of the
+    synthetic conventional network, spread over EXEC_SLOTS' three slots
+    (two steps apart) with `slots`."""
+    from scale_letkf_torch.da.obsmake import obsmake
+    from scale_letkf_torch.model.dycore import to_collocated
+    cfg, grid, dycfg, dom = load_config_and_grid(config, COARSE_FCST)
+    cfg.ensemble.member = K = MEMBERS
+    dom = {**dom, "physics": PHYS_PROD, "bdy_width": 3}
+    if slots:
+        for k, v in EXEC_SLOTS.items():
+            setattr(cfg.obsope, k, v)
+        cfg.obsope.slot_tinterval = 2 * dycfg.dt
+    else:
+        cfg.obsope.slot_end = cfg.obsope.slot_start
+    cpu = torch.device("cpu")
+    ens, _, _ = synthetic_ens_dycore_device(seed, K + 1, grid, dom, cpu,
+                                            u0=10.0, amp_theta=2.0,
+                                            rh_max=PROD_RH_MAX)
+    nat = type(ens)(*(f[0] for f in ens))
+    ens = type(ens)(*(f[1:].numpy() for f in ens))
+    topo_t = torch.as_tensor(hills(grid.ny, grid.nx) if topo
+                             else np.zeros((grid.ny, grid.nx)),
+                             dtype=torch.float32)
+    z_full = grid.calc_z(topo_t)
+    tmpl = synthetic_conv_network(cfg, grid, np.random.default_rng(seed),
+                                  n_sonde=40, n_ps=80)
+    obs = obsmake(state_to_history(state_trans(to_collocated(nat)), z_full,
+                                   topo_t),
+                  tmpl, grid, cfg, z_full, np.random.default_rng(seed + 1))
+    if slots:
+        times = (np.arange(1, 4) - 2) * 2 * dycfg.dt
+        obs.dif = np.random.default_rng(seed + 2).choice(times, obs.nobs)
+    return cfg, grid, dycfg, dom, ens, obs
+
+
+def _exec_driver(cfg, grid, dycfg, dom, device, topo: bool, per_member: bool):
+    from scale_letkf_torch.cli.main import make_driver
+    from scale_letkf_torch.cycle import CycleDriver
+    flat = make_driver(cfg, grid, dycfg, dom, device)
+    d = CycleDriver(grid, cfg, dycfg, flat.rho_ref, flat.p_ref,
+                    topo=hills(grid.ny, grid.nx) if topo else None,
+                    phys_cfg=flat.phys_cfg, core=flat.core,
+                    n_small=flat.n_small,
+                    bdy=(per_member_boundary(grid, dom, MEMBERS, device)
+                         if per_member else base_boundary(grid, dom,
+                                                          device)),
+                    bdy_width=dom["bdy_width"], bdy_tau=dom["bdy_tau"])
+    return d
+
+
+def _rounded_np(a, gen):
+    return (a * (1.0 + 2.0 ** -24 * gen.standard_normal(a.shape))).astype(
+        np.float32)
+
+
+def streamed_vs_cpu(device: torch.device, config: str,
+                    seed: int = 0) -> dict:
+    """StreamedCycle with terrain (gpu_check.hills), the physics suite,
+    per-member Davies forcing and a 3-slot 4-D window (EXEC_STEPS to the
+    analysis, the window to 2·EXEC_STEPS) on `device` and twice on the
+    CPU: the guess and the analysis per variable, the skin temperature,
+    H(x) (max over its range), QC equal, and the launches (the terrain
+    tendency is plain PyTorch, so only the solver launches)."""
+    from scale_letkf_torch.da.bigcycle import StreamedCycle
+    from scale_letkf_torch.state import IA_T
+    cfg, grid, dycfg, dom, ens, obs = _exec_case(config, seed, True, True)
+    gen = np.random.default_rng(seed + 5)
+    alt = type(ens)(*(_rounded_np(f, gen) for f in ens))
+    runs = {}
+    for key, dev, e in (("device", device, ens),
+                        ("cpu", torch.device("cpu"), ens),
+                        ("cpu_rounded", torch.device("cpu"), alt)):
+        d = _exec_driver(cfg, grid, dycfg, dom, dev, True, True)
+        sc = StreamedCycle(d, member_batch=EXEC_BATCH, tile_rows=EXEC_ROWS)
+        before = dict(kernels.LAUNCHES)
+        gues, ensval, qc, t = sc.forecast_and_hx(e, EXEC_STEPS, obs)
+        g0 = gues.copy()
+        anal, _, _, st = sc.analysis(gues, obs, ensval, qc)
+        runs[key] = {"gues": g0, "anal": anal, "ensval": ensval, "qc": qc,
+                     "tsfc": sc.tsfc_host, "launches": _launches(before),
+                     "tiles": st["letkf_tiles"], "chunks": st["letkf_chunks"],
+                     "batches": t["batches"]}
+    dv, cp, rd = runs["device"], runs["cpu"], runs["cpu_rounded"]
+    base = state_trans(dycore.to_collocated(dycore.DycoreState(
+        *(torch.from_numpy(f) for f in ens)))).numpy()
+    err = {f"gues.{k}": v for k, v in _vars_over_tol(
+        dv["gues"], cp["gues"], base, rd["gues"]).items()}
+    err.update({f"anal.{k}": v for k, v in _vars_over_tol(
+        dv["anal"], cp["anal"], base, rd["anal"],
+        cp["anal"] - cp["anal"].mean(axis=0)).items()})
+    good = cp["qc"] == 0
+    y, y_c, y_r = (r["ensval"][:, good] for r in (dv, cp, rd))
+    err["hx"] = float(np.abs(y - y_c).max() / (
+        2e-5 * np.ptp(y_c) + 2 * np.abs(y_r - y_c).max()))
+    cold = base[:, IA_T, 0]
+    err["tsfc"] = float(np.abs(dv["tsfc"] - cp["tsfc"]).max() / (
+        1e-4 * np.abs(cp["tsfc"] - cold).max()
+        + 2 * np.abs(rd["tsfc"] - cp["tsfc"]).max()))
+    return {"grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members": MEMBERS,
+            "steps": EXEC_STEPS, "slots": 3, "nobs": int(obs.nobs),
+            "batches": dv["batches"], "tiles": dv["tiles"],
+            "kernel_launches": {k: runs[k]["launches"]
+                                for k in ("device", "cpu")},
+            "expected_launches": {
+                "invsqrt_ns": grid.nz * dv["chunks"] * var_local_groups(cfg),
+                "dyn_tendency": 0, "adv_ud3": 0},
+            "qc_equal": bool(np.array_equal(dv["qc"], cp["qc"])),
+            "finite": bool(np.isfinite(dv["anal"]).all()),
+            "max_err_over_tol": err}
+
+
+def resident_vs_cpu(device: torch.device, config: str,
+                    seed: int = 0) -> dict:
+    """ResidentCycle over flat ground with the physics suite and shared
+    Davies forcing, EXEC_STEPS steps in calls of EXEC_CALL (a segment
+    boundary inside the window), on `device` and twice on the CPU: the
+    analysis members per variable, the skin temperature, the per-obs O−B
+    and O−A (within 2e-5 of their range, twice the floor, and one
+    bfloat16 spacing of the members' H(x) perturbations, which the stored
+    deviations carry), and the launches of all three kernels."""
+    from scale_letkf_torch.da.resident import ResidentCycle, ResidentEnsemble
+    from scale_letkf_torch.state import IA_T
+    cfg, grid, dycfg, dom, ens, obs = _exec_case(config, seed, False, False)
+    base = state_trans(dycore.to_collocated(dycore.DycoreState(
+        *(torch.from_numpy(f) for f in ens)))).numpy()
+    gen = np.random.default_rng(seed + 6)
+    runs = {}
+    for key, dev, a0 in (("device", device, base),
+                         ("cpu", torch.device("cpu"), base),
+                         ("cpu_rounded", torch.device("cpu"),
+                          _rounded_np(base, gen))):
+        d = _exec_driver(cfg, grid, dycfg, dom, dev, False, False)
+        rc = ResidentCycle(d, member_batch=EXEC_BATCH, tile_rows=EXEC_ROWS,
+                           max_steps_per_call=EXEC_CALL)
+        re = ResidentEnsemble.from_host_gues(a0, device=dev)
+        before = dict(kernels.LAUNCHES)
+        rep = rc.cycle(re, obs, EXEC_STEPS)
+        runs[key] = {"anal": re.to_host_gues(), "tsfc": re.tsfc.cpu().numpy(),
+                     "dep": rc.last_ctx.dep, "oma": rc.last_oma,
+                     "hdxb": rc.last_ctx.hdxb,
+                     "qc": rc.last_ctx.qc, "launches": _launches(before),
+                     "batches": rep["batches"], "tiles": rep["letkf_tiles"],
+                     "chunks": rep["letkf_chunks"],
+                     "h2d_bytes": rep["h2d_bytes"],
+                     "d2h_bytes": rep["d2h_bytes"]}
+    dv, cp, rd = runs["device"], runs["cpu"], runs["cpu_rounded"]
+    err = _vars_over_tol(dv["anal"], cp["anal"], base, rd["anal"],
+                         cp["anal"] - cp["anal"].mean(axis=0))
+    good = cp["qc"] == 0
+    # a flip of one bfloat16 rounding in each member's stored deviation
+    # moves the mean's H(x) by at most 2⁻⁷ of the largest member H(x)
+    # perturbation, per obs
+    flip = 2.0 ** -7 * np.abs(cp["hdxb"][good]).max(axis=1)
+    for k in ("dep", "oma"):
+        a, b, c = (r[k][good] for r in (dv, cp, rd))
+        err[k] = float(np.max(np.abs(a - b) / (
+            2e-5 * np.ptp(b) + 2 * np.abs(c - b).max() + flip)))
+    cold = base[:, IA_T, 0]
+    err["tsfc"] = float(np.abs(dv["tsfc"] - cp["tsfc"]).max() / (
+        1e-4 * np.abs(cp["tsfc"] - cold).max()
+        + 2 * np.abs(rd["tsfc"] - cp["tsfc"]).max()))
+    fcst = 3 * EXEC_STEPS * dv["batches"]
+    return {"grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members": MEMBERS,
+            "steps": EXEC_STEPS, "max_steps_per_call": EXEC_CALL,
+            "batches": dv["batches"], "tiles": dv["tiles"],
+            "kernel_launches": {k: runs[k]["launches"]
+                                for k in ("device", "cpu")},
+            "expected_launches": {
+                "invsqrt_ns": grid.nz * dv["chunks"] * var_local_groups(cfg),
+                "dyn_tendency": fcst, "adv_ud3": fcst},
+            "h2d_bytes": dv["h2d_bytes"], "d2h_bytes": dv["d2h_bytes"],
+            "qc_equal": bool(np.array_equal(dv["qc"], cp["qc"])),
+            "finite": bool(np.isfinite(dv["anal"]).all()),
+            "max_err_over_tol": err}
+
+
+STREAMED_VERB_CONFIG = DET_VERB_CONFIG.replace(
+    "infl_add = 0.1\ninfl_add_shuffle = true\n", "")
+
+
+def streamed_verb_vs_cpu(device: torch.device, seed: int = 0) -> dict:
+    """The cycle --streamed verb (--member-batch 5, --tile-rows 4, 1 cycle
+    of DET_VERB_STEPS steps) on DET_VERB_CONFIG's small checkpoint without
+    its member and additive inflation, with --device on `device` and on
+    the CPU, and on the CPU from an init perturbed by one rounding: per
+    restart field, the worst |Δ| over 1e-4·max|Δ|·(1 + 2·floor) plus one
+    bfloat16 spacing (2⁻⁷) of the field's largest member perturbation;
+    the solver's launches."""
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+    from scale_letkf_torch.cli.main import main
+    from scale_letkf_torch.da.obsmake import make_obs_network
+    from scale_letkf_torch.grid import Grid
+    from scale_letkf_torch.io import checkpoint
+    from scale_letkf_torch.obs import io as obsio
+    K = 20
+    grid = Grid.uniform(nx=16, ny=12, nz=8, dx=2000.0, dy=2000.0, dz=500.0)
+    members = _verb_members(K + 1, seed, grid)
+    ens0 = dycore.DycoreState(*(np.stack(f) for f in zip(*members[:K])))
+    gen = np.random.default_rng(seed)
+    launches, outs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = Path(tmp)
+        (t / "exp.toml").write_text(STREAMED_VERB_CONFIG)
+        checkpoint.save_ensemble(t / "init", ens0, basename="anal.@@@@")
+        checkpoint.save_ensemble(t / "init_rounded", dycore.DycoreState(
+            *(_rounded_np(f, gen) for f in ens0)), basename="anal.@@@@")
+        checkpoint.save_member(t / "nature.npz", members[K])
+        obsio.write_obs(str(t / "template.dat"), make_obs_network(
+            grid, np.random.default_rng(seed), n_profiles=15,
+            levels_hpa=(900.0, 800.0)))
+        cfg = ["--config", str(t / "exp.toml")]
+        with contextlib.redirect_stdout(io.StringIO()):
+            main(["obsmake", *cfg, "--nature", str(t / "nature.npz"),
+                  "--obs-template", str(t / "template.dat"), "--out",
+                  str(t / "obs.dat"), "--seed", "5", "--device", "cpu"])
+        for key, dev, init in (("device", str(device), "init"),
+                               ("cpu", "cpu", "init"),
+                               ("cpu_rounded", "cpu", "init_rounded")):
+            before = dict(kernels.LAUNCHES)
+            with contextlib.redirect_stdout(io.StringIO()):
+                main(["cycle", *cfg, "--init", str(t / init), "--cycles",
+                      "1", "--steps-per-cycle", str(DET_VERB_STEPS),
+                      "--obs-pattern", str(t / "obs.dat"), "--out",
+                      str(t / key), "--streamed", "--member-batch", "5",
+                      "--tile-rows", "4", "--device", dev])
+            launches[key] = _launches(before)
+            outs[key] = checkpoint.load_ensemble(t / key)
+    err = {}
+    for i, name in enumerate(dycore.DycoreState._fields):
+        a, b, c, f0 = (outs["device"][0][i], outs["cpu"][0][i],
+                       outs["cpu_rounded"][0][i], ens0[i])
+        tol = (1e-4 * np.abs(b - f0).max() * (1 + 2 * np.abs(c - b).max()
+                                              / (1e-4 * np.abs(b - f0).max()))
+               + 2.0 ** -7 * np.abs(b - b.mean(axis=0)).max())
+        err[name] = float(np.abs(a - b).max() / tol)
+    return {"grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members": K,
+            "steps": DET_VERB_STEPS,
+            "kernel_launches": {k: launches[k] for k in ("device", "cpu")},
+            "meta": outs["device"][2], "max_err_over_tol": err}
+
+
+def executors_vs_cpu(device: torch.device, config: str,
+                     seed: int = 0) -> dict:
+    """The four executor checks above, on `device` against the CPU."""
+    return {"tiled": tiled_vs_cpu(device, config, seed),
+            "streamed": streamed_vs_cpu(device, config, seed),
+            "resident": resident_vs_cpu(device, config, seed),
+            "verb": streamed_verb_vs_cpu(device, seed)}
+
+
+def executors_check_passes(res: dict) -> bool:
+    """Whether executors_vs_cpu passes: every error within its bound, QC
+    equal, finite, the pipelined tiles equal to the plain ones, each
+    kernel launched on the card as expected and never on the CPU."""
+    ok = all(e <= 1 for r in res.values()
+             for e in r["max_err_over_tol"].values())
+    t, s, r, v = (res[k] for k in ("tiled", "streamed", "resident", "verb"))
+    ok = ok and t["finite"] and s["finite"] and r["finite"]
+    ok = ok and s["qc_equal"] and r["qc_equal"] and t["pipeline_bit_equal"]
+    ok = ok and (t["kernel_launches"]["device"]
+                 == t["kernel_launches"]["device_pipelined"]
+                 == t["expected_launches"]) and t["kernel_launches"]["cpu"] == 0
+    for x in (s, r):
+        ok = ok and x["kernel_launches"]["device"] == x["expected_launches"]
+        ok = ok and not any(x["kernel_launches"]["cpu"].values())
+    ok = ok and v["kernel_launches"]["device"]["invsqrt_ns"] > 0
+    ok = ok and not any(v["kernel_launches"]["cpu"].values())
+    return ok and v["meta"] == {"cycles": 1, "streamed": True}

@@ -309,3 +309,82 @@ def synthetic_h08_network(cfg, grid, spacing: int = 8,
                     jj.size),
         typ=np.full(n, OBTYPE_NAMES.index("H08IRB"), np.int32),
         dif=np.zeros(n))
+
+
+def synthetic_radar_volume(cfg, dom: dict, rng: np.random.Generator,
+                           n_obs_target: int = 1_000_000) -> Observations:
+    """A synthetic phased-array radar volume (the reference bench's
+    _synthetic_radar_volume): 120 azimuths × 55 elevations (1–25°) × range
+    gates from 2 to 58 km around the [domain] radar, the gates below 15 km
+    height, each a reflectivity and a Doppler-velocity obs (n_obs_target
+    1e6 gives ~888k obs). dat holds plausible linear-Z and velocity noise;
+    obs_from_truth overwrites it with H(nature)."""
+    from scale_letkf_torch.obs.types import (
+        ID_RADAR_REF, ID_RADAR_VR, TYP_PHARAD,
+    )
+    radar_lon = dom.get("radar_lon", 135.5)
+    radar_lat = dom.get("radar_lat", 34.8)
+    n_az, n_el = 120, 55
+    n_gate = max(1, n_obs_target // (n_az * n_el * 2))
+    az = np.linspace(0, 360, n_az, endpoint=False)
+    el = np.linspace(1.0, 25.0, n_el)
+    r = np.linspace(2e3, 58e3, n_gate)
+    azg, elg, rg = np.meshgrid(az, el, r, indexing="ij")
+    azr = np.deg2rad(azg).ravel()
+    elr = np.deg2rad(elg).ravel()
+    rr = rg.ravel()
+    gx = rr * np.cos(elr) * np.sin(azr)
+    gy = rr * np.cos(elr) * np.cos(azr)
+    gz = dom.get("radar_z", 80.0) + rr * np.sin(elr)
+    # metres per degree about the radar: enough for a synthetic volume
+    lon = radar_lon + gx / (111e3 * np.cos(np.deg2rad(radar_lat)))
+    lat = radar_lat + gy / 111e3
+    keep = gz < 15e3
+    n2 = int(keep.sum())
+    elem = np.empty(2 * n2, np.int32)
+    elem[0::2] = ID_RADAR_REF
+    elem[1::2] = ID_RADAR_VR
+
+    def dup(a):
+        return np.repeat(a[keep], 2)
+
+    dat = np.empty(2 * n2)
+    dat[0::2] = 10.0 ** (np.clip(
+        20.0 + 15.0 * smooth_noise(rng, (n2,), 0), 5.0, 55.0) / 10.0)
+    dat[1::2] = 5.0 * rng.standard_normal(n2)
+    err = np.where(elem == ID_RADAR_REF, cfg.obs_error.radar_ref,
+                   cfg.obs_error.radar_vr)
+    return Observations(
+        elem=elem, lon=dup(lon), lat=dup(lat), lev=dup(gz), dat=dat,
+        err=err, typ=np.full(2 * n2, TYP_PHARAD, np.int32),
+        dif=np.zeros(2 * n2),
+        meta=np.asarray([radar_lon, radar_lat, dom.get("radar_z", 80.0)]))
+
+
+def obs_from_truth(sc, truth_1, obs: Observations, nsteps: int,
+                   rng: np.random.Generator, radar: bool = False,
+                   cfg=None) -> Observations:
+    """obs with their values H(nature) plus noise at the obs error (the
+    reference bench's _obs_from_truth): truth_1, a one-member DycoreState of
+    host arrays, goes through a one-member StreamedCycle on sc's driver (its
+    own executor, so the nature run's slab does not seed the ensemble's),
+    each obs against the nature state at its slot. Obs whose operator QC
+    failed are dropped; with `radar`, reflectivity returns to the files'
+    linear Z and the gates below the echo floor (QC_REF_LOW) become weak
+    echoes at half of cfg.radar.min_radar_ref."""
+    from scale_letkf_torch.da.bigcycle import StreamedCycle
+    from scale_letkf_torch.obs.types import ID_RADAR_REF, QC_GOOD, QC_REF_LOW
+    one = StreamedCycle(sc.d, member_batch=1, tile_rows=sc.tile_rows,
+                        verbose=sc.verbose)
+    _, y, qc, _ = one.forecast_and_hx(truth_1, nsteps, obs)
+    y = y[0]
+    keep = (qc == QC_GOOD) | (radar & (qc == QC_REF_LOW))
+    obs = obs.select(keep)
+    yk = y[keep] + rng.standard_normal(int(keep.sum())) * obs.err
+    if radar:
+        m = obs.elem == ID_RADAR_REF
+        yk[m] = 10.0 ** (yk[m] / 10.0)          # dBZ → linear Z
+        low = m & (qc[keep] == QC_REF_LOW)
+        yk[low] = 0.5 * cfg.radar.min_radar_ref
+    obs.dat = yk
+    return obs

@@ -237,6 +237,28 @@ INFL_ADD_CONFIG = CONFIG.replace(
     "infl_mul = 1.1", "infl_mul = 1.1\ninfl_add = 0.1\ninfl_add_shuffle = true")
 
 
+def _init_rounded_to(tmp, dst):
+    """The init checkpoint perturbed by one rounding (the port's floor)."""
+    init, _, _ = checkpoint.load_ensemble(tmp / "init")
+    rng = np.random.default_rng(6)
+    checkpoint.save_ensemble(dst, DycoreState(*(
+        (f * (1.0 + 2.0 ** -24 * rng.standard_normal(f.shape))).astype(
+            np.float32) for f in init)), basename="anal.@@@@")
+    return init
+
+
+def _streamed_close(got, got2, init, ref):
+    """The streamed cycle's restart against the reference's: the restart
+    increments bound plus twice the port's floor (got2: the run from the
+    rounded init) plus one bfloat16 spacing, 2⁻⁷, of the field's largest
+    member perturbation (the analysis tiles carry the perturbations in
+    bfloat16, and a last-bit difference may flip a rounding)."""
+    floor = {n: 2 * float(np.abs(a - b).max())
+             + 2.0 ** -7 * float(np.abs(r - r.mean(axis=0)).max())
+             for n, a, b, r in zip(DycoreState._fields, got, got2, ref)}
+    assert_increments(got, init, ref, extra=floor)
+
+
 @pytest.mark.parametrize("case,item", [
     ("streamed", "full-size executors"),
     ("nest", "nesting"),
@@ -244,10 +266,12 @@ INFL_ADD_CONFIG = CONFIG.replace(
     ("infl_add", "da/inflation.py"),
 ])
 def test_cycle_unported_options_raise(exp, tmp_path, case, item):
-    """--streamed and a [nest] section raise, naming their ROADMAP item; a
-    deterministic member in the init checkpoint (DET_RUN_CYCLED) and
-    INFL_ADD (shuffled, from the init's addi files) run, and one cycle of
-    one step matches the reference's verb, the member saved as 'mdet'."""
+    """A [nest] section raises, naming its ROADMAP item; --streamed (the
+    member-streamed executor), a deterministic member in the init
+    checkpoint (DET_RUN_CYCLED) and INFL_ADD (shuffled, from the init's
+    addi files) run, and one cycle of one step matches the reference's
+    verb (the member saved as 'mdet'; the streamed run's meta and aux as
+    the reference's)."""
     tmp, _, _ = exp
     cfg_text, init, extra = CONFIG, str(tmp / "init"), []
     if case == "streamed":
@@ -263,15 +287,27 @@ def test_cycle_unported_options_raise(exp, tmp_path, case, item):
     args = ["cycle", "--config", str(tmp_path / "exp.toml"), "--init", init,
             "--cycles", "1", "--steps-per-cycle", "1", "--obs-pattern",
             str(tmp / "ref_obs.dat")]
-    if case in ("streamed", "nest"):
+    if case == "nest":
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             main([*args, "--out", str(tmp_path / "out"), "--device", "cpu",
                   *extra])
         return
-    run(ref_main, *args, "--out", str(tmp_path / "ref"))
-    run(main, *args, "--out", str(tmp_path / "port"), "--device", "cpu")
-    ref, _, _ = ref_ckpt.load_ensemble(tmp_path / "ref")
-    got, _, _ = checkpoint.load_ensemble(tmp_path / "port")
+    run(ref_main, *args, "--out", str(tmp_path / "ref"), *extra)
+    out = run(main, *args, "--out", str(tmp_path / "port"), "--device",
+              "cpu", *extra)
+    ref, aux_r, meta_r = ref_ckpt.load_ensemble(tmp_path / "ref")
+    got, aux, meta = checkpoint.load_ensemble(tmp_path / "port")
+    if case == "streamed":
+        assert meta == meta_r == {"cycles": 1, "streamed": True}
+        assert sorted(aux) == sorted(aux_r)
+        assert "DAS_LETKF" in out and "O-A" in out
+        ens = _init_rounded_to(tmp, tmp_path / "init_rounded")
+        run(main, *[a if a != init else str(tmp_path / "init_rounded")
+                    for a in args], "--out", str(tmp_path / "port2"),
+            "--device", "cpu", *extra)
+        got2, _, _ = checkpoint.load_ensemble(tmp_path / "port2")
+        _streamed_close(got, got2, ens, ref)
+        return
     assert_increments(got, ens, ref)
     det0 = checkpoint.load_det(init)
     det, det_r = (checkpoint.load_det(tmp_path / d) for d in ("port", "ref"))
@@ -310,28 +346,73 @@ def test_letkf_verbs_agree_with_det_and_addi(exp, tmp_path):
     ("cycle", "--member-batch=5"), ("cycle", "--tile-rows=24"),
     ("cycle", "--pipeline"), ("letkf", "--seed=0"),
 ])
-def test_options_of_unported_paths_are_refused(exp, tmp_path, capsys, verb,
-                                               flag):
-    """The streamed executor's options are not accepted until its path is
-    ported: argparse refuses them. letkf's --seed (INFL_ADD_SHUFFLE's
-    generator) is accepted: with INFL_ADD 0 it changes nothing."""
+def test_options_of_unported_paths_are_refused(exp, tmp_path, monkeypatch,
+                                               verb, flag):
+    """The streamed executor's options are accepted and act: the member
+    batch is the largest divisor of K not above the request, the analysis
+    takes the requested tile height (its largest divisor of ny), and the
+    pipelined stream equals the plain one; none changes the numbers.
+    letkf's --seed (INFL_ADD_SHUFFLE's generator) is accepted: with
+    INFL_ADD 0 it changes nothing."""
+    from scale_letkf_torch.da import bigcycle, letkf_tiled
     tmp, cfg, _ = exp
     common = [*cfg, "--obs" if verb == "letkf" else "--obs-pattern",
               str(tmp / "ref_obs.dat"), "--device", "cpu"]
-    args = (["letkf", *common, "--gues", str(tmp / "init"), "--anal",
-             str(tmp_path / "a")] if verb == "letkf" else
-            ["cycle", *common, "--init", str(tmp / "init"), "--cycles", "1",
-             "--steps-per-cycle", "1", "--out", str(tmp_path / "o")])
     if verb == "letkf":
+        args = ["letkf", *common, "--gues", str(tmp / "init"), "--anal",
+                str(tmp_path / "a")]
         run(main, *args, flag)
         got, _, _ = checkpoint.load_ensemble(tmp_path / "a")
         want, _, _ = checkpoint.load_ensemble(tmp / "port_anal")
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)
         return
-    with pytest.raises(SystemExit):
-        main([*args, flag])
-    assert f"unrecognized arguments: {flag}" in capsys.readouterr().err
+    seen = {"batch": [], "rows": [], "pipeline": []}
+    batch_of, rows_of, tiled = (bigcycle.batch_of, letkf_tiled.tile_rows_of,
+                                letkf_tiled.analyze_tiled)
+
+    def spy_batch(K, req):
+        seen["batch"].append((K, req, batch_of(K, req)))
+        return seen["batch"][-1][2]
+
+    def spy_rows(ny, req):
+        seen["rows"].append((ny, req, rows_of(ny, req)))
+        return seen["rows"][-1][2]
+
+    def spy_tiled(*a, **kw):
+        seen["pipeline"].append(kw["pipeline"])
+        return tiled(*a, **kw)
+
+    monkeypatch.setattr(bigcycle, "batch_of", spy_batch)
+    monkeypatch.setattr(letkf_tiled, "tile_rows_of", spy_rows)
+    monkeypatch.setattr(bigcycle, "analyze_tiled", spy_tiled)
+
+    def cycle(out, *extra):
+        for v in seen.values():
+            v.clear()
+        stdout = run(main, "cycle", *common, "--init", str(tmp / "init"),
+                     "--cycles", "1", "--steps-per-cycle", "1", "--out",
+                     str(tmp_path / out), "--streamed", *extra)
+        return checkpoint.load_ensemble(tmp_path / out)[0], stdout
+
+    want, _ = cycle("plain")
+    got, stdout = cycle("o", flag)
+    name, _, value = flag.partition("=")
+    if name == "--member-batch":
+        assert seen["batch"][0] == (K, 5, 4)
+        got2, _ = cycle("o2", "--member-batch=3")
+        assert seen["batch"][0] == (K, 3, 2)
+    elif name == "--tile-rows":
+        assert seen["rows"] == [(12, 24, 12)]
+        got2, _ = cycle("o2", "--tile-rows=5")
+        assert seen["rows"] == [(12, 5, 4)]
+    else:
+        assert seen["pipeline"] == [True]
+        assert "letkf compute (est)" in stdout
+        got2 = got
+    for a, b, c in zip(got, got2, want):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, c)
 
 
 def test_verbs_need_a_gpu_by_default(exp, tmp_path):

@@ -10,8 +10,9 @@ card, and the analysis, the forecast, the DA cycle, the ensemble H(x)
 (4-D, radar and H08), the physics, the terrain dynamics, the pp step's
 smoothing, the coarsened production cycle, the analysis with a
 deterministic member and additive inflation, the letkf and cycle verbs
-with them, the Jacobi eigensolver and EFSO on the card against the same
-runs on the CPU (which the parity tests hold against the reference
+with them, the Jacobi eigensolver, EFSO and the full-size executors
+(coarsened: the tiled, streamed and resident cycles and cycle --streamed)
+on the card against the same runs on the CPU (which the parity tests hold against the reference
 package).
 Stencil bounds per field, relative to max|plain|: 2e-5 for the whole
 tendency, 1e-5 for the tracers (the reference's bounds for its Pallas
@@ -383,4 +384,46 @@ def test_cuda_efso_matches_cpu(cuda_device):
     CPU's (the convolutions pinned to full FP32)."""
     res = gpu_check.coarse_efso_vs_cpu(cuda_device, CONFIG)
     assert res["finite"]
+    assert all(e <= 1 for e in res["max_err_over_tol"].values()), res
+
+
+# --- the full-size executors, coarsened ------------------------------------
+@pytest.mark.cuda
+def test_cuda_tiled_analysis_matches_cpu(cuda_device):
+    """analyze_tiled, plain and pipelined, on the card against the CPU:
+    per variable within 1e-4·max|Δ| + 2 ulp + one bfloat16 spacing of the
+    analysis perturbation; the pipelined tiles equal to the plain ones;
+    the solver launched per level and tile on the card only."""
+    res = gpu_check.tiled_vs_cpu(cuda_device, CONFIG)
+    launches = res["kernel_launches"]
+    assert res["finite"] and res["pipeline_bit_equal"], res
+    assert launches["device"] == launches["device_pipelined"] \
+        == res["expected_launches"] and launches["cpu"] == 0, res
+    assert all(e <= 1 for e in res["max_err_over_tol"].values()), res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["streamed", "resident"])
+def test_cuda_cycle_executors_match_cpu(cuda_device, name):
+    """StreamedCycle (terrain, physics, per-member Davies, 4-D slots) and
+    ResidentCycle (physics, Davies, a segment boundary inside the window)
+    on the card against the CPU, with the CPU's own rounding floor; the
+    kernels launched as expected on the card and never on the CPU."""
+    fn = {"streamed": gpu_check.streamed_vs_cpu,
+          "resident": gpu_check.resident_vs_cpu}[name]
+    res = fn(cuda_device, CONFIG)
+    assert res["finite"] and res["qc_equal"], res
+    assert res["kernel_launches"]["device"] == res["expected_launches"], res
+    assert not any(res["kernel_launches"]["cpu"].values()), res
+    assert all(e <= 1 for e in res["max_err_over_tol"].values()), res
+
+
+@pytest.mark.cuda
+def test_cuda_streamed_verb_matches_cpu(cuda_device):
+    """cycle --streamed with --device cuda against --device cpu on the
+    same files."""
+    res = gpu_check.streamed_verb_vs_cpu(cuda_device)
+    assert res["meta"] == {"cycles": 1, "streamed": True}
+    assert res["kernel_launches"]["device"]["invsqrt_ns"] > 0, res
+    assert not any(res["kernel_launches"]["cpu"].values()), res
     assert all(e <= 1 for e in res["max_err_over_tol"].values()), res

@@ -28,7 +28,8 @@ def test_every_module_imports_without_jax():
               "model.boundary", "model.terrain", "model.topo", "obs.h08",
               "ops.eigh_jacobi", "da.inflation", "da.efso",
               "obs.h08_calibrate", "obs.decoders", "obs.superob",
-              "obs.precip", "cycle",
+              "obs.precip", "cycle", "da.letkf_tiled", "da.bigcycle",
+              "da.resident", "utils.staging",
               "io.checkpoint", "io.convert", "cli.main", "synthetic",
               "gpu_check", "__main__"):
         assert f"scale_letkf_torch.{m}" in mods, m
@@ -73,6 +74,7 @@ def test_every_module_imports_without_the_jax_package():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['scale_letkf_tpu'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
@@ -102,5 +104,6 @@ def test_no_jax_package_import_statements():
     paths = [*(ROOT / "scale_letkf_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
     for path in paths:
         for mod in _imported_modules(path):
-            assert mod.split(".")[0] not in ("jax", "scale_letkf_tpu"), \
+            assert mod.split(".")[0] not in ("jax", "scale_letkf_tpu",
+                                             "ml_dtypes"), \
                 (path, mod)
