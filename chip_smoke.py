@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the three hand-written CUDA kernels from scale_letkf_torch/csrc,
-checks each against its plain PyTorch version, and drives the port's
-paths once each at full size: at the size of the 18-km Japan configuration
-(configs/18km_japan.toml, unchanged: 480×360×36 stretched levels, K = 50)
+checks each against its plain PyTorch version (the stencil kernels in both
+lateral modes), and drives the port's paths once each at full size: at
+the size of the 18-km Japan configuration (configs/18km_japan.toml,
+unchanged: 480×360×36 stretched levels, K = 50)
 the ensemble forecast (split-explicit core, dt 30 s, 10 acoustic substeps,
 2 steps), the LETKF analysis (the synthetic conventional network of ~24k
 obs), the DA cycle that joins them (CycleDriver.run_osse) and the physics
@@ -26,12 +27,16 @@ the radar configuration's forecast (configs/bda_1km_radar.toml, unchanged:
                       and against float64 eigh on a few of them
   4. tendency       — dyn_tendency kernel vs plain on random states at
                       480×360×36, batch 4, uniform and 18-km metrics,
-                      divdmp 0 and 0.05; then at the ragged and tiny
-                      shapes of gpu_check.RAGGED_SHAPES (both metrics,
-                      divdmp 0/0.05, kdiff4 0/1e-3)
+                      divdmp 0 and 0.05; the same in the open lateral mode
+                      with kdiff4 0 and 1e-3, each row with the kernel's
+                      times in both modes on the same operands; then at
+                      the ragged and tiny shapes of gpu_check.RAGGED_SHAPES
+                      (both metrics, divdmp 0/0.05, kdiff4 0/1e-3), both
+                      lateral modes
   5. stencil        — adv_ud3 kernel vs plain on all 6 tracers of the same
-                      states, kdiff4 0 and 1e-3; then at the ragged shapes
-                      with 1 and 6 tracers
+                      states, kdiff4 0 and 1e-3, both lateral modes (the
+                      open rows with both modes' times); then at the ragged
+                      shapes with 1 and 6 tracers, both modes
   6. forecast       — synthetic restart ensemble made on the card →
                       make_driver → CycleDriver.forecast (2 steps), with
                       timer sections, member batch, peak memory, kernel
@@ -180,6 +185,40 @@ the radar configuration's forecast (configs/bda_1km_radar.toml, unchanged:
                       StreamedCycle (terrain, physics, per-member Davies,
                       4-D slots), ResidentCycle and the cycle --streamed
                       verb on the card against the CPU
+ 35. nested_cycle   — the main path of the nesting slice: the 18-km
+                      configuration as phase 12 composes it (the parent,
+                      K = 50) and a 240 × 240 × 36 child of 6-km cells at
+                      (i0, j0) = (200, 140) with open lateral boundaries
+                      (SI core, dt 10 s, Davies over 10 cells at 120 s)
+                      through NestedCycleDriver, one cycle of 6 parent and
+                      18 child steps; the child's ensemble parent_to_child
+                      of the parent's, its 700 sondes valued from
+                      parent_to_child of the nature run. Sections of both
+                      domains (the bracket's interpolation under
+                      nest_bracket), launches of each stage (#2 and #3 in
+                      the open mode in the child), peak memory (< 80 GB),
+                      O−B / O−A for T and PS in both domains (O−A below);
+                      then the same child forecast with bdy_width 0: the
+                      forced ring's ρ, ρθ and horizontal momentum must each
+                      be nearer parent_to_child of the parent's forecast
+ 36. nested_real    — #2 and #3 vs plain in the open mode on one child
+                      launch's operands (both modes' times), #1 on the
+                      child's first Grams
+ 37. fused_radar_cycle — configs/bda_1km_radar.toml as shipped through
+                      FusedCycle.run_osse, 2 cycles of its 15-step window:
+                      the radar cycle's blob ensemble and nature member,
+                      the synthetic PAWR volume (888,000 gates) valued from
+                      the nature run and preprocessed to dBZ, every gate in
+                      the buckets; per cycle seconds, obs used, O−B / O−A
+                      for REF (O−A below) and Vr; launches, peak, chunk,
+                      and the synchronising calls of the run under
+                      torch.cuda.set_sync_debug_mode('warn'), by site,
+                      beside phase 33's seconds
+ 38. nested_small   — the cycle verb with a [nest] section (the child
+                      open) at tests/test_cli_nested.py's size on the card
+                      against the CPU
+ 39. fused_small    — one FusedCycle step of the coarsened radar
+                      configuration on the card against the CPU
 
 Each phase prints one JSON line; any failed check raises, so the script
 exits non-zero. Every kernel-vs-plain check runs the kernel twice and holds
@@ -187,16 +226,17 @@ both runs to the bound (invsqrt_ns, which has no atomics, must also give
 bit-identical runs). Kernel and plain versions are timed with CUDA events,
 in turns (plain, kernel, kernel, plain), after a warm-up. The line before
 the last lists every kernel: route, source, the TPU kernel it replaces,
-its launches in phase 30, the main path, which runs all three (each path's
-own beside them under launches_by_path, counts reset before each — the
-production cycle's: #1 only), its error and time against the plain
-version on phase 24's operands (phase 25; #1 on phase 30's tile under
+its launches in phase 35, this slice's main path, which runs all three
+(each path's own beside them under launches_by_path, counts reset before
+each — the production cycle's: #1 only), its error and time against the
+plain version on phase 24's operands (phase 25; #1 on phase 30's tile under
 `streamed_tile`; for the stencil kernels the mean
 over the two batch sizes weighted by their launches, so launches × ms is
 the kernel's time in the cycle, each size under `shapes`; the physics
 cycle's times under `physics_cycle`, the radar grid's under `radar_grid`,
-#1 on the production cycle's Grams under `production_grams`), and its
-bound:
+#1 on the production cycle's Grams under `production_grams`, each kernel
+on the nested child's operands under `child_grid` — #2 and #3 in the open
+mode, with both modes' times), and its bound:
 the larger of the bytes it must move over 3.35 TB/s and its operations
 over the rate of the units that do them, computed from those operands —
 67 TFLOP/s FP32 for the stencils, and for invsqrt_ns's 3xTF32 tensor-core
@@ -1591,14 +1631,15 @@ def random_dyn_state(gen, B: int, nz: int, ny: int, nx: int, device):
 
 def stencil_operands(s, rho_ref, p_ref, vg, dycfg, divdmp=None):
     """The two kernels' operands as dycore.tendencies forms them: p′ in plain
-    torch, the metric per level."""
+    torch, the metric per level, the lateral mode last."""
     from scale_letkf_torch.model.dycore import mixing_ratios, moist_pressure
     p_pert = moist_pressure(s.rhot, mixing_ratios(s)) - p_ref
     dyn = (s.rho, s.rhou, s.rhov, s.rhow, s.rhot, p_pert, rho_ref, vg.dzc,
            vg.dzf, dycfg.dx, dycfg.dy, dycfg.kdiff4,
-           dycfg.divdmp if divdmp is None else divdmp, dycfg.dt)
+           dycfg.divdmp if divdmp is None else divdmp, dycfg.dt,
+           dycfg.lateral)
     adv = (s.rhoq, s.rho, s.rhou, s.rhov, s.rhow, vg.dzc, dycfg.dx,
-           dycfg.dy, dycfg.kdiff4)
+           dycfg.dy, dycfg.kdiff4, dycfg.lateral)
     return dyn, adv
 
 
@@ -1699,15 +1740,59 @@ def check_adv(args, label) -> dict:
 
 def phase_ragged(device, kernel: str, phase: str):
     """One stencil kernel against its plain version at the ragged and tiny
-    shapes of gpu_check.RAGGED_SHAPES."""
+    shapes of gpu_check.RAGGED_SHAPES, in both lateral modes."""
     from scale_letkf_torch.gpu_check import ragged_kernels_vs_plain
-    rows = ragged_kernels_vs_plain(device, kernel)
+    rows = [row for lateral in ("periodic", "open")
+            for row in ragged_kernels_vs_plain(device, kernel,
+                                               lateral=lateral)]
     for row in rows:
         emit({"phase": phase, **row})
     bad = [r for r in rows if not (r["finite"] and r["rel_err"] <= r["tol"])]
     if bad:
         raise AssertionError(f"{kernel} disagrees with its plain version at "
                              f"ragged shapes: {bad}")
+
+
+def mode_turns(kernel, args) -> dict:
+    """The kernel on one operand tuple in the open mode and, the same
+    operands, in the periodic mode, timed in turns (periodic, open, open,
+    periodic) with CUDA events."""
+    periodic = args[:-1] + ("periodic",)
+    t = timed_turns(lambda: kernel(*args), lambda: kernel(*periodic))
+    return {"open_ms": t["ms"], "periodic_ms": t["plain_ms"],
+            "open_ms_runs": t["ms_runs"],
+            "periodic_ms_runs": t["plain_ms_runs"],
+            "open_over_periodic": t["ms"] / t["plain_ms"]}
+
+
+def open_rows(device, s, rho_ref, p_ref, phase: str) -> None:
+    """Kernel `phase` (tendency: #2, stencil: #3) in the open lateral mode
+    against its plain version at 480×360×36 on the random states s, both
+    metrics, kdiff4 0 and 1e-3 (and divdmp 0 and 0.05 for #2), each row
+    with the kernel's times in both modes side by side (mode_turns)."""
+    import dataclasses
+
+    from scale_letkf_torch.ops.stencil import adv_flux_divergence_kernel
+    from scale_letkf_torch.ops.tendency import dyn_tendencies_kernel
+    dycfg, vgs, grid = metrics_18km(device)
+    for metric, vg in vgs.items():
+        for kdiff4 in (0.0, 1e-3):
+            cfg = dataclasses.replace(dycfg, kdiff4=kdiff4, lateral="open")
+            cases = ((0.0, 0.05) if phase == "tendency" else (None,))
+            for divdmp in cases:
+                dyn, adv = stencil_operands(s, rho_ref, p_ref, vg, cfg,
+                                            divdmp)
+                label = f"open, {metric}, divdmp {divdmp}, kdiff4 {kdiff4}"
+                if phase == "tendency":
+                    row = check_dyn(dyn, label)
+                    row.update(mode_turns(dyn_tendencies_kernel, dyn))
+                else:
+                    row = check_adv(adv, label)
+                    row.update(mode_turns(adv_flux_divergence_kernel, adv))
+                emit({"phase": phase, "lateral": "open", "metric": metric,
+                      "divdmp": divdmp, "kdiff4": kdiff4,
+                      "batch": STENCIL_BATCH,
+                      "grid": f"{grid.nx}x{grid.ny}x{grid.nz}", **row})
 
 
 def metrics_18km(device):
@@ -1731,23 +1816,27 @@ def phase_tendency(device):
         for divdmp in (0.0, 0.05):
             dyn, _ = stencil_operands(s, rho_ref, p_ref, vg, dycfg, divdmp)
             row = check_dyn(dyn, f"{metric}, divdmp {divdmp}")
-            emit({"phase": "tendency", "metric": metric, "divdmp": divdmp,
+            emit({"phase": "tendency", "lateral": "periodic",
+                  "metric": metric, "divdmp": divdmp,
                   "batch": STENCIL_BATCH,
                   "grid": f"{grid.nx}x{grid.ny}x{grid.nz}", **row})
+    open_rows(device, s, rho_ref, p_ref, "tendency")
     phase_ragged(device, "dyn_tendency", "tendency")
-    return s
+    return s, rho_ref, p_ref
 
 
-def phase_stencil(device, s):
+def phase_stencil(device, s, rho_ref, p_ref):
     dycfg, vgs, grid = metrics_18km(device)
     for metric, vg in vgs.items():
         for kdiff4 in (0.0, dycfg.kdiff4):
             args = (s.rhoq, s.rho, s.rhou, s.rhov, s.rhow, vg.dzc, dycfg.dx,
                     dycfg.dy, kdiff4)
             row = check_adv(args, f"{metric}, kdiff4 {kdiff4}")
-            emit({"phase": "stencil", "metric": metric, "kdiff4": kdiff4,
+            emit({"phase": "stencil", "lateral": "periodic",
+                  "metric": metric, "kdiff4": kdiff4,
                   "batch": STENCIL_BATCH, "tracers": int(s.rhoq.shape[1]),
                   "grid": f"{grid.nx}x{grid.ny}x{grid.nz}", **row})
+    open_rows(device, s, rho_ref, p_ref, "stencil")
     phase_ragged(device, "adv_ud3", "stencil")
 
 
@@ -2308,6 +2397,390 @@ def phase_executors_small(device):
 
 
 
+# --- one-way nesting and the fused radar cycle -----------------------------
+# The nested cycle's child: ratio 3 (6-km cells), 240 × 240 cells from the
+# parent's fractional (i0, j0) = (200, 140), on the parent's 36 stretched
+# levels (so the vertical step of parent_to_child is the identity), the SI
+# core with 10 acoustic substeps at dt 10 s — 18 steps span the parent's 6
+# steps of 30 s — open lateral boundaries and Davies relaxation over 10
+# cells at 120 s; 700 sondes (and the generator's 2,000 PS reports) on the
+# child grid, valued from parent_to_child of the nature run. The window is
+# 3 minutes, not the 1 minute of the `cycle` phase's 2 steps: over 1 minute
+# the linear-in-time bracket misses the parent's fast adjustment of these
+# synthetic states (the parent at 30 s lies as far from the bracket's
+# midpoint as the whole change), and relaxing toward it pulled the ring's
+# ρ and ρθ further from the parent than the unforced child (PERF.md §6,
+# PR 10); by 3 minutes the open boundary's own drift outweighs that.
+NEST_PARENT_STEPS = 6
+NEST_I0, NEST_J0, NEST_RATIO = 200.0, 140.0, 3
+NEST_NX = NEST_NY = 240
+NEST_DT = 10.0
+NEST_N_SMALL = 10
+NEST_STEPS = 18
+NEST_BDY_WIDTH = 10
+NEST_BDY_TAU = 120.0
+NEST_SONDES = 700
+FUSED_CYCLES = 2
+
+
+def nest_child(cfg, grid, dycfg, dom, device, bdy_width=NEST_BDY_WIDTH):
+    """The nested cycle's child driver (NEST_* above), composed directly:
+    make_nested would build an explicit-core child on uniform levels."""
+    import dataclasses
+
+    from scale_letkf_torch.cli.main import make_driver
+    from scale_letkf_torch.grid import Grid
+    cgrid = Grid(nx=NEST_NX, ny=NEST_NY, nz=grid.nz, dx=grid.dx / NEST_RATIO,
+                 dy=grid.dy / NEST_RATIO, cz=grid.cz, fz=grid.fz,
+                 proj=grid.proj)
+    cdycfg = dataclasses.replace(dycfg, dx=cgrid.dx, dy=cgrid.dy, dt=NEST_DT,
+                                 lateral="open")
+    cdom = {**dom, "core": "si", "n_small": NEST_N_SMALL,
+            "bdy_width": bdy_width, "bdy_tau": NEST_BDY_TAU}
+    return make_driver(cfg, cgrid, cdycfg, cdom, device)
+
+
+def ring_rms(state, target, width: int) -> dict:
+    """RMS of state − target over the outer `width` cells of every member
+    and level: of ρ, ρu, ρv, ρθ, and of the horizontal momentum vector
+    (ρu, ρv)."""
+    ny, nx = state.rho.shape[-2:]
+    j = torch.arange(ny, device=state.rho.device)[:, None]
+    i = torch.arange(nx, device=state.rho.device)[None, :]
+    ring = torch.minimum(torch.minimum(j, ny - 1 - j),
+                         torch.minimum(i, nx - 1 - i)) < width
+    sq = {n: ((getattr(state, n) - getattr(target, n))[..., ring] ** 2)
+          for n in ("rho", "rhou", "rhov", "rhot")}
+    out = {n: float(torch.sqrt(v.mean())) for n, v in sq.items()}
+    out["momentum"] = float(torch.sqrt((sq["rhou"] + sq["rhov"]).mean()))
+    return out
+
+
+def phase_nested_cycle(device):
+    """The nested cycle at full width: the 18-km configuration as phase
+    `cycle` composes it (the parent) and the 240 × 240 × 36 open child
+    (nest_child) through NestedCycleDriver, one cycle of NEST_PARENT_STEPS
+    parent steps;
+    the parent's ensemble and nature run as phase cycle's, the child's
+    ensemble parent_to_child of the parent's. Then the same child forecast
+    with bdy_width 0 from the same start: the forced ring's ρ, ρθ and
+    horizontal momentum must each be nearer the parent's forecast
+    (parent_to_child) than the unforced one's (ring_rms). Returns
+    the row and the operands of one child launch of each kernel."""
+    from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
+    from scale_letkf_torch.da.obsmake import obsmake
+    from scale_letkf_torch.gpu_check import fused_launches
+    from scale_letkf_torch.model.dycore import to_collocated
+    from scale_letkf_torch.model.nesting import NestGeometry
+    from scale_letkf_torch.nested import NestedCycleDriver
+    from scale_letkf_torch.ops import invsqrt as invsqrt_mod
+    from scale_letkf_torch.state import state_to_history, state_trans
+    from scale_letkf_torch.synthetic import (
+        synthetic_conv_network, synthetic_ens_dycore_device)
+    from scale_letkf_torch.utils import kernels
+
+    cfg, grid, dycfg, dom = load_config_and_grid(str(CONFIG))
+    K = cfg.ensemble.member
+    t0 = time.perf_counter()
+    kw = {"u0": FCST_U0, "amp_theta": CYCLE_AMP_THETA,
+          "smooth_passes": CYCLE_SMOOTH_PASSES}
+    p_ens, _, _ = synthetic_ens_dycore_device(SEED, K, grid, dom, device,
+                                              **kw)
+    nat, _, _ = synthetic_ens_dycore_device(SEED + 1, 1, grid, dom, device,
+                                            **kw)
+    truth = type(nat)(*(f[0] for f in nat))
+    del nat
+    parent = make_driver(cfg, grid, dycfg, dom, device)
+    child = nest_child(cfg, grid, dycfg, dom, device)
+    geom = NestGeometry(i0=NEST_I0, j0=NEST_J0, ratio=NEST_RATIO)
+    nest = NestedCycleDriver(parent, child, geom)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    c_ens = nest.p2c(p_ens)
+    torch.cuda.synchronize()
+    init_interp_s = time.perf_counter() - t1
+    c_start = type(c_ens)(*(f.cpu() for f in c_ens))  # the unforced rerun's
+    generate_s = time.perf_counter() - t0
+
+    # nature run and obs of both domains
+    truth = parent.forecast_one(truth, NEST_PARENT_STEPS)
+    p_tmpl = synthetic_conv_network(cfg, grid, np.random.default_rng(SEED))
+    p_obs = obsmake(state_to_history(state_trans(to_collocated(truth)),
+                                     parent.z_full, parent.topo),
+                    p_tmpl, grid, cfg, parent.z_full,
+                    np.random.default_rng(SEED))
+    c_tmpl = synthetic_conv_network(cfg, child.grid,
+                                    np.random.default_rng(SEED + 1),
+                                    n_sonde=NEST_SONDES)
+    c_obs = obsmake(state_to_history(state_trans(to_collocated(
+        nest.p2c(truth))), child.z_full, child.topo), c_tmpl, child.grid,
+        cfg, child.z_full, np.random.default_rng(SEED + 1))
+    del truth
+
+    # per-stage launches, the child's forced ring, and one child launch's
+    # operands of each kernel (its first Grams, its first batch)
+    stages, ring, operands = {}, {}, {}
+    launch = invsqrt_mod.invsqrt_ns_kernel
+
+    def recording(a, areg, *args):
+        if operands.get("record") and "grams" not in operands:
+            operands["grams"] = (a.clone(), areg.clone())
+        return launch(a, areg, *args)
+
+    def counted(name, fn, after=None):
+        def wrapped(*args, **kw):
+            before = dict(kernels.LAUNCHES)
+            operands["record"] = name == "child_analysis"
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            stages[name] = {k: kernels.LAUNCHES[k] - before[k]
+                            for k in KERNELS}
+            operands["record"] = False
+            if after is not None:
+                after(out)
+            return out
+        return wrapped
+
+    def child_done(out):
+        ring["forced"] = ring_rms(out, child.bdy.state1, NEST_BDY_WIDTH)
+        ring["target"] = type(out)(*(f.cpu() for f in child.bdy.state1))
+        operands["ensemble"] = type(out)(*(f[:child.batch].clone()
+                                           for f in out))
+
+    parent.forecast = counted("parent_forecast", parent.forecast)
+    child.forecast = counted("child_forecast", child.forecast, child_done)
+    parent.analysis = counted("parent_analysis", parent.analysis)
+    child.analysis = counted("child_analysis", child.analysis)
+    invsqrt_mod.invsqrt_ns_kernel = recording
+    states = [p_ens, c_ens]
+    del p_ens, c_ens
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        p_a, c_a, info = nest.cycle(states.pop(0), states.pop(0), p_obs,
+                                    c_obs, steps_parent=NEST_PARENT_STEPS,
+                                    steps_child=NEST_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        invsqrt_mod.invsqrt_ns_kernel = launch
+        for d in (parent, child):
+            del d.forecast, d.analysis
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    launches = {k: kernels.LAUNCHES[k] for k in KERNELS}
+    finite = all(bool(torch.isfinite(f).all()) for f in (*p_a, *c_a))
+    del p_a, c_a
+
+    # the same child forecast unforced (bdy_width 0), from the same start
+    free = nest_child(cfg, grid, dycfg, dom, device, bdy_width=0)
+    out = free.forecast(type(c_start)(*(f.to(device) for f in c_start)),
+                        NEST_STEPS)
+    ring["unforced"] = ring_rms(out, type(out)(*(
+        f.to(device) for f in ring.pop("target"))), NEST_BDY_WIDTH)
+    del out, c_start
+
+    def rmse(st):
+        return {n: r for n, r in st.rmse.items() if st.nobs[n]}
+    dom_rows = {}
+    for name, drv in (("parent", parent), ("child", child)):
+        i = info[name]
+        batches = -(-K // drv.batch)
+        steps = NEST_PARENT_STEPS if name == "parent" else NEST_STEPS
+        exp = fused_launches(cfg, drv.grid, steps, batches,
+                             i["diag"].chunk)
+        dom_rows[name] = {
+            "grid": f"{drv.grid.nx}x{drv.grid.ny}x{drv.grid.nz}",
+            "dx_km": drv.grid.dx / 1e3, "dt": drv.dycfg.dt,
+            "lateral": drv.dycfg.lateral, "core": drv.core,
+            "steps": steps, "member_batch": drv.batch, "batches": batches,
+            "chunk": i["diag"].chunk, "nobs": i["stats_gues"].nobs,
+            "omb_rmse": rmse(i["stats_gues"]),
+            "oma_rmse": rmse(i["stats_anal"]),
+            "sections_s": dict(drv.timer.records),
+            "launches": {"forecast": stages[f"{name}_forecast"],
+                         "analysis": stages[f"{name}_analysis"]},
+            "expected_launches": exp}
+    row = {"phase": "nested_cycle", "config": CONFIG.name, "members": K,
+           "geometry": {"i0": NEST_I0, "j0": NEST_J0, "ratio": NEST_RATIO},
+           "bdy_width": NEST_BDY_WIDTH, "bdy_tau": NEST_BDY_TAU,
+           "generate_s": generate_s, "init_interp_s": init_interp_s,
+           "wall_s": wall, "peak_mem_gb": peak, "kernel_launches": launches,
+           "finite": finite, "boundary_ring_rms": ring, **dom_rows}
+    emit(row)
+    if not finite:
+        raise AssertionError("the nested cycle is not finite")
+    for name in ("parent", "child"):
+        r = dom_rows[name]
+        fc, an, exp = (r["launches"]["forecast"], r["launches"]["analysis"],
+                       r["expected_launches"])
+        if not (fc["dyn_tendency"] == fc["adv_ud3"] == exp["dyn_tendency"]
+                and an["invsqrt_ns"] == exp["invsqrt_ns"]):
+            raise AssertionError(f"{name} launches {r['launches']}, "
+                                 f"expected {exp}")
+        if not all(n in r["omb_rmse"] and r["oma_rmse"][n] < r["omb_rmse"][n]
+                   for n in ("T", "PS")):
+            raise AssertionError(f"{name} O-A above O-B: {r}")
+    if not peak < 80:
+        raise AssertionError(f"peak memory {peak:.2f} GiB")
+    # mass, heat and horizontal momentum each nearer the parent when forced
+    if not all(ring["forced"][n] < ring["unforced"][n]
+               for n in ("rho", "rhot", "momentum")):
+        raise AssertionError(f"the forced ring is not nearer the parent: "
+                             f"{ring}")
+    return row, {"grams": operands["grams"],
+                 "ensemble": operands["ensemble"],
+                 "column": (child.rho_ref, child.p_ref, child.vg,
+                            child.dycfg)}
+
+
+def phase_nested_real(operands) -> dict:
+    """#2 and #3 against their plain versions in the open mode on the
+    operands of one child launch (its first member batch after the
+    forecast), with both modes' times; #1 on the child's first Grams."""
+    s = operands["ensemble"]
+    rho_ref, p_ref, vg, dycfg = operands["column"]
+    from scale_letkf_torch.ops.stencil import adv_flux_divergence_kernel
+    from scale_letkf_torch.ops.tendency import dyn_tendencies_kernel
+    dyn, adv = stencil_operands(s, rho_ref, p_ref, vg, dycfg)
+    rows = {"dyn_tendency": {**check_dyn(dyn, "child batch, open"),
+                             **mode_turns(dyn_tendencies_kernel, dyn)},
+            "adv_ud3": {**check_adv(adv, "child batch, open"),
+                        **mode_turns(adv_flux_divergence_kernel, adv)}}
+    for name, row in rows.items():
+        emit({"phase": "nested_real", "kernel": name, "lateral": "open",
+              "batch": int(s.rho.shape[0]),
+              "grid": "x".join(str(n) for n in s.rho.shape[:0:-1]), **row})
+    rows["invsqrt_ns"] = check_invsqrt(*operands["grams"], "nested_real")
+    return rows
+
+
+def phase_nested_small(device):
+    """The cycle verb with a [nest] section (tests/test_cli_nested.py's
+    experiment, the child open) on the card against the CPU, and the
+    coarsened fused radar cycle (scale_letkf_torch/gpu_check.py)."""
+    from scale_letkf_torch.gpu_check import (
+        nesting_fused_check_passes, nesting_fused_vs_cpu)
+    res = nesting_fused_vs_cpu(device, str(RADAR_CONFIG), SEED)
+    emit({"phase": "nested_small", **res["nested_verb"]})
+    emit({"phase": "fused_small", **res["fused"]})
+    if not nesting_fused_check_passes(res):
+        raise AssertionError(f"the nested verb or the fused cycle on the "
+                             f"GPU disagrees with the CPU: {res}")
+
+
+def phase_fused_radar_cycle(device, radar_cycle_s: float):
+    """configs/bda_1km_radar.toml as shipped through FusedCycle.run_osse,
+    FUSED_CYCLES cycles of its 15-step window: the radar cycle's blob
+    ensemble and nature member, the synthetic PAWR volume valued from the
+    nature run at the window's end and preprocessed to dBZ with the
+    ref-zero relabelling (gpu_check.dbz_template); every gate of the
+    template enters the buckets. Per cycle: seconds (CUDA events), nobs_used, O−B → O−A for
+    REF and VR; launches, peak memory, the analysis chunk, and the
+    synchronising calls of the whole run under
+    torch.cuda.set_sync_debug_mode('warn'), by the line that made them."""
+    import warnings
+
+    from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
+    from scale_letkf_torch.da.fastcycle import FusedCycle
+    from scale_letkf_torch.gpu_check import (
+        RADAR_QR_BLOB, RADAR_STEPS, dbz_template, fused_launches)
+    from scale_letkf_torch.model.dycore import to_collocated
+    from scale_letkf_torch.state import state_to_history, state_trans
+    from scale_letkf_torch.synthetic import (
+        synthetic_ens_dycore_device, synthetic_radar_volume)
+    from scale_letkf_torch.utils import kernels
+    cfg, grid, dycfg, dom = load_config_and_grid(str(RADAR_CONFIG))
+    K = cfg.ensemble.member
+    t0 = time.perf_counter()
+    ens, _, _ = synthetic_ens_dycore_device(SEED, K, grid, dom, device,
+                                            u0=FCST_U0, qr_blob=RADAR_QR_BLOB)
+    nat, _, _ = synthetic_ens_dycore_device(SEED + 1, 1, grid, dom, device,
+                                            u0=FCST_U0, qr_blob=RADAR_QR_BLOB)
+    truth0 = type(nat)(*(f[0] for f in nat))
+    del nat
+    driver = make_driver(cfg, grid, dycfg, dom, device)
+    rng = np.random.default_rng(SEED)
+    volume = synthetic_radar_volume(cfg, dom, rng, RADAR_OBS_TARGET)
+    truth = driver.forecast_one(truth0, RADAR_STEPS)
+    tmpl = dbz_template(
+        state_to_history(state_trans(to_collocated(truth)), driver.z_full,
+                         driver.topo), volume, grid, cfg, driver.z_full, rng)
+    del truth
+    fc = FusedCycle(driver, tmpl, RADAR_STEPS)
+    in_buckets = sum(len(ct.obs_idx) for ct in fc.ctx.ctypes)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    states = [truth0, ens]
+    del truth0, ens
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            truth, ens, series = fc.run_osse(states.pop(0), states.pop(0),
+                                             FUSED_CYCLES, seed=SEED)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    syncs = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                    if "synchroniz" in str(w.message))
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    launches = {k: kernels.LAUNCHES[k] for k in KERNELS}
+    batches = -(-K // driver.batch)
+    expected = {k: FUSED_CYCLES * v for k, v in fused_launches(
+        cfg, grid, RADAR_STEPS, batches, series["chunk"]).items()}
+    # + the nature run's batch of one each cycle
+    for k in ("dyn_tendency", "adv_ud3"):
+        expected[k] += FUSED_CYCLES * 3 * RADAR_STEPS
+    finite = all(bool(torch.isfinite(f).all()) for f in (*ens, *truth))
+
+    def per_cycle(t):
+        return [float(x) for x in t]
+    groups = {n: {"omb": per_cycle(series["omb_by_group"][n]),
+                  "oma": per_cycle(series["oma_by_group"][n])}
+              for n in series["omb_by_group"]}
+    row = {"phase": "fused_radar_cycle", "config": RADAR_CONFIG.name,
+           "grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members": K,
+           "steps": RADAR_STEPS, "cycles": FUSED_CYCLES,
+           "volume_obs": int(volume.nobs), "template_obs": int(tmpl.nobs),
+           "obs_in_buckets": in_buckets, "setup_s": setup_s,
+           "wall_s": wall, "seconds": series["seconds"],
+           "radar_cycle_s": radar_cycle_s,
+           "nobs_used": per_cycle(series["nobs_used"]),
+           "omb": per_cycle(series["omb"]), "oma": per_cycle(series["oma"]),
+           "by_group": groups,
+           "rmse_gues": per_cycle(series["rmse_gues"]),
+           "rmse_anal": per_cycle(series["rmse_anal"]),
+           "member_batch": driver.batch, "chunk": series["chunk"],
+           "peak_mem_gb": peak, "kernel_launches": launches,
+           "expected_launches": expected,
+           "sync_calls": sum(syncs.values()),
+           "sync_calls_per_cycle": sum(syncs.values()) / FUSED_CYCLES,
+           "sync_sites": dict(syncs), "finite": finite}
+    emit(row)
+    if not finite:
+        raise AssertionError("the fused radar cycle is not finite")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{expected}")
+    if not all(n > 0 for n in row["nobs_used"]):
+        raise AssertionError(f"no obs used: {row['nobs_used']}")
+    if not all(a < b for a, b in zip(groups["REF"]["oma"],
+                                     groups["REF"]["omb"])):
+        raise AssertionError(f"O-A above O-B for REF: {groups['REF']}")
+    if not in_buckets == tmpl.nobs:
+        raise AssertionError(f"{in_buckets} of {tmpl.nobs} obs in the "
+                             f"buckets")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the GPU smoke run cannot run here",
@@ -2323,8 +2796,8 @@ def main() -> int:
     phase_device()
     phase_build()
     phase_random(device)
-    s = phase_tendency(device)
-    phase_stencil(device, s)
+    s, rho_ref, p_ref = phase_tendency(device)
+    phase_stencil(device, s, rho_ref, p_ref)
     del s
     fc, sample = phase_forecast(device)
     phase_forecast_real(sample)
@@ -2383,18 +2856,27 @@ def main() -> int:
     rd = phase_radar_cycle(device)
     torch.cuda.empty_cache()
     phase_executors_small(device)
-    # the kernels line: launches and times of the deterministic cycle, this
-    # slice's main path, which runs all three (times on its own operands,
-    # phase det_real); launches_by_path: each path's own run, counts reset
-    # before it; physics_cycle: the times on the physics cycle's operands
-    # (phase physics_real), the line of earlier slices; production_grams:
-    # kernel #1 on the production cycle's Grams (phase production_real);
-    # radar_grid: the stencil kernels on the radar forecast's operands
-    # (phase radar_real)
+    torch.cuda.empty_cache()
+    nc, operands = phase_nested_cycle(device)
+    nested_rows = phase_nested_real(operands)
+    del operands
+    torch.cuda.empty_cache()
+    fr = phase_fused_radar_cycle(device, rd["wall_s"])
+    torch.cuda.empty_cache()
+    phase_nested_small(device)
+    # the kernels line: launches of the nested cycle, this slice's main
+    # path, which runs all three; times on the deterministic cycle's
+    # operands (phase det_real); launches_by_path: each path's own run,
+    # counts reset before it; physics_cycle: the times on the physics
+    # cycle's operands (phase physics_real); production_grams: kernel #1 on
+    # the production cycle's Grams (phase production_real); radar_grid: the
+    # stencil kernels on the radar forecast's operands (phase radar_real);
+    # child_grid: each kernel on one launch's operands of the nested
+    # cycle's child — #2 and #3 in the open mode (phase nested_real)
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "bound_share")
     for name in KERNELS:
-        dc_rows[name]["launches"] = sc["kernel_launches"][name]
+        dc_rows[name]["launches"] = nc["kernel_launches"][name]
         dc_rows[name]["launches_by_path"] = {
             "forecast": fc["kernel_launches"].get(name, 0),
             "analysis": sl["kernel_launches"] if name == "invsqrt_ns" else 0,
@@ -2405,7 +2887,12 @@ def main() -> int:
             "det_cycle": dc["kernel_launches"][name],
             "streamed_cycle": sc["kernel_launches"][name],
             "resident_cycle": rs["kernel_launches"][name],
-            "radar_cycle": rd["kernel_launches"][name]}
+            "radar_cycle": rd["kernel_launches"][name],
+            "nested_cycle": nc["kernel_launches"][name],
+            "fused_radar_cycle": fr["kernel_launches"][name]}
+        dc_rows[name]["child_grid"] = {
+            k: nested_rows[name][k] for k in timing + (
+                ("open_ms", "periodic_ms") if name != "invsqrt_ns" else ())}
         dc_rows[name]["physics_cycle"] = {k: pc_rows[name][k]
                                           for k in timing}
         dc_rows[name]["radar_grid"] = (
@@ -2424,7 +2911,7 @@ def main() -> int:
     keys = ("launches", "launches_by_path", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_fp32_ms", "bound_by", "bound_share",
             "gb_per_s", "tflops", "shapes", "physics_cycle", "radar_grid",
-            "production_grams", "streamed_tile")
+            "production_grams", "streamed_tile", "child_grid")
     emit({"kernels": [{"name": name, "route": "cuda",
                        "source": f"scale_letkf_torch/csrc/{name}.cu",
                        "replaces": REPLACES[name],

@@ -21,8 +21,9 @@ file) is analysed by `letkf` and forecast and analysed every cycle by
 the INFL_ADD_IN_BASENAME files (`letkf --addi DIR`, else the guess or init
 directory). `cycle --streamed` runs the member-streamed executor
 (da/bigcycle.py: the ensemble in host memory, --member-batch, --tile-rows,
---pipeline). Not ported yet, raising NotImplementedError that names its
-ROADMAP item: a [nest] section (nesting).
+--pipeline). A [nest] section makes `cycle` run a one-way nested child
+domain beside the parent (nested.py: --nest-init, --nest-obs-pattern; the
+child saved under OUT/nest).
 """
 
 from __future__ import annotations
@@ -118,6 +119,34 @@ def make_driver(cfg, grid, dycfg, dom, device: torch.device):
                        n_small=dom.get("n_small", 6),
                        bdy=bdy, bdy_width=dom.get("bdy_width", 0),
                        bdy_tau=dom.get("bdy_tau", 300.0))
+
+
+def make_nested(cfg, grid, dycfg, dom, device: torch.device):
+    """[nest] section → (child driver on `device`, NestGeometry,
+    NestedCycleDriver). The child inherits the parent's DA config; its
+    domain is the [nest] geometry on uniform levels, its core the explicit
+    one (reference: NUM_DOMAIN telescoping nests, common_nml.f90:56)."""
+    from scale_letkf_torch.model.nesting import NestGeometry
+    from scale_letkf_torch.nested import NestedCycleDriver
+    n = dom["nest"]
+    ratio = int(n.get("ratio", 3))
+    cgrid = Grid.uniform(
+        nx=n.get("nx", 24), ny=n.get("ny", 24), nz=n.get("nz", grid.nz),
+        dx=grid.dx / ratio, dy=grid.dy / ratio,
+        dz=n.get("dz", float(grid.fz[1] - grid.fz[0])),
+        proj=Projection(**dom.get("projection", {})))
+    cdycfg = DycoreConfig(
+        dx=cgrid.dx, dy=cgrid.dy, dz=float(cgrid.fz[1] - cgrid.fz[0]),
+        dt=n.get("dt", dycfg.dt / ratio), ztop=cgrid.ztop,
+        sponge_height=n.get("sponge_height", dycfg.sponge_height),
+        sponge_tau=n.get("sponge_tau", dycfg.sponge_tau),
+        lateral=n.get("lateral", "periodic"))
+    cdom = {"bdy_width": n.get("bdy_width", 4),
+            "bdy_tau": n.get("bdy_tau", 120.0)}
+    child = make_driver(cfg, cgrid, cdycfg, cdom, device)
+    geom = NestGeometry(i0=float(n.get("i0", 0.0)),
+                        j0=float(n.get("j0", 0.0)), ratio=ratio)
+    return child, geom, NestedCycleDriver
 
 
 def slot_steps_from_cfg(cfg, nsteps: int, dt: float) -> list[int] | None:
@@ -424,20 +453,81 @@ def _cycle_streamed(args, cfg, dom, driver):
                   meta={"cycles": args.cycles, "streamed": True})
 
 
+def _cycle_nested(args, cfg, grid, dycfg, dom, driver, device, ens, aux):
+    """cycle with a [nest] section: the parent and the one-way nested
+    child (nested.py) each cycle, the child over the same window at its
+    own dt, its inflation threaded; the child saved under OUT/nest. ens:
+    the parent's initial ensemble in a one-slot list, handed over."""
+    import os
+
+    from scale_letkf_torch.io.checkpoint import save_ensemble
+    child, geom, nested_driver = make_nested(cfg, grid, dycfg, dom, device)
+    nested = nested_driver(driver, child, geom)
+    steps_child = int(round(args.steps_per_cycle * dycfg.dt
+                            / child.dycfg.dt))
+    c_ens, _, c_aux, _ = _load_ens(args.nest_init, device)
+    infl, c_infl = aux.get("infl"), c_aux.get("infl")
+    # one-slot lists: pop() hands each ensemble to the cycle
+    c_ens = [c_ens]
+    for c in range(args.cycles):
+        obs = read_obs_files(cfg, [args.obs_pattern.format(cycle=c)])
+        c_obs = read_obs_files(cfg, [args.nest_obs_pattern.format(cycle=c)])
+        p_anal, c_anal, ninfo = nested.cycle(
+            ens.pop(), c_ens.pop(), obs, c_obs, args.steps_per_cycle,
+            steps_child, infl_p=infl, infl_c=c_infl)
+        ens.append(p_anal)
+        c_ens.append(c_anal)
+        del p_anal, c_anal
+        info, c_info = ninfo["parent"], ninfo["child"]
+        if info["diag"].infl_field is not None:
+            infl = info["diag"].infl_field
+        if c_info["diag"].infl_field is not None:
+            c_infl = c_info["diag"].infl_field
+        print(f"=== cycle {c} ===")
+        print(info["stats_gues"].format("O-B"))
+        print(info["stats_anal"].format("O-A"))
+        print(c_info["stats_gues"].format("nest O-B"))
+        print(c_info["stats_anal"].format("nest O-A"))
+        del ninfo, info, c_info
+    aux_out = {"infl": infl} if infl is not None else {}
+    if driver.tsfc is not None:
+        aux_out["tsfc"] = driver.tsfc
+    save_ensemble(args.out, ens.pop(), basename="anal.@@@@", aux=aux_out,
+                  meta={"cycles": args.cycles})
+    save_ensemble(os.path.join(args.out, "nest"), c_ens.pop(),
+                  basename="anal.@@@@",
+                  aux={"infl": c_infl} if c_infl is not None else {},
+                  meta={"cycles": args.cycles, "nest": True})
+    print(driver.timer.report())
+
+
 def cmd_cycle(args):
     from scale_letkf_torch.da.obsope import assign_slots
     from scale_letkf_torch.io.checkpoint import save_ensemble
     cfg, grid, dycfg, dom, driver, device = _setup(args)
     if args.streamed:
         return _cycle_streamed(args, cfg, dom, driver)
-    if "nest" in dom or args.nest_init or args.nest_obs_pattern:
-        raise NotImplementedError(
-            "a [nest] section (one-way nesting, model/nesting.py, nested.py) "
-            "is not ported yet (ROADMAP queue 1, nesting)")
     # DET_RUN_CYCLED: a deterministic member in the initial checkpoint is
     # forecast and analysed (transmd weights) every cycle
     ens, det, aux, _ = _load_ens(args.init, device)
     addi = load_addi_ens(cfg, args.init, device)
+    # the one reference to the ensemble; pop() hands it to the step, which
+    # frees it once the next one exists (CycleDriver.run_osse does the same)
+    ens = [ens]
+    if "nest" in dom:
+        if not (args.nest_init and args.nest_obs_pattern):
+            sys.exit("error: config has a [nest] section — pass both "
+                     "--nest-init and --nest-obs-pattern (or remove [nest])")
+        if (det is not None or addi is not None
+                or slot_steps_from_cfg(cfg, args.steps_per_cycle,
+                                       dycfg.dt) is not None):
+            sys.exit("error: nested cycling does not combine with DET_RUN, "
+                     "4-D slots, or additive inflation yet")
+        if "tsfc" in aux:
+            driver.tsfc = torch.as_tensor(aux["tsfc"], dtype=torch.float32,
+                                          device=device)
+        return _cycle_nested(args, cfg, grid, dycfg, dom, driver, device,
+                             ens, aux)
     rng = np.random.default_rng(0)
     if "tsfc" in aux:
         # resume the persisted slab skin temperature (physics-suite runs)
@@ -445,9 +535,6 @@ def cmd_cycle(args):
                                       device=device)
     infl = aux.get("infl")
     slot_steps = slot_steps_from_cfg(cfg, args.steps_per_cycle, dycfg.dt)
-    # the one reference to the ensemble; pop() hands it to the step, which
-    # frees it once the next one exists (CycleDriver.run_osse does the same)
-    ens = [ens]
     for c in range(args.cycles):
         hist = None
         if slot_steps is not None:
@@ -560,11 +647,10 @@ def main(argv=None):
                    help="per-cycle obs path, e.g. obs/cycle{cycle}.dat")
     q.add_argument("--out", required=True)
     q.add_argument("--nest-init", default=None,
-                   help="child-domain initial ensemble (nesting; not "
-                        "ported, raises)")
+                   help="child-domain initial ensemble ([nest] section)")
     q.add_argument("--nest-obs-pattern", default=None,
-                   help="per-cycle child-domain obs path (nesting; not "
-                        "ported, raises)")
+                   help="per-cycle child-domain obs path, e.g. "
+                        "obs/nest{cycle}.dat ([nest] section)")
     q.add_argument("--streamed", action="store_true",
                    help="member-streamed executor (da/bigcycle.py): the "
                         "ensemble in host memory, member batches and "

@@ -21,15 +21,18 @@
 // Design (stencil.cuh): one CTA per (member, 32 × 8 tile) marches up the
 // column. Per level it copies ρ, fx, fy into shared memory once, then
 // passes the NQ tracer planes through the same tile; each plane (with its
-// 2-cell periodic halo) arrives by cp.async while the previous one
-// computes. φ = q/ρ is divided once per loaded point into a shared plane
+// 2-cell halo, periodic or edge-clamped) arrives by cp.async while the
+// previous one computes. φ = q/ρ is divided once per loaded point into a
+// shared plane
 // that the 13 UD3 taps read, and ∇⁴q = lap(lap q) comes from a shared
 // Laplacian plane. The z stencil reads the thread's own column: φ(k−2 …
 // k+2) in a per-thread ring in shared memory, filled two levels ahead from
 // device memory, and fw at the faces k and k+1 in registers.
 //
 // C entry point (ctypes): adv_ud3_launch(q, rho, fx, fy, fw, dzc, out, B,
-// nq, nz, ny, nx, dx, dy, kdiff4, stream) — q and out (B, nq, nz, ny, nx),
+// nq, nz, ny, nx, dx, dy, kdiff4, open, stream) — open ≠ 0: the lateral
+// mode 'open' (edge-clamped x and y, stencil.cuh), else periodic; q and out
+// (B, nq, nz, ny, nx),
 // rho, fx, fy (B, nz, ny, nx), fw (B, nz+1, ny, nx), dzc (nz,), float32,
 // contiguous, on the device; 64-bit offsets (a full-size batch spans
 // ~1.9e9 elements). Launches on `stream`, does not synchronise, and returns
@@ -55,6 +58,7 @@ __host__ __device__ constexpr int64_t smem_floats(int64_t nq) {
 }
 
 // four CTAs an SM, as its shared memory allows: at most 64 registers
+template <bool OPEN>
 __global__ void __launch_bounds__(NT, 4)
 adv_ud3_kernel(const float* __restrict__ q, const float* __restrict__ rho,
                const float* __restrict__ fx, const float* __restrict__ fy,
@@ -68,7 +72,8 @@ adv_ud3_kernel(const float* __restrict__ q, const float* __restrict__ rho,
   float* lapq = phi + PLANE;
   float* col = lapq + PLANE;          // [tracer][level % COL][NT]
 
-  const Tile t(blockIdx.x, tiles_x, ny, nx);
+  const Tile t(blockIdx.x, tiles_x, ny, nx, OPEN);
+  const stencil::Nbr<OPEN> n(t, ny, nx);
   const int b = blockIdx.y;
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   const float* rho_b = rho + static_cast<int64_t>(b) * nz * plane;
@@ -137,10 +142,10 @@ adv_ud3_kernel(const float* __restrict__ q, const float* __restrict__ rho,
 
       if (t.active) {
         float v = stencil::scalar_adv(
-            phi, l + PLANE, l + 2 * PLANE, t.c, colv(tr, k + COL - 2),
+            phi, l + PLANE, l + 2 * PLANE, t.c, n, colv(tr, k + COL - 2),
             colv(tr, k + COL - 1), colv(tr, k + 1), colv(tr, k + 2), fw0, fw1,
             dzc_k, rdzc_k, nz, k, dx, rdx, dy, rdy);
-        if (diffuse) v = v + stencil::hyperdiff4(lapq, kdiff4, t.c);
+        if (diffuse) v = v + stencil::hyperdiff4(lapq, kdiff4, t.c, n);
         out_b[(static_cast<int64_t>(tr) * nz + k) * plane + t.own] = v;
       }
     }
@@ -154,7 +159,7 @@ extern "C" int adv_ud3_launch(const void* q, const void* rho, const void* fx,
                               const void* fy, const void* fw, const void* dzc,
                               void* out, int64_t B, int64_t nq, int64_t nz,
                               int64_t ny, int64_t nx, float dx, float dy,
-                              float kdiff4, void* stream) {
+                              float kdiff4, int open, void* stream) {
   const int64_t tiles_x = (nx + stencil::TX - 1) / stencil::TX;
   const int64_t tiles_y = (ny + stencil::TY - 1) / stencil::TY;
   const int64_t smem = smem_floats(nq) * static_cast<int64_t>(sizeof(float));
@@ -162,13 +167,14 @@ extern "C" int adv_ud3_launch(const void* q, const void* rho, const void* fx,
       tiles_x * tiles_y > 0x7fffffff || ny * nx > 0x7fffffff ||
       smem > 227 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = open ? adv_ud3_kernel<true> : adv_ud3_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      adv_ud3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(tiles_x * tiles_y),
                   static_cast<unsigned>(B));
-  adv_ud3_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(rho),
       static_cast<const float*>(fx), static_cast<const float*>(fy),
       static_cast<const float*>(fw), static_cast<const float*>(dzc),

@@ -28,7 +28,8 @@
 // Design (stencil.cuh): one CTA per (member, 32 × 8 tile) marches up the
 // column; iteration k computes the centers of level k and
 // the z-face k below them. The six input planes of each level (ρ, ρu, ρv,
-// ρw at face k, ρθ, p′) sit with their 2-cell periodic halo in a ring of 4
+// ρw at face k, ρθ, p′) sit with their 2-cell halo (periodic or
+// edge-clamped, stencil.cuh) in a ring of 4
 // level slots in shared memory: levels k−1, k, k+1 are read, level k+2
 // arrives by cp.async meanwhile. Derived values are computed once per
 // point into shared planes — φ = ρθ/ρ, u and v at their faces, w at face
@@ -39,7 +40,8 @@
 //
 // C entry point (ctypes): dyn_tendency_launch(rho, rhou, rhov, rhow, rhot,
 // p_pert, rho_ref, dzc, dzf, o_rho, o_rhou, o_rhov, o_rhow, o_rhot, B, nz,
-// ny, nx, dx, dy, kdiff4, alpha_h, divdmp, dt, grav, stream) — centered
+// ny, nx, dx, dy, kdiff4, alpha_h, divdmp, dt, grav, open, stream) — open ≠
+// 0: the lateral mode 'open' (edge-clamped x and y), else periodic; centered
 // fields (B, nz, ny, nx), rhow and o_rhow (B, nz+1, ny, nx), rho_ref and dzc
 // (nz,), dzf (nz−1,), float32, contiguous, on the device; alpha_h =
 // divdmp·dx²/dt, divdmp ≤ 0 switches divergence damping off. Launches on
@@ -88,6 +90,7 @@ struct Args {
   float dx, dy, kdiff4, alpha_h, divdmp, dt, grav;
 };
 
+template <bool OPEN>
 __global__ void __launch_bounds__(NT) dyn_tendency_kernel(const Args a) {
   extern __shared__ float smem[];
   float* ring = smem;                     // [level & 3][field][PLANE]
@@ -99,7 +102,8 @@ __global__ void __launch_bounds__(NT) dyn_tendency_kernel(const Args a) {
   float* divp = der + DV * PLANE;
 
   const int nz = a.nz;
-  const Tile t(blockIdx.x, a.tiles_x, a.ny, a.nx);
+  const Tile t(blockIdx.x, a.tiles_x, a.ny, a.nx, OPEN);
+  const stencil::Nbr<OPEN> n(t, a.ny, a.nx);
   const int64_t plane = static_cast<int64_t>(a.ny) * a.nx;
   const int64_t cen = static_cast<int64_t>(blockIdx.y) * nz * plane;
   const int64_t fac = static_cast<int64_t>(blockIdx.y) * (nz + 1) * plane;
@@ -183,23 +187,26 @@ __global__ void __launch_bounds__(NT) dyn_tendency_kernel(const Args a) {
       const int64_t out = cen + k * plane + t.own;
       const float div0 = divp[c];
       a.o_rho[out] = -div0;
-      float dth = stencil::scalar_adv(phi, ru0, rv0, c, ph_m2, ph_m1, ph_p1,
-                                      ph_p2, rw0[c], rwp[c], dzc_k, rdzc_k,
-                                      nz, k, dx, rdx, dy, rdy);
+      float dth = stencil::scalar_adv(phi, ru0, rv0, c, n, ph_m2, ph_m1,
+                                      ph_p1, ph_p2, rw0[c], rwp[c], dzc_k,
+                                      rdzc_k, nz, k, dx, rdx, dy, rdy);
       if (diffuse)
-        dth = dth + stencil::hyperdiff4(der + LT * PLANE, a.kdiff4, c);
+        dth = dth + stencil::hyperdiff4(der + LT * PLANE, a.kdiff4, c, n);
       a.o_rhot[out] = dth;
 
       // ρu at x-face i+1/2: x-flux at centers, y-flux at corners, z-flux
-      // at the face's z-faces (zero at the rigid faces)
+      // at the face's z-faces (zero at the rigid faces). The flux at
+      // centers takes u at (s, m), m the face below s: open, at i = 0 the
+      // face below is the edge face itself (u's stencil is along x, so its
+      // value beyond the left edge is not the clamped inputs')
       const bool top = k + 1 == nz;
       const float uf_p1 =
           top ? 0.f
               : sp[RU * PLANE + c] /
                     (0.5f * (sp[RHO * PLANE + c] + sp[RHO * PLANE + c + 1]));
-      auto adv_u_x = [&](int s) {  // center (k, j, ·) of index s
-        const float f = 0.5f * (ru0[s] + ru0[s - 1]);
-        return f * 0.5f * (uf[s] + uf[s - 1]);
+      auto adv_u_x = [&](int s, int m) {  // center (k, j, ·) of index s
+        const float f = 0.5f * (ru0[s] + ru0[m]);
+        return f * 0.5f * (uf[s] + uf[m]);
       };
       auto adv_u_y = [&](int s) {  // corner (k, ·+1/2, i+1/2)
         const float f = 0.5f * (rv0[s] + rv0[s + 1]);
@@ -211,22 +218,25 @@ __global__ void __launch_bounds__(NT) dyn_tendency_kernel(const Args a) {
       };
       const float uz_p = top ? 0.f : adv_u_z(rwp, uf_p1, uf[c]);
       const float uz_m = k == 0 ? 0.f : adv_u_z(rw0, uf[c], uf_m1);
-      float dadv_u = div_rcp(adv_u_x(c + 1) - adv_u_x(c), dx, rdx);
-      dadv_u = dadv_u + div_rcp(adv_u_y(c) - adv_u_y(c - W), dy, rdy);
+      float dadv_u = div_rcp(adv_u_x(c + n.xp, c + n.xp - 1) -
+                                 adv_u_x(c, c - n.xm),
+                             dx, rdx);
+      dadv_u = dadv_u + div_rcp(adv_u_y(c) - adv_u_y(c - n.ym), dy, rdy);
       dadv_u = dadv_u + div_rcp(uz_p - uz_m, dzc_k, rdzc_k);
       const float* pp0 = s0 + PP * PLANE;
       const float dpx = div_rcp(pp0[c + 1] - pp0[c], dx, rdx);
       float du = -dadv_u - dpx;
-      if (diffuse) du = du + stencil::hyperdiff4(der + LU * PLANE, a.kdiff4, c);
+      if (diffuse)
+        du = du + stencil::hyperdiff4(der + LU * PLANE, a.kdiff4, c, n);
 
       // ρv, the mirror of ρu
       const float vf_p1 =
           top ? 0.f
               : sp[RV * PLANE + c] /
                     (0.5f * (sp[RHO * PLANE + c] + sp[RHO * PLANE + c + W]));
-      auto adv_v_y = [&](int s) {  // center (k, ·, i)
-        const float f = 0.5f * (rv0[s] + rv0[s - W]);
-        return f * 0.5f * (vf[s] + vf[s - W]);
+      auto adv_v_y = [&](int s, int m) {  // center (k, ·, i)
+        const float f = 0.5f * (rv0[s] + rv0[m]);
+        return f * 0.5f * (vf[s] + vf[m]);
       };
       auto adv_v_x = [&](int s) {  // corner (k, j+1/2, ·+1/2)
         const float f = 0.5f * (ru0[s] + ru0[s + W]);
@@ -238,18 +248,20 @@ __global__ void __launch_bounds__(NT) dyn_tendency_kernel(const Args a) {
       };
       const float vz_p = top ? 0.f : adv_v_z(rwp, vf_p1, vf[c]);
       const float vz_m = k == 0 ? 0.f : adv_v_z(rw0, vf[c], vf_m1);
-      float dadv_v = div_rcp(adv_v_y(c + W) - adv_v_y(c), dy, rdy);
-      dadv_v = dadv_v + div_rcp(adv_v_x(c) - adv_v_x(c - 1), dx, rdx);
+      float dadv_v = div_rcp(adv_v_y(c + n.yp, c + n.yp - W) -
+                                 adv_v_y(c, c - n.ym),
+                             dy, rdy);
+      dadv_v = dadv_v + div_rcp(adv_v_x(c) - adv_v_x(c - n.xm), dx, rdx);
       dadv_v = dadv_v + div_rcp(vz_p - vz_m, dzc_k, rdzc_k);
       const float dpy = div_rcp(pp0[c + W] - pp0[c], dy, rdy);
       float dv_ = -dadv_v - dpy;
       if (diffuse)
-        dv_ = dv_ + stencil::hyperdiff4(der + LV * PLANE, a.kdiff4, c);
+        dv_ = dv_ + stencil::hyperdiff4(der + LV * PLANE, a.kdiff4, c, n);
 
       // divergence damping (acoustic filter): ∂ρu/∂t += α ∂D/∂x
       if (damp) {
-        du = du + div_rcp(a.alpha_h * (divp[c + 1] - div0), dx, rdx);
-        dv_ = dv_ + div_rcp(a.alpha_h * (divp[c + W] - div0), dy, rdy);
+        du = du + div_rcp(a.alpha_h * (divp[c + n.xp] - div0), dx, rdx);
+        dv_ = dv_ + div_rcp(a.alpha_h * (divp[c + n.yp] - div0), dy, rdy);
       }
       a.o_rhou[out] = du;
       a.o_rhov[out] = dv_;
@@ -277,19 +289,19 @@ __global__ void __launch_bounds__(NT) dyn_tendency_kernel(const Args a) {
           const float f = 0.5f * (ru0[s] + rum[s]);
           return f * 0.5f * (wf[s] + wf[s + 1]);
         };
-        dadv = dadv + div_rcp(adv_w_x(c) - adv_w_x(c - 1), dx, rdx);
+        dadv = dadv + div_rcp(adv_w_x(c) - adv_w_x(c - n.xm), dx, rdx);
         auto adv_w_y = [&](int s) {  // (face k, ·+1/2, i)
           const float f = 0.5f * (rv0[s] + rvm[s]);
           return f * 0.5f * (wf[s] + wf[s + W]);
         };
-        dadv = dadv + div_rcp(adv_w_y(c) - adv_w_y(c - W), dy, rdy);
+        dadv = dadv + div_rcp(adv_w_y(c) - adv_w_y(c - n.ym), dy, rdy);
         const float dpz = div_rcp(pp0[c] - sm[PP * PLANE + c], dzf, rdzf);
         const float rp_face = 0.5f * ((rho0[c] - a.rho_ref[k]) +
                                       (sm[RHO * PLANE + c] - a.rho_ref[k - 1]));
         const float buoy = -rp_face * a.grav;
         dw = -dadv - dpz + buoy;
         if (diffuse)
-          dw = dw + stencil::hyperdiff4(der + LW * PLANE, a.kdiff4, c);
+          dw = dw + stencil::hyperdiff4(der + LW * PLANE, a.kdiff4, c, n);
         if (damp) {
           const float alpha_z = a.divdmp * dzf * dzf / a.dt;
           dw = dw + div_rcp(alpha_z * (div0 - dv_m1), dzf, rdzf);
@@ -318,15 +330,16 @@ extern "C" int dyn_tendency_launch(
     const void* dzc, const void* dzf, void* o_rho, void* o_rhou,
     void* o_rhov, void* o_rhow, void* o_rhot, int64_t B, int64_t nz,
     int64_t ny, int64_t nx, float dx, float dy, float kdiff4, float alpha_h,
-    float divdmp, float dt, float grav, void* stream) {
+    float divdmp, float dt, float grav, int open, void* stream) {
   const int64_t tiles_x = (nx + stencil::TX - 1) / stencil::TX;
   const int64_t tiles_y = (ny + stencil::TY - 1) / stencil::TY;
   if (B < 1 || nz < 2 || nx < 2 || ny < 2 || B > 65535 ||
       tiles_x * tiles_y > 0x7fffffff || ny * nx > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel =
+      open ? dyn_tendency_kernel<true> : dyn_tendency_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      dyn_tendency_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   Args a{static_cast<const float*>(rho),    static_cast<const float*>(rhou),
          static_cast<const float*>(rhov),   static_cast<const float*>(rhow),
@@ -340,7 +353,6 @@ extern "C" int dyn_tendency_launch(
          dx, dy, kdiff4, alpha_h, divdmp, dt, grav};
   const dim3 grid(static_cast<unsigned>(tiles_x * tiles_y),
                   static_cast<unsigned>(B));
-  dyn_tendency_kernel<<<grid, NT, SMEM_BYTES,
-                        static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<grid, NT, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

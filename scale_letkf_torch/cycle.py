@@ -7,9 +7,10 @@ the dynamics step (split-explicit HEVI for core = 'si', explicit RK3
 otherwise; stretched levels when the grid's are; terrain-following metrics
 when the topography is not flat, model/terrain.py), Davies relaxation toward
 lateral boundary data after every step (model/boundary.py, over the
-periodic stencils), and Kessler microphysics (use_physics) or the physics
-suite (phys_cfg: microphysics, radiation, surface layer, PBL and a slab skin
-temperature, model/physics_suite.py) every phys_interval steps. The members
+periodic stencils, or a nested child's open ones), and Kessler
+microphysics (use_physics) or the physics suite (phys_cfg: microphysics,
+radiation, surface layer, PBL and a slab skin temperature,
+model/physics_suite.py) every phys_interval steps. The members
 advance in batches sized from free device memory — a leading member axis
 through the whole step, in place of the reference's jax.vmap. Over flat
 ground every batch runs the two hand-written tendency kernels on a CUDA

@@ -14,6 +14,11 @@ and, within a level, over chunks of gridpoints, each chunk one batch:
              → deterministic-member update (transmd weights)
   post:      additive inflation (da/inflation.py), one member at a time
 
+A context carrying a good mask (DeviceObsContext.good, the fused cycle's
+in-graph QC, da/fastcycle.py) zeroes the weight of its bad candidates
+before the top-k, so they neither take selection slots nor touch the
+transform (reference da/letkf.py:294-301).
+
 Var-local dedup (letkf_tools.f90:129-163) is exact: the selection uses
 factor-1 weights; within one ctype the factor is one constant, so it never
 changes the per-ctype top-k order, and a factor of 0 removes the ctype,
@@ -160,6 +165,8 @@ def _select(plan: _Plan, dctx: DeviceObsContext, gp_x, gp_y, logp, z):
         nd2, rloc, rdiag = local_weights(
             cand, dctx.x, dctx.y, dctx.vert, dctx.err, gp_x, gp_y,
             z if cp.vert_is_z else logp, cp.hori_scale, cp.vert_scale)
+        if dctx.good is not None:   # padded candidates carry rloc 0 already
+            rloc.masked_fill_(~dctx.good[cand.clamp(min=0)], 0.0)
         if cp.max_nobs > 0:
             parts.append(limit_obs_topk(cand, nd2, rloc, rdiag, cp.max_nobs,
                                         plan.criterion))
@@ -295,6 +302,12 @@ def analyze_points(plan: _Plan, dctx: DeviceObsContext,
     anal_det = None if det is None else torch.empty_like(det)
     chunk = chunk_for(plan, dctx, B, K, device)
     use_rtps = plan.relax_alpha == 0.0 and plan.relax_alpha_spread != 0.0
+    # each var-local group's variables as a slice where they are
+    # consecutive, else an index tensor made once: indexing by a Python
+    # list would copy it from the host, and wait for the device, per chunk
+    groups = [slice(v[0], v[-1] + 1) if v == tuple(range(v[0], v[-1] + 1))
+              else torch.as_tensor(v, device=device)
+              for v in plan.group_vars]
 
     for lev in range(nz):
         with maybe_section(timer, "level"):
@@ -338,7 +351,7 @@ def analyze_points(plan: _Plan, dctx: DeviceObsContext,
                 if gi == 0 and plan.adaptive:
                     infl_out[lev, sl] = res.infl
                 with maybe_section(timer, "apply"):
-                    vi = list(vidx)
+                    vi = groups[gi]
                     pert_g = pert[vi]                             # (nvg,Bc,K)
                     if use_rtps:
                         # RTPS is per variable (xb = that variable's perts)
@@ -348,7 +361,7 @@ def analyze_points(plan: _Plan, dctx: DeviceObsContext,
                         w_tot = total_weight(trans_v, res.transm, beta)
                         upd = torch.einsum("vbk,vbkm->vbm", pert_g, w_tot)
                         if rtps_out is not None:
-                            for j, v in enumerate(vi):
+                            for j, v in enumerate(vidx):
                                 rtps_out[v, lev, sl] = m_g[j]
                     else:
                         trans = (weight_rtpp(res.trans, parm, plan.relax_alpha)

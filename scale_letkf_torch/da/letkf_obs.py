@@ -8,6 +8,8 @@ registry with per-ctype localization scales (:308-342), ensemble-mean
 departures and Hdx (:474-493), gross-error and radar min-member QC
 (:384-561), and the bucket sort of obs into per-ctype sorting meshes
 (:660-855). The context stays numpy; io/convert.py moves it to a device.
+A structural context (the fused cycle's, da/fastcycle.py) runs the static
+checks alone on an already preprocessed template.
 """
 
 from __future__ import annotations
@@ -207,19 +209,48 @@ def _sort_mesh(lo, typ: int, cutoff: float, max_nobs: int, grid: Grid):
     return spacing, nsch, cap_max
 
 
+def _static_qc(obs: Observations, qc_in: np.ndarray, cfg: Config):
+    """The checks that need no obs value or H(x): disabled radar kinds →
+    QC_OTYPE, undefined template values → QC_OBS_BAD."""
+    qc = qc_in.astype(np.int32).copy()
+    r = cfg.radar
+    is_ref = (obs.elem == ID_RADAR_REF) | (obs.elem == ID_RADAR_REF_ZERO)
+    if not r.use_radar_ref:
+        qc[is_ref & (qc == QC_GOOD)] = QC_OTYPE
+    if not r.use_radar_vr:
+        qc[(obs.elem == ID_RADAR_VR) & (qc == QC_GOOD)] = QC_OTYPE
+    qc[obs.dat == UNDEF] = QC_OBS_BAD
+    return qc
+
+
 def build_obs_context(
     obs: Observations,
-    ensval: np.ndarray,            # (K, nobs) raw ensemble H(x)
+    ensval: np.ndarray | None,     # (K, nobs) raw ensemble H(x)
     qc_in: np.ndarray,
     cfg: Config,
     grid: Grid,
     ensval_det: np.ndarray | None = None,
     hx_lev: np.ndarray | None = None,
+    structural: bool = False,
 ) -> ObsContext:
-    """The set_letkf_obs pipeline → ObsContext with per-ctype buckets."""
-    obs = preprocess_radar_obs(obs, cfg)
-    dep, hdxb, qc, depd = qc_and_departures(obs, ensval, qc_in, cfg,
-                                            ensval_det, hx_lev)
+    """The set_letkf_obs pipeline → ObsContext with per-ctype buckets.
+
+    structural=True builds the template-only context of the fused cycle
+    (da/fastcycle.py), whose obs values are inputs of each cycle: no
+    value-dependent preprocessing or QC runs — the template must already be
+    preprocessed (preprocess_radar_obs) — only the static checks
+    (_static_qc). Every obs passing them enters the buckets; dep and hdxb
+    are zeros (K columns, 2 without ensval), and the per-cycle gross-error
+    and radar min-member checks are the fused cycle's good mask."""
+    if structural:
+        obs = obs.select(slice(None))  # copy
+        qc = _static_qc(obs, qc_in, cfg)
+        K = 2 if ensval is None else int(ensval.shape[0])
+        dep, hdxb, depd = np.zeros(obs.nobs), np.zeros((obs.nobs, K)), None
+    else:
+        obs = preprocess_radar_obs(obs, cfg)
+        dep, hdxb, qc, depd = qc_and_departures(obs, ensval, qc_in, cfg,
+                                                ensval_det, hx_lev)
     good = qc == QC_GOOD
     x, y = grid.proj.lonlat_to_xy(obs.lon, obs.lat)
 

@@ -57,6 +57,63 @@ class ObsOpeResult:
     val2: np.ndarray | None = None
 
 
+@dataclass
+class HxGeometry:
+    """The obs geometry of compute_hx_single on the fields' device: grid
+    indices, heights or pressures, wind rotation and elements of every obs;
+    the radar beam angles and height limit when radar obs are present; the
+    H08 obs's indices, bands, satellite zenith angles and out-of-domain
+    flags when H08 obs are present (else None). Computed on the host in
+    float64 (hx_geometry) and cast once; a fixed network keeps it."""
+    ri: torch.Tensor
+    rj: torch.Tensor
+    lev: torch.Tensor
+    rot: tuple
+    elem: torch.Tensor
+    radar: torch.Tensor | None = None
+    radar_az: torch.Tensor | None = None
+    radar_elev: torch.Tensor | None = None
+    radar_at_site: torch.Tensor | None = None
+    radar_too_high: torch.Tensor | None = None
+    h08: torch.Tensor | None = None
+    h08_band: np.ndarray | None = None
+    h08_zenith: torch.Tensor | None = None
+    h08_out: torch.Tensor | None = None
+
+
+def hx_geometry(obs: Observations, grid: Grid, cfg: Config,
+                dtype: torch.dtype, device: torch.device) -> HxGeometry:
+    """HxGeometry of `obs` in `dtype` on `device`."""
+    def put(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    ri_h, rj_h = grid.lonlat_to_ij(obs.lon, obs.lat)
+    g = HxGeometry(ri=put(ri_h), rj=put(rj_h), lev=put(obs.lev),
+                   rot=tuple(put(a) for a in grid.proj.rotcoef(obs.lon,
+                                                               obs.lat)),
+                   elem=torch.as_tensor(obs.elem, device=device))
+    radar_h = is_radar_elem(obs.elem)
+    if radar_h.any():
+        az, elev, at_site = op.radar_geometry(obs.lon, obs.lat, obs.lev,
+                                              *obs.meta)
+        g.radar = torch.as_tensor(radar_h, device=device)
+        g.radar_az, g.radar_elev = put(az), put(elev)
+        g.radar_at_site = torch.as_tensor(at_site, device=device)
+        # radar height limit (RADAR_ZMAX, common_nml.f90:278)
+        g.radar_too_high = torch.as_tensor(
+            radar_h & (obs.lev > cfg.radar.radar_zmax), device=device)
+    h08 = np.nonzero(obs.elem == ID_H08IR)[0]
+    if len(h08):
+        ny, nx = grid.ny, grid.nx
+        g.h08 = torch.as_tensor(h08, device=device)
+        g.h08_band = obs.lev[h08]
+        g.h08_zenith = put(satellite_zenith(obs.lon[h08], obs.lat[h08]))
+        g.h08_out = torch.as_tensor(
+            (ri_h[h08] < 0) | (ri_h[h08] > nx - 1) | (rj_h[h08] < 0)
+            | (rj_h[h08] > ny - 1), device=device)
+    return g
+
+
 def compute_hx_single(fields: dict, obs: Observations, grid: Grid,
                       cfg: Config, z_full: torch.Tensor,
                       with_aux: bool = False):
@@ -65,72 +122,55 @@ def compute_hx_single(fields: dict, obs: Observations, grid: Grid,
     (lev, val2), the H08 sensitive pressure and clear-sky BT (zero for the
     other obs)."""
     t = fields["t"]
+    return hx_of_geometry(fields, hx_geometry(obs, grid, cfg, t.dtype,
+                                              t.device),
+                          cfg, z_full, with_aux)
 
-    def put(a):
-        return torch.as_tensor(np.asarray(a), dtype=t.dtype, device=t.device)
 
-    ri_h, rj_h = grid.lonlat_to_ij(obs.lon, obs.lat)
-    ri, rj, lev = put(ri_h), put(rj_h), put(obs.lev)
-    rot = tuple(put(a) for a in grid.proj.rotcoef(obs.lon, obs.lat))
-    elem = torch.as_tensor(obs.elem, device=t.device)
-
+def hx_of_geometry(fields: dict, g: HxGeometry, cfg: Config,
+                   z_full: torch.Tensor, with_aux: bool = False):
+    """compute_hx_single from the obs geometry g: device work alone, no
+    transfer from the host."""
     # vertical coordinate: height for radar obs, log-p for the others
-    rk, qc_vert = op.phys2ijk(fields["p"], elem, ri, rj, lev)
-    radar_h = is_radar_elem(obs.elem)
-    has_radar = bool(radar_h.any())
-    if has_radar:
-        radar = torch.as_tensor(radar_h, device=t.device)
-        rk_z, qc_z = op.phys2ijkz(z_full, ri, rj, lev)
-        rk = torch.where(radar, rk_z, rk)
-        qc_vert = torch.where(radar, qc_z, qc_vert)
+    rk, qc_vert = op.phys2ijk(fields["p"], g.elem, g.ri, g.rj, g.lev)
+    if g.radar is not None:
+        rk_z, qc_z = op.phys2ijkz(z_full, g.ri, g.rj, g.lev)
+        rk = torch.where(g.radar, rk_z, rk)
+        qc_vert = torch.where(g.radar, qc_z, qc_vert)
 
-    y, qc = op.trans_xtoy_conv(elem, ri, rj, rk, rot, fields,
+    y, qc = op.trans_xtoy_conv(g.elem, g.ri, g.rj, rk, g.rot, fields,
                                ps_adjust_thres=cfg.letkf.ps_adjust_thres)
-    if has_radar:
+    if g.radar is not None:
         r = cfg.radar
-        az, elev, at_site = op.radar_geometry(obs.lon, obs.lat, obs.lev,
-                                              *obs.meta)
         y_rad, qc_rad = op.trans_xtoy_radar(
-            elem, ri, rj, rk, rot, put(az), put(elev),
-            torch.as_tensor(at_site, device=t.device), fields,
-            method=r.method_ref_calc,
+            g.elem, g.ri, g.rj, rk, g.rot, g.radar_az, g.radar_elev,
+            g.radar_at_site, fields, method=r.method_ref_calc,
             use_terminal_velocity=r.use_terminal_velocity,
             min_radar_ref=r.min_radar_ref,
             min_radar_ref_dbz=r.min_radar_ref_dbz,
             low_ref_shift=r.low_ref_shift)
-        y = torch.where(radar, y_rad, y)
-        qc = torch.where(radar, qc_rad, qc)
+        y = torch.where(g.radar, y_rad, y)
+        qc = torch.where(g.radar, qc_rad, qc)
     qc = torch.maximum(qc, qc_vert)
-    if has_radar:
-        # radar height limit (RADAR_ZMAX, common_nml.f90:278)
-        too_high = torch.as_tensor(radar_h & (obs.lev > cfg.radar.radar_zmax),
-                                   device=t.device)
-        qc = torch.where(too_high, QC_RADAR_VHI, qc)
+    if g.radar is not None:
+        qc = torch.where(g.radar_too_high, QC_RADAR_VHI, qc)
 
     # Himawari-8 IR radiances (Trans_XtoY_H08; the band in obs lev,
     # letkf_obs.f90:463-465), on the H08 obs alone; they bypass the
     # vertical QC of phys2ijk
     if with_aux:
         lev_aux, val2 = torch.zeros_like(y), torch.zeros_like(y)
-    h08 = np.nonzero(obs.elem == ID_H08IR)[0]
-    if len(h08):
+    if g.h08 is not None:
         h = cfg.h08
-        idx = torch.as_tensor(h08, device=t.device)
-        ri_s, rj_s = ri[idx], rj[idx]
         y_h, bclr, plev, qc_h = trans_xtoy_h08(
-            obs.lev[h08], ri_s, rj_s,
-            put(satellite_zenith(obs.lon[h08], obs.lat[h08])), fields,
+            g.h08_band, g.ri[g.h08], g.rj[g.h08], g.h08_zenith, fields,
             ch_use=h.h08_ch_use, cldsky_thrs=h.h08_cldsky_thrs,
             reject_land=h.h08_reject_land)
-        ny, nx = fields["ps"].shape[-2:]
-        out_h = torch.as_tensor(
-            (ri_h[h08] < 0) | (ri_h[h08] > nx - 1) | (rj_h[h08] < 0)
-            | (rj_h[h08] > ny - 1), device=t.device)
-        y[..., idx] = y_h
-        qc[..., idx] = torch.where(out_h, QC_OUT_H, qc_h)
+        y[..., g.h08] = y_h
+        qc[..., g.h08] = torch.where(g.h08_out, QC_OUT_H, qc_h)
         if with_aux:
-            lev_aux[..., idx] = plev
-            val2[..., idx] = bclr
+            lev_aux[..., g.h08] = plev
+            val2[..., g.h08] = bclr
     if with_aux:
         return y, qc, lev_aux, val2
     return y, qc

@@ -7,11 +7,12 @@ hold against the reference package.
 
 - Stencil kernels: random states (seeded numpy) at the shapes of
   RAGGED_SHAPES — tiles cut by the edge, axes narrower than a tile and its
-  halo, so the periodic halo wraps more than once — with the uniform and
+  halo, so the periodic halo wraps more than once and the open one clamps
+  to an edge cell it shares with the other side — with the uniform and
   the 18-km stretched metric, divdmp 0 / 0.05 and kdiff4 0 / 1e-3, and
-  1 or 6 tracers. Bounds per field, relative to max|plain|: TOL_TENDENCY
-  and TOL_STENCIL, the reference's bounds for its Pallas kernels against
-  its XLA path (tests/test_pallas_tendency.py:53,
+  1 or 6 tracers, in either lateral mode. Bounds per field, relative to
+  max|plain|: TOL_TENDENCY and TOL_STENCIL, the reference's bounds for its
+  Pallas kernels against its XLA path (tests/test_pallas_tendency.py:53,
   tests/test_pallas_stencil.py:43).
 
 - Analysis: the config coarsened to 24×20×4 with K = 20 (float32, so the
@@ -155,13 +156,15 @@ def metrics(nz: int, device: torch.device) -> dict:
                                            device)}
 
 
-def dyn_operands(s, rho_ref, p_pert, vg, divdmp: float, kdiff4: float):
+def dyn_operands(s, rho_ref, p_pert, vg, divdmp: float, kdiff4: float,
+                 lateral: str = "periodic"):
     return (s.rho, s.rhou, s.rhov, s.rhow, s.rhot, p_pert, rho_ref, vg.dzc,
-            vg.dzf, DX, DX, kdiff4, divdmp, DT)
+            vg.dzf, DX, DX, kdiff4, divdmp, DT, lateral)
 
 
-def adv_operands(s, vg, kdiff4: float):
-    return (s.rhoq, s.rho, s.rhou, s.rhov, s.rhow, vg.dzc, DX, DX, kdiff4)
+def adv_operands(s, vg, kdiff4: float, lateral: str = "periodic"):
+    return (s.rhoq, s.rho, s.rhou, s.rhov, s.rhow, vg.dzc, DX, DX, kdiff4,
+            lateral)
 
 
 def rel_errors(out, ref) -> list[float]:
@@ -171,11 +174,11 @@ def rel_errors(out, ref) -> list[float]:
 
 
 def stencil_cases(B: int, nz: int, ny: int, nx: int, device: torch.device,
-                  seed: int = 0):
+                  seed: int = 0, lateral: str = "periodic"):
     """Yields (kernel name, case label, tolerance, kernel function, plain
-    function, operands) for every case of one shape: dyn_tendency under
-    both metrics, divdmp 0 / 0.05 and kdiff4 0 / 1e-3; adv_ud3 with 1 and
-    6 tracers under both metrics and kdiff4 0 / 1e-3."""
+    function, operands) for every case of one shape in one lateral mode:
+    dyn_tendency under both metrics, divdmp 0 / 0.05 and kdiff4 0 / 1e-3;
+    adv_ud3 with 1 and 6 tracers under both metrics and kdiff4 0 / 1e-3."""
     s, rho_ref, p_pert = random_dyn_state(seed, B, nz, ny, nx, device)
     for metric, vg in metrics(nz, device).items():
         for divdmp in (0.0, 0.05):
@@ -184,26 +187,29 @@ def stencil_cases(B: int, nz: int, ny: int, nx: int, device: torch.device,
                        f"{metric}, divdmp {divdmp}, kdiff4 {kdiff4}",
                        TOL_TENDENCY, tendency.dyn_tendencies_kernel,
                        tendency.dyn_tendencies_plain,
-                       dyn_operands(s, rho_ref, p_pert, vg, divdmp, kdiff4))
+                       dyn_operands(s, rho_ref, p_pert, vg, divdmp, kdiff4,
+                                    lateral))
         for nq in (1, 6):
             sq = s._replace(rhoq=s.rhoq[:, :nq].contiguous())
             for kdiff4 in (0.0, 1e-3):
                 yield ("adv_ud3", f"{metric}, nq {nq}, kdiff4 {kdiff4}",
                        TOL_STENCIL, stencil.adv_flux_divergence_kernel,
                        stencil.adv_flux_divergence_plain,
-                       adv_operands(sq, vg, kdiff4))
+                       adv_operands(sq, vg, kdiff4, lateral))
 
 
 def ragged_kernels_vs_plain(device: torch.device, kernel_name: str,
-                            shapes=RAGGED_SHAPES, seed: int = 0) -> list:
+                            shapes=RAGGED_SHAPES, seed: int = 0,
+                            lateral: str = "periodic") -> list:
     """Stencil kernel `kernel_name` against its plain version on every case
-    of every shape of `shapes`, the kernel run twice (a race shows as a
-    mismatch that comes and goes). Returns one row per case with the worst
-    relative error over the fields and both runs (≤ tol passes)."""
+    of every shape of `shapes` in one lateral mode, the kernel run twice (a
+    race shows as a mismatch that comes and goes). Returns one row per case
+    with the worst relative error over the fields and both runs (≤ tol
+    passes)."""
     rows = []
     for shape in shapes:
         for name, label, tol, kernel, plain, args in stencil_cases(
-                *shape, device, seed):
+                *shape, device, seed, lateral):
             if name != kernel_name:
                 continue
             ref = plain(*args)
@@ -214,7 +220,7 @@ def ragged_kernels_vs_plain(device: torch.device, kernel_name: str,
                 errs += rel_errors(out if isinstance(out, tuple) else (out,),
                                    ref)
             rows.append({"kernel": name, "shape": list(shape), "case": label,
-                         "tol": tol, "rel_err": max(errs),
+                         "lateral": lateral, "tol": tol, "rel_err": max(errs),
                          "finite": all(np.isfinite(errs))})
     return rows
 
@@ -699,6 +705,10 @@ def _err_floor(names, dev_out, cpu_out, cpu_rounded, init):
     err, floor = {}, {}
     for name, a, b, c, f0 in zip(names, dev_out, cpu_out, cpu_rounded, init):
         scale = 1e-4 * np.abs(b - np.asarray(f0)).max()
+        if scale == 0:      # a field the run leaves as it was (dry tracers)
+            floor[name] = 0.0 if np.array_equal(c, b) else np.inf
+            err[name] = 0.0 if np.array_equal(a, b) else np.inf
+            continue
         floor[name] = float(np.abs(c - b).max() / scale)
         err[name] = float(np.abs(a - b).max() / (scale * (1 + 2 * floor[name])))
     return err, floor
@@ -1970,3 +1980,267 @@ def executors_check_passes(res: dict) -> bool:
     ok = ok and v["kernel_launches"]["device"]["invsqrt_ns"] > 0
     ok = ok and not any(v["kernel_launches"]["cpu"].values())
     return ok and v["meta"] == {"cycles": 1, "streamed": True}
+
+
+# --- one-way nesting and the fused cycle (nested_small, fused_small) -------
+# tests/test_cli_nested.py's experiment (16×16×6 parent at 3 km, a ratio-2
+# 16×16×6 child at dt 1 s, K = 4), the child's lateral boundaries open, so
+# on the card its slow tendencies run kernels #2 and #3 in the open mode
+NEST_VERB_CONFIG = """
+[domain]
+nx = 16
+ny = 16
+nz = 6
+dx = 3000.0
+dy = 3000.0
+dz = 500.0
+dt = 2.0
+
+[nest]
+i0 = 4.0
+j0 = 4.0
+ratio = 2
+nx = 16
+ny = 16
+nz = 6
+dz = 500.0
+dt = 1.0
+bdy_width = 4
+bdy_tau = 60.0
+lateral = "open"
+
+[ensemble]
+member = 4
+
+[letkf]
+infl_mul = 1.05
+
+[letkf_obs]
+hori_local = [9.0e3, {rest}]
+
+[obs_error]
+t = 0.1
+u = 0.1
+v = 0.1
+""".format(rest=", ".join(["-1.0"] * 23))
+NEST_VERB_STEPS = 4
+
+
+def _nest_verb_inputs(t, seed: int) -> None:
+    """tests/test_cli_nested.py's inputs made by the port on the CPU in
+    directory t: the parent init (a warm bubble, K perturbed members), the
+    child init (parent_to_child of it), both again rounded once, and one
+    cycle's obs in each domain from the nature run advanced
+    NEST_VERB_STEPS steps."""
+    from scale_letkf_torch.cli.main import make_driver, make_nested
+    from scale_letkf_torch.da.obsmake import make_obs_network, obsmake
+    from scale_letkf_torch.io import checkpoint
+    from scale_letkf_torch.model.ideal import (
+        add_warm_bubble, balanced_state, perturb_ensemble)
+    from scale_letkf_torch.model.nesting import parent_to_child
+    from scale_letkf_torch.obs import io as obsio
+    cpu = torch.device("cpu")
+    cfg, grid, dycfg, dom = load_config_and_grid(str(t / "exp.toml"))
+    parent = make_driver(cfg, grid, dycfg, dom, cpu)
+    child, geom, _ = make_nested(cfg, grid, dycfg, dom, cpu)
+    s0, _, _ = balanced_state(grid.nz, grid.ny, grid.nx, 500.0)
+    s0 = add_warm_bubble(s0, 500.0, grid.dx, grid.dy, amplitude=2.0,
+                         center=(grid.nx * grid.dx / 2,
+                                 grid.ny * grid.dy / 2, 1.5e3),
+                         radius=(9e3, 9e3, 1.2e3))
+    allp = perturb_ensemble(torch.Generator().manual_seed(seed), s0,
+                            cfg.ensemble.member + 1, amplitude=0.5)
+    truth = dycore.DycoreState(*(f[0] for f in allp))
+    p_ens = dycore.DycoreState(*(f[1:] for f in allp))
+    cshape = (child.grid.nz, child.grid.ny, child.grid.nx)
+    c_ens = parent_to_child(p_ens, geom, cshape, grid.cz, child.grid.cz)
+    gen = torch.Generator().manual_seed(seed + 1)
+    for name, e in (("init", p_ens), ("cinit", c_ens),
+                    ("init_rounded", _rounded(p_ens, gen)),
+                    ("cinit_rounded", _rounded(c_ens, gen))):
+        checkpoint.save_ensemble(t / name, e, basename="anal.@@@@")
+    rng = np.random.default_rng(seed)
+    truth = parent.forecast_one(truth, NEST_VERB_STEPS)
+    nf = state_to_history(state_trans(dycore.to_collocated(truth)),
+                          parent.z_full, parent.topo)
+    obsio.write_obs(str(t / "obs0.dat"), obsmake(
+        nf, make_obs_network(grid, rng, n_profiles=12,
+                             levels_hpa=(950.0, 850.0)),
+        grid, cfg, parent.z_full, rng))
+    ctruth = parent_to_child(truth, geom, cshape, grid.cz, child.grid.cz)
+    cnf = state_to_history(state_trans(dycore.to_collocated(ctruth)),
+                           child.z_full, child.topo)
+    obsio.write_obs(str(t / "cobs0.dat"), obsmake(
+        cnf, make_obs_network(child.grid, rng, n_profiles=8,
+                              levels_hpa=(950.0, 850.0)),
+        child.grid, cfg, child.z_full, rng))
+
+
+def nested_verb_vs_cpu(device: torch.device, seed: int = 0) -> dict:
+    """The cycle verb with a [nest] section (NEST_VERB_CONFIG, the child
+    open) on `device` and on the CPU, and once more on the CPU from both
+    inits rounded once, in a temporary directory: one cycle of
+    NEST_VERB_STEPS parent steps. Per restart field of the parent's and the
+    child's analysis: |Δ| within 1e-4·max|Δ|·(1 + 2·floor) (≤ 1 passes);
+    the stencil kernels' launches on each device."""
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+    from scale_letkf_torch.cli.main import main
+    from scale_letkf_torch.io import checkpoint
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = Path(tmp)
+        (t / "exp.toml").write_text(NEST_VERB_CONFIG)
+        _nest_verb_inputs(t, seed)
+        for key, dev, sfx in (("device", str(device), ""),
+                              ("cpu", "cpu", ""),
+                              ("cpu_rounded", "cpu", "_rounded")):
+            before = dict(kernels.LAUNCHES)
+            with contextlib.redirect_stdout(io.StringIO()):
+                main(["cycle", "--config", str(t / "exp.toml"), "--init",
+                      str(t / f"init{sfx}"), "--cycles", "1",
+                      "--steps-per-cycle", str(NEST_VERB_STEPS),
+                      "--obs-pattern", str(t / "obs{cycle}.dat"),
+                      "--nest-init", str(t / f"cinit{sfx}"),
+                      "--nest-obs-pattern", str(t / "cobs{cycle}.dat"),
+                      "--out", str(t / f"out_{key}"), "--device", dev])
+            launches[key] = _launches(before)
+
+        def load(d):
+            parent, _, _ = checkpoint.load_ensemble(t / d)
+            child, _, _ = checkpoint.load_ensemble(t / d / "nest")
+            return [*parent, *child]
+        names = ([f"parent.{n}" for n in dycore.DycoreState._fields]
+                 + [f"child.{n}" for n in dycore.DycoreState._fields])
+        init = [*checkpoint.load_ensemble(t / "init")[0],
+                *checkpoint.load_ensemble(t / "cinit")[0]]
+        out = load("out_device")
+        err, floor = _err_floor(names, out, load("out_cpu"),
+                                load("out_cpu_rounded"), init)
+    return {"config": "tests/test_cli_nested.py's, child open",
+            "steps": NEST_VERB_STEPS, "kernel_launches": launches,
+            "finite": all(bool(np.isfinite(f).all()) for f in out),
+            "rounding_floor_over_1e-4_increment": floor,
+            "max_err_over_tol": err}
+
+
+def dbz_template(fields: dict, template: Observations, grid, cfg,
+                 z_full: torch.Tensor,
+                 rng: np.random.Generator) -> Observations:
+    """A fixed radar network valued from history fields and preprocessed as
+    the fused cycle takes it (synthetic.obs_from_truth's values): H(x) plus
+    noise at the obs errors, reflectivity to linear Z with the gates below
+    the echo floor (QC_REF_LOW) weak echoes at half MIN_RADAR_REF, then
+    preprocess_radar_obs (dBZ and the ref-zero relabelling). Gates whose
+    operator QC failed otherwise are dropped."""
+    from scale_letkf_torch.da.letkf_obs import preprocess_radar_obs
+    from scale_letkf_torch.da.obsope import compute_hx_single
+    from scale_letkf_torch.obs.types import QC_GOOD, QC_REF_LOW
+    y, qc = compute_hx_single(fields, template, grid, cfg, z_full)
+    y, qc = y.cpu().numpy().astype(np.float64), qc.cpu().numpy()
+    keep = (qc == QC_GOOD) | (qc == QC_REF_LOW)
+    obs = template.select(keep)
+    dat = y[keep] + rng.standard_normal(int(keep.sum())) * obs.err
+    ref = obs.elem == ID_RADAR_REF
+    dat[ref] = 10.0 ** (dat[ref] / 10.0)
+    dat[ref & (qc[keep] == QC_REF_LOW)] = 0.5 * cfg.radar.min_radar_ref
+    obs.dat = dat
+    return preprocess_radar_obs(obs, cfg)
+
+
+def fused_launches(cfg, grid, steps: int, batches: int, chunk: int) -> dict:
+    """Launches of each kernel in one FusedCycle step on the card: as
+    expected_launches without a nature run."""
+    out = expected_launches(cfg, grid, steps, batches, chunk)
+    fcst = 3 * steps * batches
+    return {**out, "dyn_tendency": fcst, "adv_ud3": fcst}
+
+
+def fused_vs_cpu(device: torch.device, config: str, seed: int = 0) -> dict:
+    """One FusedCycle step (RADAR_STEPS forecast steps + the assimilation)
+    of the radar configuration at COARSE_RADAR with K = MEMBERS_CYCLE, on
+    `device` and twice on the CPU (the second from inputs rounded once):
+    the ensemble with rain blobs, the fixed network radar_template's 400
+    REF and VR gates valued from the nature run at the window's end
+    (dbz_template), the obs values the template's. Per restart field: |Δ| within
+    1e-4·max|Δ|·(1 + 2·floor); nobs_used, O−B and O−A, and the kernels'
+    launches on each device."""
+    from scale_letkf_torch.cli.main import make_driver
+    from scale_letkf_torch.da.fastcycle import FusedCycle
+    cfg, grid, dycfg, dom = load_config_and_grid(config, COARSE_RADAR)
+    cfg.ensemble.member = K = MEMBERS_CYCLE
+    cpu = torch.device("cpu")
+    kw = {"u0": 5.0, "qr_blob": RADAR_QR_BLOB}
+    ens0, _, _ = synthetic_ens_dycore_device(seed, K, grid, dom, cpu, **kw)
+    nat, _, _ = synthetic_ens_dycore_device(seed + 1, 1, grid, dom, cpu, **kw)
+    d_cpu = make_driver(cfg, grid, dycfg, dom, cpu)
+    truth = d_cpu.forecast_one(type(nat)(*(f[0] for f in nat)), RADAR_STEPS)
+    template = dbz_template(
+        state_to_history(state_trans(dycore.to_collocated(truth)),
+                         d_cpu.z_full, d_cpu.topo),
+        radar_template(grid, dom, seed), grid, cfg, d_cpu.z_full,
+        np.random.default_rng(seed))
+    gen = torch.Generator().manual_seed(seed + 6)
+    runs = {}
+    for key, dev, e0 in (("device", device, ens0), ("cpu", cpu, ens0),
+                         ("cpu_rounded", cpu, _rounded(ens0, gen))):
+        driver = make_driver(cfg, grid, dycfg, dom, dev)
+        fc = FusedCycle(driver, template, RADAR_STEPS)
+        before = dict(kernels.LAUNCHES)
+        ens, _, diag = fc.step(type(e0)(*(f.to(dev) for f in e0)),
+                               torch.as_tensor(fc.template.dat,
+                                               dtype=torch.float32,
+                                               device=dev),
+                               fc.initial_inflation())
+        runs[key] = {"state": [f.cpu().numpy() for f in ens],
+                     "nobs_used": int(diag["nobs_used"]),
+                     "omb": float(diag["omb_rmse"]),
+                     "oma": float(diag["oma_rmse"]),
+                     "launches": _launches(before),
+                     "expected": fused_launches(cfg, grid, RADAR_STEPS,
+                                                -(-K // driver.batch),
+                                                diag["chunk"])}
+    err, floor = _err_floor(ens0._fields, runs["device"]["state"],
+                            runs["cpu"]["state"],
+                            runs["cpu_rounded"]["state"], ens0)
+    dev_, cpu_ = runs["device"], runs["cpu"]
+    return {"grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members": K,
+            "steps": RADAR_STEPS, "template_obs": int(template.nobs),
+            "nobs_used": {"device": dev_["nobs_used"],
+                          "cpu": cpu_["nobs_used"]},
+            "omb": {"device": dev_["omb"], "cpu": cpu_["omb"]},
+            "oma": {"device": dev_["oma"], "cpu": cpu_["oma"]},
+            "kernel_launches": {k: runs[k]["launches"]
+                                for k in ("device", "cpu")},
+            "expected_launches": dev_["expected"],
+            "finite": all(bool(np.isfinite(f).all()) for f in dev_["state"]),
+            "rounding_floor_over_1e-4_increment": floor,
+            "max_err_over_tol": err}
+
+
+def nesting_fused_vs_cpu(device: torch.device, radar_config: str,
+                         seed: int = 0) -> dict:
+    """nested_verb_vs_cpu and fused_vs_cpu together."""
+    return {"nested_verb": nested_verb_vs_cpu(device, seed),
+            "fused": fused_vs_cpu(device, radar_config, seed)}
+
+
+def nesting_fused_check_passes(res: dict) -> bool:
+    """Whether nesting_fused_vs_cpu's result passes: every error within its
+    bound, finite, the stencil kernels launched on the device and never on
+    the CPU, the fused step's launches as expected on the device, its
+    nobs_used equal on both and O−A below O−B."""
+    nv, fu = res["nested_verb"], res["fused"]
+    ok_err = all(e <= 1 for r in (nv, fu)
+                 for e in r["max_err_over_tol"].values())
+    nv_l = nv["kernel_launches"]
+    fu_l = fu["kernel_launches"]
+    return (ok_err and nv["finite"] and fu["finite"]
+            and all(nv_l["device"][k] > 0 and nv_l["cpu"][k] == 0
+                    for k in ("dyn_tendency", "adv_ud3"))
+            and fu_l["device"] == fu["expected_launches"]
+            and not any(fu_l["cpu"].values())
+            and fu["nobs_used"]["device"] == fu["nobs_used"]["cpu"] > 0
+            and fu["oma"]["device"] < fu["omb"]["device"])

@@ -44,6 +44,9 @@ class DeviceObsContext:
     tables: list[torch.Tensor]   # (mesh_ny, mesh_nx, cap) int32
     depd: torch.Tensor | None = None   # (nobs,) deterministic-member
                                        # departures (DET_RUN)
+    good: torch.Tensor | None = None   # (nobs,) bool in-graph QC mask (the
+                                       # fused cycle's): bad obs lose their
+                                       # localization weight
 
 
 def obs_context_to_device(ctx: ObsContext, device: torch.device,

@@ -3,9 +3,9 @@
 Port of scale_letkf_tpu/model/boundary.py: within a buffer of `width`
 cells from the lateral edges the prognostic fields are nudged toward a
 time-interpolated boundary target with a cosine-shaped weight (Davies
-1976). The dynamical core's stencils stay periodic: with a relaxation
-buffer at least as wide as the stencil, the wrap-around fluxes see only
-boundary-relaxed values.
+1976). Over periodic stencils a relaxation buffer at least as wide as the
+stencil leaves the wrap-around fluxes only boundary-relaxed values; a
+nested child (nested.py) relaxes over open, edge-clamped ones.
 
 A boundary target is shared by all members (its fields have the shape of
 one member) or per member (a leading member axis). The boundary file is the

@@ -165,9 +165,8 @@ def tendencies(s: DycoreState, cfg: DycoreConfig, rho_ref: torch.Tensor,
     five dynamics fields (kernel #2, ops/tendency.py) and the NQ tracers
     (kernel #3, ops/stencil.py). The device decides the path: CUDA tensors
     always go through the two hand-written kernels, one launch each (a
-    single member runs as a batch of one), with periodic lateral boundaries
-    only (open ones raise NotImplementedError); CPU tensors through their
-    plain versions, periodic or open."""
+    single member runs as a batch of one), CPU tensors through their plain
+    versions; either in both lateral modes."""
     _check_lateral(cfg.lateral)
     if s.rho.is_cuda and s.rho.dim() == 3:
         out = tendencies(DycoreState(*(f[None] for f in s)), cfg, rho_ref,

@@ -92,9 +92,9 @@ def ns_operands(c_mat: torch.Tensor, smin: torch.Tensor):
     bump = torch.clamp(EIG_FLOOR - m, min=0.0)
     a = torch.zeros((B, kp, kp), dtype=c_mat.dtype, device=c_mat.device)
     a[:, :K, :K] = c_mat / c[:, None, None]
-    if kp > K:
-        idx = torch.arange(K, kp, device=c_mat.device)
-        a[:, idx, idx] = 1.0
+    # the padding's identity, filled through a view: an index-put of a
+    # Python number would copy it from the host and wait for the device
+    a.diagonal(dim1=1, dim2=2)[:, K:] = 1.0
     areg = a.clone()
     diag = torch.arange(K, device=c_mat.device)
     areg[:, diag, diag] += bump[:, None]

@@ -7,8 +7,10 @@ periodic x/y, on uniform dz. The port's kernel (csrc/adv_ud3.cu) covers all
 NQ tracers of all members of a batch in one launch (replacing the
 `vmap(scalar_tend)` of dycore.tendencies), takes the vertical metric as
 per-level cell thicknesses dzc, divides ρq by ρ itself (φ = ρq/ρ, no
-floor, as dycore.scalar_tend) and adds the tracer's hyperdiffusion
-−kdiff4 ∇⁴(ρq) when kdiff4 ≠ 0 (kdiff4 = 0 is the Pallas kernel's scope).
+floor, as dycore.scalar_tend), adds the tracer's hyperdiffusion
+−kdiff4 ∇⁴(ρq) when kdiff4 ≠ 0 (kdiff4 = 0 is the Pallas kernel's scope),
+and takes both lateral modes: periodic, and open (edge-clamped x/y, which
+the reference computes in plain XLA).
 
 `adv_flux_divergence_plain` is the same function in plain PyTorch (the
 kernel's yardstick and the CPU path); `scalar_tendency` is its one-field
@@ -68,15 +70,25 @@ def _check_cuda_f32(name: str, device, **tensors):
             raise ValueError(f"{name}: {k} is not contiguous")
 
 
+def lateral_flag(lateral: str) -> int:
+    """The kernels' lateral argument: 1 for 'open', 0 for 'periodic'."""
+    if lateral not in ("periodic", "open"):
+        raise ValueError(f"unknown lateral mode {lateral!r} (valid: "
+                         f"'periodic', 'open')")
+    return int(lateral == "open")
+
+
 def adv_flux_divergence_kernel(q, rho, fx, fy, fw, dzc, dx: float, dy: float,
-                               kdiff4: float = 0.0):
-    """adv_flux_divergence_plain's contract (periodic x/y) on the CUDA
-    kernel: q (B, NQ, nz, ny, nx), rho/fx/fy (B, nz, ny, nx), fw (B, nz+1,
-    ny, nx), dzc (nz,) or (nz, 1, 1); one launch on the current stream, no
-    synchronisation. Raises on what the kernel does not take and on a
+                               kdiff4: float = 0.0,
+                               lateral: str = "periodic"):
+    """adv_flux_divergence_plain's contract on the CUDA kernel: q (B, NQ,
+    nz, ny, nx), rho/fx/fy (B, nz, ny, nx), fw (B, nz+1, ny, nx), dzc (nz,)
+    or (nz, 1, 1), x/y periodic or open; one launch on the current stream,
+    no synchronisation. Raises on what the kernel does not take and on a
     non-zero launch status."""
     if not rho.is_cuda:
         raise ValueError("adv_flux_divergence_kernel takes CUDA tensors")
+    open_ = lateral_flag(lateral)
     dzc = dzc.reshape(-1)
     _check_cuda_f32("adv_flux_divergence_kernel", rho.device, q=q, rho=rho,
                     fx=fx, fy=fy, fw=fw, dzc=dzc)
@@ -105,7 +117,7 @@ def adv_flux_divergence_kernel(q, rho, fx, fy, fw, dzc, dx: float, dy: float,
         status = lib.adv_ud3_launch(
             q.data_ptr(), rho.data_ptr(), fx.data_ptr(), fy.data_ptr(),
             fw.data_ptr(), dzc.data_ptr(), out.data_ptr(),
-            B, nq, nz, ny, nx, dx, dy, kdiff4, stream)
+            B, nq, nz, ny, nx, dx, dy, kdiff4, open_, stream)
     if status != 0:
         raise RuntimeError(f"adv_ud3 kernel launch failed: CUDA error "
                            f"{status}")
@@ -113,23 +125,13 @@ def adv_flux_divergence_kernel(q, rho, fx, fy, fw, dzc, dx: float, dy: float,
     return out
 
 
-def require_periodic(lateral: str) -> None:
-    """The kernels wrap x and y periodically: raise for anything else."""
-    if lateral != "periodic":
-        raise NotImplementedError(
-            f"lateral={lateral!r} on the GPU: the tendency kernels wrap x/y "
-            f"periodically (ROADMAP queue 2: open BCs in kernels #2 and #3)")
-
-
 def adv_flux_divergence(q, rho, fx, fy, fw, dzc, dx: float, dy: float,
                         kdiff4: float = 0.0, lateral: str = "periodic"):
-    """Tracer tendencies: CUDA tensors (B, ...) go through the kernel,
-    periodic x/y only; CPU tensors through adv_flux_divergence_plain,
-    periodic or open."""
-    args = (q, rho, fx, fy, fw, dzc, dx, dy, kdiff4)
+    """Tracer tendencies, x/y periodic or open: CUDA tensors (B, ...) go
+    through the kernel, CPU tensors through adv_flux_divergence_plain."""
+    args = (q, rho, fx, fy, fw, dzc, dx, dy, kdiff4, lateral)
     if rho.is_cuda:
-        require_periodic(lateral)
         return adv_flux_divergence_kernel(*args)
     if rho.device.type == "cpu":
-        return adv_flux_divergence_plain(*args, lateral)
+        return adv_flux_divergence_plain(*args)
     raise ValueError(f"adv_flux_divergence has no path for {rho.device}")

@@ -8,7 +8,9 @@ hyperdiffusion and divergence damping — with p′ computed outside (one
 plain pass: moist_pressure). The port's kernel (csrc/dyn_tendency.cu)
 takes the vertical metric as per-level arrays (dzc at centers, dzf at
 interior faces), so it runs on the stretched levels of the shipped
-configurations; the Pallas kernel took a scalar dz.
+configurations, and both lateral modes: periodic, and open (edge-clamped
+x/y, the mode of a nested child, which the reference computes in plain
+XLA); the Pallas kernel took a scalar dz and periodic x/y.
 
 `dyn_tendencies_plain` is the same function in plain PyTorch (the kernel's
 yardstick and the CPU path), with both lateral modes; `dyn_tendencies`
@@ -24,7 +26,7 @@ import torch
 from scale_letkf_torch.constants import GRAV
 from scale_letkf_torch.ops.finite_diff import hyperdiff4, roll_x, roll_y, zsl
 from scale_letkf_torch.ops.stencil import (
-    _check_cuda_f32, require_periodic, scalar_tendency,
+    _check_cuda_f32, lateral_flag, scalar_tendency,
 )
 from scale_letkf_torch.utils import kernels
 
@@ -123,14 +125,16 @@ def dyn_tendencies_plain(rho, rhou, rhov, rhow, rhot, p_pert, rho_ref, dzc,
 
 def dyn_tendencies_kernel(rho, rhou, rhov, rhow, rhot, p_pert, rho_ref, dzc,
                           dzf, dx: float, dy: float, kdiff4: float,
-                          divdmp: float, dt: float):
-    """dyn_tendencies_plain's contract (periodic x/y) on the CUDA kernel:
-    fields (B, nz, ny, nx), rhow (B, nz+1, ny, nx), rho_ref and dzc (nz,)
-    or (nz, 1, 1), dzf (nz-1,) or (nz-1, 1, 1); one launch on the current
-    stream, no synchronisation. Raises on what the kernel does not take and
-    on a non-zero launch status."""
+                          divdmp: float, dt: float,
+                          lateral: str = "periodic"):
+    """dyn_tendencies_plain's contract on the CUDA kernel: fields (B, nz,
+    ny, nx), rhow (B, nz+1, ny, nx), rho_ref and dzc (nz,) or (nz, 1, 1),
+    dzf (nz-1,) or (nz-1, 1, 1), x/y periodic or open; one launch on the
+    current stream, no synchronisation. Raises on what the kernel does not
+    take and on a non-zero launch status."""
     if not rho.is_cuda:
         raise ValueError("dyn_tendencies_kernel takes CUDA tensors")
+    open_ = lateral_flag(lateral)
     rho_ref, dzc, dzf = (t.reshape(-1) for t in (rho_ref, dzc, dzf))
     _check_cuda_f32("dyn_tendencies_kernel", rho.device, rho=rho, rhou=rhou,
                     rhov=rhov, rhow=rhow, rhot=rhot, p_pert=p_pert,
@@ -158,7 +162,7 @@ def dyn_tendencies_kernel(rho, rhou, rhov, rhow, rhot, p_pert, rho_ref, dzc,
             rhot.data_ptr(), p_pert.data_ptr(), rho_ref.data_ptr(),
             dzc.data_ptr(), dzf.data_ptr(), *(o.data_ptr() for o in outs),
             B, nz, ny, nx, dx, dy, kdiff4, alpha_h, max(divdmp, 0.0), dt,
-            GRAV, stream)
+            GRAV, open_, stream)
     if status != 0:
         raise RuntimeError(f"dyn_tendency kernel launch failed: CUDA error "
                            f"{status}")
@@ -169,15 +173,14 @@ def dyn_tendencies_kernel(rho, rhou, rhov, rhow, rhot, p_pert, rho_ref, dzc,
 def dyn_tendencies(rho, rhou, rhov, rhow, rhot, p_pert, rho_ref, dzc, dzf,
                    dx: float, dy: float, kdiff4: float, divdmp: float,
                    dt: float, lateral: str = "periodic"):
-    """(drho, drhou, drhov, drhow, drhot): CUDA tensors (B, ...) go through
-    the kernel, periodic x/y only; CPU tensors through
-    dyn_tendencies_plain, periodic or open."""
+    """(drho, drhou, drhov, drhow, drhot), x/y periodic or open: CUDA
+    tensors (B, ...) go through the kernel, CPU tensors through
+    dyn_tendencies_plain."""
     args = (rho, rhou, rhov, rhow, rhot, p_pert, rho_ref, dzc, dzf, dx, dy,
-            kdiff4, divdmp, dt)
+            kdiff4, divdmp, dt, lateral)
     if rho.is_cuda:
-        require_periodic(lateral)
         return dyn_tendencies_kernel(*args)
     if rho.device.type == "cpu":
-        return dyn_tendencies_plain(*args, lateral)
+        return dyn_tendencies_plain(*args)
     raise ValueError(f"dyn_tendencies has no path for {rho.device}")
 

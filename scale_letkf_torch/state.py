@@ -29,6 +29,9 @@ IA_U, IA_V, IA_W, IA_T, IA_P = 0, 1, 2, 3, 4
 IA_Q0 = 5
 NV3D = 11
 NQ = 6
+# SCALE's restart variable names (common_scale.f90:52-54), in restart order
+V3D_RESTART_NAMES = ("DENS", "MOMX", "MOMY", "MOMZ", "RHOT",
+                     "QV", "QC", "QR", "QI", "QS", "QG")
 V3D_ANAL_NAMES = ("U", "V", "W", "T", "PRES",
                   "QV", "QC", "QR", "QI", "QS", "QG")
 

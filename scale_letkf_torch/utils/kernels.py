@@ -36,14 +36,15 @@ _SIGNATURES = {
                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p]),
     # rho, rhou, rhov, rhow, rhot, p_pert, rho_ref, dzc, dzf, 5 outputs;
-    # B, nz, ny, nx; dx, dy, kdiff4, alpha_h, divdmp, dt, grav; stream
+    # B, nz, ny, nx; dx, dy, kdiff4, alpha_h, divdmp, dt, grav; open; stream
     "dyn_tendency": ("dyn_tendency_launch",
                      [ctypes.c_void_p] * 14 + [ctypes.c_int64] * 4
-                     + [ctypes.c_float] * 7 + [ctypes.c_void_p]),
-    # q, rho, fx, fy, fw, dzc, out; B, nq, nz, ny, nx; dx, dy, kdiff4; stream
+                     + [ctypes.c_float] * 7 + [ctypes.c_int, ctypes.c_void_p]),
+    # q, rho, fx, fy, fw, dzc, out; B, nq, nz, ny, nx; dx, dy, kdiff4; open;
+    # stream
     "adv_ud3": ("adv_ud3_launch",
                 [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 5
-                + [ctypes.c_float] * 3 + [ctypes.c_void_p]),
+                + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]),
 }
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}

@@ -2,7 +2,9 @@
 
 On a CUDA device each section synchronises at its start and end, so the
 device work a section enqueues is charged to that section and not to the
-next one that waits (the USE_MPI_BARRIER analogue)."""
+next one that waits (the USE_MPI_BARRIER analogue). A Timer with enabled
+False neither synchronises nor records: the untimed path of a caller that
+must not wait for the device (da/fastcycle.py)."""
 
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 @dataclass
 class Timer:
     device: torch.device
+    enabled: bool = True
     records: dict[str, float] = field(default_factory=dict)
     counts: dict[str, int] = field(default_factory=dict)
     _stack: list[str] = field(default_factory=list)
@@ -26,6 +29,9 @@ class Timer:
 
     @contextmanager
     def section(self, name: str):
+        if not self.enabled:
+            yield
+            return
         full = "/".join(self._stack + [name])
         self._stack.append(name)
         self._sync()

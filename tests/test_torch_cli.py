@@ -259,25 +259,75 @@ def _streamed_close(got, got2, init, ref):
     assert_increments(got, init, ref, extra=floor)
 
 
+def _cycle_nested_agrees(tmp_path, refused: bool):
+    """cycle with a [nest] section at tests/test_cli_nested.py's CONFIG
+    and inputs (16×16×6 parent, ratio-2 child, K = 4, 4 parent steps): the
+    parent's and the child's analyses (OUT and OUT/nest) to the restart
+    increments bound plus twice the port's own rounding floor, measured
+    from both inits rounded once; without --nest-obs-pattern both verbs
+    refuse the section."""
+    from test_cli_nested import _write_inputs
+    cfg_path = _write_inputs(tmp_path)
+    args = ["cycle", "--config", str(cfg_path), "--cycles", "1",
+            "--steps-per-cycle", "4", "--obs-pattern",
+            str(tmp_path / "obs{cycle}.dat")]
+    nest = ["--nest-init", str(tmp_path / "cinit")]
+    if refused:
+        for name, fn, extra in (("ref", ref_main, []),
+                                ("port", main, ["--device", "cpu"])):
+            with pytest.raises(SystemExit, match="nest-obs-pattern"):
+                run(fn, *args, "--init", str(tmp_path / "init"), *nest,
+                    "--out", str(tmp_path / name), *extra)
+        return
+    nest += ["--nest-obs-pattern", str(tmp_path / "cobs{cycle}.dat")]
+    run(ref_main, *args, "--init", str(tmp_path / "init"), *nest, "--out",
+        str(tmp_path / "ref"))
+    out = run(main, *args, "--init", str(tmp_path / "init"), *nest, "--out",
+              str(tmp_path / "port"), "--device", "cpu")
+    assert "nest O-B" in out and "nest O-A" in out
+    rng = np.random.default_rng(6)
+    for d in ("init", "cinit"):
+        ens, _, _ = checkpoint.load_ensemble(tmp_path / d)
+        checkpoint.save_ensemble(tmp_path / f"{d}_rounded", DycoreState(*(
+            (f * (1.0 + 2.0 ** -24 * rng.standard_normal(f.shape))).astype(
+                np.float32) for f in ens)), basename="anal.@@@@")
+    run(main, *args, "--init", str(tmp_path / "init_rounded"),
+        "--nest-init", str(tmp_path / "cinit_rounded"), *nest[2:], "--out",
+        str(tmp_path / "port2"), "--device", "cpu")
+    for sub, init in (("", "init"), ("nest", "cinit")):
+        ens0, _, _ = checkpoint.load_ensemble(tmp_path / init)
+        ref, aux_r, meta_r = ref_ckpt.load_ensemble(tmp_path / "ref" / sub)
+        got, aux, meta = checkpoint.load_ensemble(tmp_path / "port" / sub)
+        got2, _, _ = checkpoint.load_ensemble(tmp_path / "port2" / sub)
+        assert meta == meta_r and sorted(aux) == sorted(aux_r)
+        floor = {n: 2 * float(np.abs(a - b).max())
+                 for n, a, b in zip(DycoreState._fields, got, got2)}
+        assert_increments(got, ens0, ref, extra=floor)
+        assert np.abs(got.rhot - ens0.rhot).max() > 0
+
+
 @pytest.mark.parametrize("case,item", [
     ("streamed", "full-size executors"),
     ("nest", "nesting"),
+    ("nest_refused", "nesting"),
     ("det", "deterministic member"),
     ("infl_add", "da/inflation.py"),
 ])
 def test_cycle_unported_options_raise(exp, tmp_path, case, item):
-    """A [nest] section raises, naming its ROADMAP item; --streamed (the
-    member-streamed executor), a deterministic member in the init
-    checkpoint (DET_RUN_CYCLED) and INFL_ADD (shuffled, from the init's
-    addi files) run, and one cycle of one step matches the reference's
-    verb (the member saved as 'mdet'; the streamed run's meta and aux as
-    the reference's)."""
+    """Every option of the cycle verb that earlier slices left out now
+    runs: a [nest] section (one-way nesting: parent and child against the
+    reference's verb, and the reference's refusal without
+    --nest-obs-pattern), --streamed (the member-streamed executor), a
+    deterministic member in the init checkpoint (DET_RUN_CYCLED) and
+    INFL_ADD (shuffled, from the init's addi files); one cycle matches the
+    reference's verb (the member saved as 'mdet'; the streamed run's meta
+    and aux as the reference's)."""
     tmp, _, _ = exp
+    if case.startswith("nest"):
+        return _cycle_nested_agrees(tmp_path, case == "nest_refused")
     cfg_text, init, extra = CONFIG, str(tmp / "init"), []
     if case == "streamed":
         extra = ["--streamed"]
-    elif case == "nest":
-        extra = ["--nest-init", init]
     else:
         init = str(tmp_path / "init_det")
         ens = _det_init(tmp, tmp_path / "init_det")
@@ -287,11 +337,6 @@ def test_cycle_unported_options_raise(exp, tmp_path, case, item):
     args = ["cycle", "--config", str(tmp_path / "exp.toml"), "--init", init,
             "--cycles", "1", "--steps-per-cycle", "1", "--obs-pattern",
             str(tmp / "ref_obs.dat")]
-    if case == "nest":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            main([*args, "--out", str(tmp_path / "out"), "--device", "cpu",
-                  *extra])
-        return
     run(ref_main, *args, "--out", str(tmp_path / "ref"), *extra)
     out = run(main, *args, "--out", str(tmp_path / "port"), "--device",
               "cpu", *extra)

@@ -10,9 +10,10 @@ card, and the analysis, the forecast, the DA cycle, the ensemble H(x)
 (4-D, radar and H08), the physics, the terrain dynamics, the pp step's
 smoothing, the coarsened production cycle, the analysis with a
 deterministic member and additive inflation, the letkf and cycle verbs
-with them, the Jacobi eigensolver, EFSO and the full-size executors
-(coarsened: the tiled, streamed and resident cycles and cycle --streamed)
-on the card against the same runs on the CPU (which the parity tests hold against the reference
+with them, the Jacobi eigensolver, EFSO, the full-size executors
+(coarsened: the tiled, streamed and resident cycles and cycle --streamed),
+the cycle verb with a nested child in the open lateral mode and the fused
+cycle on the card against the same runs on the CPU (which the parity tests hold against the reference
 package).
 Stencil bounds per field, relative to max|plain|: 2e-5 for the whole
 tendency, 1e-5 for the tracers (the reference's bounds for its Pallas
@@ -32,6 +33,7 @@ from scale_letkf_torch.ops import invsqrt, stencil, tendency
 from scale_letkf_torch.utils import kernels
 
 CONFIG = str(Path(__file__).resolve().parents[1] / "configs" / "18km_japan.toml")
+RADAR_CONFIG = str(Path(CONFIG).with_name("bda_1km_radar.toml"))
 CASES = [(K, cond) for K in (20, 50, 100) for cond in (1e2, 1e3, 1e4)]
 # kernel vs float64 eigh, relative to max|isq| (tests/test_torch_invsqrt.py)
 TOL_F64 = {1e2: 2e-5, 1e3: 1e-4, 1e4: 1e-3}
@@ -154,6 +156,74 @@ def test_cuda_adv_ud3_matches_plain(cuda_device, kdiff4):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["uniform", "stretched"])
+def test_cuda_open_kernels_match_plain(cuda_device, metric):
+    """Both stencil kernels in the open lateral mode against their plain
+    versions on 2 × 12 × 40 × 64 random states (fields that vary from cell
+    to cell up to the edges), divdmp 0.05, kdiff4 1e-3, at the periodic
+    mode's bounds; the open result differs from the periodic one."""
+    s, rho_ref, p_pert = gpu_check.random_dyn_state(3, 2, 12, 40, 64,
+                                                    cuda_device)
+    vg = gpu_check.metrics(12, cuda_device)[metric]
+    for kernel, plain, args, tol in (
+            (tendency.dyn_tendencies_kernel, tendency.dyn_tendencies_plain,
+             gpu_check.dyn_operands(s, rho_ref, p_pert, vg, 0.05, 1e-3,
+                                    "open"), gpu_check.TOL_TENDENCY),
+            (stencil.adv_flux_divergence_kernel,
+             stencil.adv_flux_divergence_plain,
+             gpu_check.adv_operands(s, vg, 1e-3, "open"),
+             gpu_check.TOL_STENCIL)):
+        out, ref = kernel(*args), plain(*args)
+        periodic = kernel(*args[:-1], "periodic")
+        torch.cuda.synchronize()
+        out, ref, periodic = (x if isinstance(x, tuple) else (x,)
+                              for x in (out, ref, periodic))
+        assert max(gpu_check.rel_errors(out, ref)) <= tol
+        assert max(gpu_check.rel_errors(periodic, ref)) > tol
+
+
+@pytest.mark.cuda
+def test_cuda_nested_verb_matches_cpu(cuda_device):
+    """The cycle verb with a [nest] section (tests/test_cli_nested.py's
+    experiment, the child open) on the card against the CPU: parent and
+    child analyses within 1e-4·max|Δ|·(1 + 2·floor), both stencil kernels
+    launched on the card and never on the CPU."""
+    res = gpu_check.nested_verb_vs_cpu(cuda_device)
+    assert res["finite"]
+    for k in ("dyn_tendency", "adv_ud3"):
+        assert res["kernel_launches"]["device"][k] > 0
+        assert res["kernel_launches"]["cpu"][k] == 0
+    assert all(e <= 1 for e in res["max_err_over_tol"].values()), res
+
+
+@pytest.mark.cuda
+def test_cuda_fused_cycle_matches_cpu(cuda_device):
+    """One FusedCycle step of the coarsened radar configuration on the card
+    against the CPU: the ensemble within 1e-4·max|Δ|·(1 + 2·floor), the
+    same obs used, every kernel launched as expected."""
+    res = gpu_check.fused_vs_cpu(cuda_device, RADAR_CONFIG)
+    assert res["finite"]
+    assert res["kernel_launches"]["device"] == res["expected_launches"]
+    assert res["nobs_used"]["device"] == res["nobs_used"]["cpu"] > 0
+    assert all(e <= 1 for e in res["max_err_over_tol"].values()), res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", gpu_check.RAGGED_SHAPES)
+@pytest.mark.parametrize("name", ["dyn_tendency", "adv_ud3"])
+def test_cuda_stencil_kernel_open_ragged_shapes(cuda_device, name, shape):
+    """The open lateral mode (edge-clamped x/y, a nested child's) at the
+    ragged and tiny shapes, uniform and stretched metrics, divdmp 0 / 0.05,
+    kdiff4 0 / 1e-3, 1 or 6 tracers: each kernel run twice, both runs
+    within the periodic mode's bound."""
+    rows = gpu_check.ragged_kernels_vs_plain(cuda_device, name, [shape],
+                                             lateral="open")
+    assert len(rows) == 8
+    for row in rows:
+        assert row["finite"] and row["rel_err"] <= row["tol"], row
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", gpu_check.RAGGED_SHAPES)
 @pytest.mark.parametrize("name", ["dyn_tendency", "adv_ud3"])
 def test_cuda_stencil_kernel_ragged_shapes(cuda_device, name, shape):
@@ -169,20 +239,30 @@ def test_cuda_stencil_kernel_ragged_shapes(cuda_device, name, shape):
 @pytest.mark.cuda
 def test_cuda_tendencies_launch_both_kernels(cuda_device):
     """dycore.tendencies on CUDA tensors goes through both kernels, once
-    each, batched or single-member; open lateral boundaries raise."""
+    each, batched or single-member, in both lateral modes (lateral="open"
+    launches both kernels too, and gives the CPU's open tendencies)."""
     s, rho_ref, _, vg = _dyn_state(cuda_device, seed=2)
     p_ref = torch.zeros_like(rho_ref)
     cfg = dycore.DycoreConfig(dx=18000.0, dy=18000.0, dz=300.0, dt=30.0)
-    for state in (s, dycore.DycoreState(*(f[0] for f in s))):
-        before = dict(kernels.LAUNCHES)
-        out = dycore.tendencies(state, cfg, rho_ref, p_ref, vg)
-        torch.cuda.synchronize()
-        assert kernels.LAUNCHES["dyn_tendency"] == before["dyn_tendency"] + 1
-        assert kernels.LAUNCHES["adv_ud3"] == before["adv_ud3"] + 1
-        assert all(a.shape == b.shape for a, b in zip(out, state))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        dycore.tendencies(s, dataclasses.replace(cfg, lateral="open"),
-                          rho_ref, p_ref, vg)
+    for lateral in ("periodic", "open"):
+        cfg_l = dataclasses.replace(cfg, lateral=lateral)
+        for state in (s, dycore.DycoreState(*(f[0] for f in s))):
+            before = dict(kernels.LAUNCHES)
+            out = dycore.tendencies(state, cfg_l, rho_ref, p_ref, vg)
+            torch.cuda.synchronize()
+            assert (kernels.LAUNCHES["dyn_tendency"]
+                    == before["dyn_tendency"] + 1)
+            assert kernels.LAUNCHES["adv_ud3"] == before["adv_ud3"] + 1
+            assert all(a.shape == b.shape for a, b in zip(out, state))
+    cpu = torch.device("cpu")
+    open_cfg = dataclasses.replace(cfg, lateral="open")
+    out = dycore.tendencies(s, open_cfg, rho_ref, p_ref, vg)
+    ref = dycore.tendencies(
+        dycore.DycoreState(*(f.cpu() for f in s)), open_cfg, rho_ref.cpu(),
+        p_ref.cpu(), dycore.VGrid(*(f.cpu() for f in vg)))
+    for a, b in zip(out, ref):
+        assert float((a.cpu() - b).abs().max()) <= 2e-5 * float(
+            b.abs().max())
 
 
 @pytest.mark.cuda

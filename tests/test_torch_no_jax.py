@@ -29,7 +29,8 @@ def test_every_module_imports_without_jax():
               "ops.eigh_jacobi", "da.inflation", "da.efso",
               "obs.h08_calibrate", "obs.decoders", "obs.superob",
               "obs.precip", "cycle", "da.letkf_tiled", "da.bigcycle",
-              "da.resident", "utils.staging",
+              "da.resident", "utils.staging", "model.nesting", "nested",
+              "da.fastcycle", "io.netcdf",
               "io.checkpoint", "io.convert", "cli.main", "synthetic",
               "gpu_check", "__main__"):
         assert f"scale_letkf_torch.{m}" in mods, m
@@ -67,14 +68,18 @@ def test_fcst_verb_runs_without_jax():
 
 
 def test_every_module_imports_without_the_jax_package():
+    """... and without h5py, which the card's machine lacks: io/netcdf.py
+    imports it inside its functions."""
     mods = _modules()
-    for m in ("constants", "config", "obs.types", "utils.native"):
+    for m in ("constants", "config", "obs.types", "utils.native",
+              "io.netcdf"):
         assert f"scale_letkf_torch.{m}" in mods, m
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['scale_letkf_tpu'] = None\n"
         "sys.modules['ml_dtypes'] = None\n"
+        "sys.modules['h5py'] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
@@ -83,6 +88,7 @@ def test_every_module_imports_without_the_jax_package():
         "loaded = [k for k, v in sys.modules.items()\n"
         "          if k.startswith('scale_letkf_tpu') and v is not None]\n"
         "assert not loaded, loaded\n"
+        "assert sys.modules['h5py'] is None\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)

@@ -99,11 +99,14 @@ def test_kernel_wrapper_rejects_cpu_tensors():
 
 
 def test_open_lateral_raises_only_on_the_gpu_path():
-    """The wrappers refuse open boundaries for CUDA tensors (the kernels
-    wrap periodically); on CPU tensors the plain versions take them."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        stencil.require_periodic("open")
-    stencil.require_periodic("periodic")
+    """Both kernels take the open mode now (no wrapper refuses it); the
+    kernels' lateral argument is 1 for 'open', 0 for 'periodic', and an
+    unknown mode raises; on CPU tensors the plain versions take both."""
+    assert not hasattr(stencil, "require_periodic")
+    assert stencil.lateral_flag("open") == 1
+    assert stencil.lateral_flag("periodic") == 0
+    with pytest.raises(ValueError, match="lateral"):
+        stencil.lateral_flag("closed")
     fields, rho_ref, p_ref, _, cfg = _case(4, 4, 8, 8, 0.05)
     out = dycore.tendencies(dycore_state_to_torch(fields, CPU),
                             dataclasses.replace(cfg, lateral="open"),
