@@ -72,7 +72,7 @@ the radar configuration's forecast (configs/bda_1km_radar.toml, unchanged:
                       physics suite (nsw6, radiation every 10 physics steps,
                       PBL, slab of capacity 2e5) and Davies relaxation
                       (bdy_width 10, bdy_tau 600) toward the balanced base
-                      state, 10 steps (two physics steps at phys_interval
+                      state, 6 steps (two physics steps at phys_interval
                       5), flat topography; adds the physics and boundary
                       sections and the skin temperature's mean and range
                       before and after, which must have moved
@@ -219,6 +219,34 @@ the radar configuration's forecast (configs/bda_1km_radar.toml, unchanged:
                       against the CPU
  39. fused_small    — one FusedCycle step of the coarsened radar
                       configuration on the card against the CPU
+ 40. mesh_cycle     — the main path of the multi-device slice, run after
+                      phase 14: phase 12's composition and seeded inputs
+                      through CycleDriver(mesh=make_mesh(2, 2, 2)) with
+                      halo 'explicit', 8 blocks of 25 members × 180 × 240
+                      columns all in this process on the card (extended
+                      to 188 × 248 for the slow tendencies, kernels #2
+                      and #3 periodic on each): the forecast's member
+                      batches step every block together with halo
+                      exchanges, the analysis gathers each member slab
+                      for H(x) and runs the ensemble transpose; sections
+                      (forecast/halo, forecast/acoustic/halo, obsope/gather,
+                      das_letkf/transpose, das_letkf/collect), launches
+                      against gpu_check.expected_launches for 8 blocks and
+                      8 shares, peak beside phase 12's; the guess and
+                      analysis means and spreads and the O−B / O−A tables
+                      held to phase 12's (kept on the host) within 1e-4
+                      of the largest increment plus twice the rounding
+                      floor of the undecomposed path: phase 12's cycle
+                      run again from inputs perturbed by one rounding
+ 41. mesh_real      — every kernel vs plain on phase 40's operands: #1 on
+                      a share's first Grams, #2 and #3 (periodic) on one
+                      extended block at the member batch and on the
+                      nature run's batch of one
+ 42. mesh_checks    — on phase 40's final blocks: one explicit-core step
+                      with halo 'explicit_overlap' against 'explicit', and
+                      init_distributed in a world of one (NCCL) whose
+                      global_device_mesh(1, 2, 2) of 4 local blocks steps
+                      bit-equal to make_mesh(1, 2, 2)
 
 Each phase prints one JSON line; any failed check raises, so the script
 exits non-zero. Every kernel-vs-plain check runs the kernel twice and holds
@@ -226,10 +254,11 @@ both runs to the bound (invsqrt_ns, which has no atomics, must also give
 bit-identical runs). Kernel and plain versions are timed with CUDA events,
 in turns (plain, kernel, kernel, plain), after a warm-up. The line before
 the last lists every kernel: route, source, the TPU kernel it replaces,
-its launches in phase 35, this slice's main path, which runs all three
+its launches in phase 40, this slice's main path, which runs all three
 (each path's own beside them under launches_by_path, counts reset before
 each — the production cycle's: #1 only), its error and time against the
-plain version on phase 24's operands (phase 25; #1 on phase 30's tile under
+plain version on phase 40's operands (phase 41; phase 24's under
+`det_cycle`, phase 25; #1 on phase 30's tile under
 `streamed_tile`; for the stencil kernels the mean
 over the two batch sizes weighted by their launches, so launches × ms is
 the kernel's time in the cycle, each size under `shapes`; the physics
@@ -285,8 +314,10 @@ CYCLE_STEPS = 2
 # cells ≈ 100 km), so that the obs, ~16 cells apart, see correlated errors
 CYCLE_AMP_THETA = 4.0
 CYCLE_SMOOTH_PASSES = 64
-# the physics cycle: 10 steps, so physics runs twice at phys_interval 5
-PHYS_STEPS = 10
+# the physics cycle: 6 steps, so physics runs twice at phys_interval 5
+# (after step 5 and after the remainder; 10 steps until the smoke needed
+# the time for the grid's cycle)
+PHYS_STEPS = 6
 # the production cycle (PHYS_STEPS too): the H08 network's spacing and
 # margin (cells); the hills and flat ground of the |ρw| check (topography
 # above HILL_M and below FLAT_M metres)
@@ -594,7 +625,8 @@ def phase_small(device):
 
 
 def phase_cycle(device, phase: str = "cycle", steps: int = CYCLE_STEPS,
-                physics: bool = False, production: bool = False):
+                physics: bool = False, production: bool = False,
+                keep: dict | None = None):
     """The DA cycle at full size: CycleDriver.run_osse, one cycle of `steps`
     steps, from synthetic ensemble and nature states made on the card and
     the synthetic conventional network (obsmake gives the obs their values
@@ -621,7 +653,11 @@ def phase_cycle(device, phase: str = "cycle", steps: int = CYCLE_STEPS,
     O−A must fall below O−B for H08 too, and the row adds the largest |ρw|
     over hills and flat ground, here and in a flat run of the same nature
     state; the operands add the driver's terrain metrics and the first ten
-    members of the final ensemble."""
+    members of the final ensemble.
+
+    keep: a dict that receives, on the host, the analysis's guess and
+    analysis means and spreads and its O−B / O−A tables (what phase
+    mesh_cycle holds its decomposed run to)."""
     from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
     from scale_letkf_torch.da.obsmake import obsmake
     from scale_letkf_torch.gpu_check import (
@@ -712,6 +748,11 @@ def phase_cycle(device, phase: str = "cycle", steps: int = CYCLE_STEPS,
         (peaks["forecast_gb"] - peaks["forecast_start_gb"]) * 2 ** 30
         - nbytes(*ens)) / (driver.batch * field)
     info = res.info
+    if keep is not None:
+        keep.update({k: info[k].cpu() for k in (
+            "gues_mean", "gues_sprd", "anal_mean", "anal_sprd")},
+            stats_gues=res.stats_gues[0], stats_anal=res.stats_anal[0],
+            peak_mem_gb=peak / 2 ** 30)
 
     # the section obsmake again, twice, on the final nature state: whether
     # its time in the run is a cost of the first call in the process
@@ -1317,7 +1358,9 @@ def phase_det_cycle(device, cycle_peak_gb: float):
         mean64 += addi[m].to(device).double()
     mean64 /= K
     want = DET_INFL_ADD * (addi[j].to(device).double() - mean64)
-    got = probe["after"].double() - probe["before"].double()
+    # the analysis hands the stage its gridpoints flattened
+    got = (probe["after"].double() - probe["before"].double()).reshape(
+        want.shape)
     addi_err = {}
     for v, n in enumerate(V3D_ANAL_NAMES):
         tol = (float(torch.finfo(torch.float32).eps)
@@ -1942,7 +1985,12 @@ def phase_forecast_small(device):
 # depth: slot_tinterval 3600 → 150 s (5 steps at dt 30 s), so the analysis
 # falls at step 15 and the window ends at step 30 (1080 in the shipped run).
 # Each slot segment is one physics-suite call, whose cadence is
-# min(phys_interval, steps): 5 steps keep the shipped run's.
+# min(phys_interval, steps): 5 steps keep the shipped run's. Shallower
+# windows fail phase resident_cycle's yardstick (each member's H(x) within
+# 0.2 of the spread): the winds' spread, which the ρθ perturbations give
+# them only through the steps, is too small — 0.374 of it at 60 s (12
+# steps), 0.227 at 120 s (24), 0.112 at 150 s (30) on an NVIDIA H100 80GB
+# HBM3 at 700.00 W.
 STREAMED_SLOT_S = 150.0
 STREAMED_BATCH = 10
 STREAMED_ROWS = 20
@@ -2781,6 +2829,297 @@ def phase_fused_radar_cycle(device, radar_cycle_s: float):
     return row
 
 
+# --- the multi-device layer: the cycle on a process grid -------------------
+MESH = (2, 2, 2)            # (member, dy, dx) blocks, all in this process
+MESH_TOL = 1e-4             # of the largest increment: the CPU tests' bound
+                            # for the analysis means and spreads
+MESH_OVERLAP_MEMBERS = 2
+
+
+def rounded_state(s, seed: int):
+    """s with every value perturbed by one float32 rounding (relative
+    2⁻²⁴·N(0, 1)), on its device."""
+    gen = torch.Generator(device=s.rho.device).manual_seed(seed)
+    return type(s)(*(f * (1.0 + 2.0 ** -24 * torch.randn(
+        f.shape, generator=gen, device=f.device)) for f in s))
+
+
+def mesh_run(device, cfg, grid, dycfg, dom, template, kw, rounded: bool,
+             capture: dict | None = None, decomposed: bool = True):
+    """One run_osse cycle of CYCLE_STEPS from the cycle phase's seeded
+    inputs (perturbed by one rounding when `rounded`): on the grid MESH
+    (halo 'explicit', every block in this process on `device`), or
+    undecomposed as phase cycle runs it when not `decomposed`. Returns
+    (row of launches, peaks, seconds and member batch, driver, final
+    nature state, final ensemble — Sharded on the grid — and result);
+    capture receives kernel #1's first operands."""
+    import dataclasses
+
+    from scale_letkf_torch.cli.main import make_driver
+    from scale_letkf_torch.ops import invsqrt as invsqrt_mod
+    from scale_letkf_torch.synthetic import synthetic_ens_dycore_device
+    from scale_letkf_torch.utils import kernels
+    (cfg.process.mesh_member, cfg.process.mesh_y,
+     cfg.process.mesh_x) = MESH if decomposed else (1, 1, 1)
+    dycfg = dataclasses.replace(dycfg,
+                                halo="explicit" if decomposed else "gspmd")
+    K = cfg.ensemble.member
+    ens0, _, _ = synthetic_ens_dycore_device(SEED, K, grid, dom, device, **kw)
+    nat, _, _ = synthetic_ens_dycore_device(SEED + 1, 1, grid, dom, device,
+                                            **kw)
+    nat = type(nat)(*(f[0] for f in nat))
+    if rounded:
+        ens0, nat = rounded_state(ens0, SEED + 7), rounded_state(nat, SEED + 8)
+    states = [nat, ens0]
+    del nat, ens0
+    driver = make_driver(cfg, grid, dycfg, dom, device)
+    launch = invsqrt_mod.invsqrt_ns_kernel
+
+    def recording(a, areg, *args):
+        if capture is not None and not capture:
+            capture["a"], capture["areg"] = a.clone(), areg.clone()
+        return launch(a, areg, *args)
+
+    invsqrt_mod.invsqrt_ns_kernel = recording
+    peaks = watch_peaks(driver, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        truth, ens, res = driver.run_osse(states.pop(0), states.pop(0),
+                                          template, n_cycles=1,
+                                          steps_per_cycle=CYCLE_STEPS,
+                                          seed=SEED)
+        torch.cuda.synchronize()
+    finally:
+        invsqrt_mod.invsqrt_ns_kernel = launch
+        del driver.forecast, driver.forecast_one
+    wall = time.perf_counter() - t0
+    peaks["after_forecast_gb"] = (torch.cuda.max_memory_allocated(device)
+                                  / 2 ** 30)
+    row = {"wall_s": wall, "kernel_launches": {
+        k: kernels.LAUNCHES[k] for k in KERNELS}, "peak_by_step": peaks,
+        "peak_mem_gb": max(peaks[k] for k in (
+            "nature_gb", "forecast_gb", "after_forecast_gb")),
+        "member_batch": driver.batch}
+    return row, driver, truth, ens, res
+
+
+def _mesh_errors(info, info2, kept) -> dict:
+    """Per analysis variable and statistic: the decomposed run's distance
+    to the undecomposed one (`err`) over its bound, MESH_TOL × the
+    variable's largest increment plus 2 ulp of its largest mean plus twice
+    the rounding floor. The floor is the undecomposed path's own: the
+    distance of its run from inputs perturbed by one rounding (info2) to
+    its unperturbed run (kept), as gpu_check takes it from the reference's
+    perturbed run; the grid's outputs enter only `err`."""
+    from scale_letkf_torch.state import V3D_ANAL_NAMES
+    out = {}
+    for key in ("gues_mean", "gues_sprd", "anal_mean", "anal_sprd"):
+        got, want = info[key].cpu(), kept[key]
+        alt = info2[key].cpu()
+        row = {}
+        for v, name in enumerate(V3D_ANAL_NAMES):
+            incr = float((kept["anal_mean"][v] - kept["gues_mean"][v])
+                         .abs().max())
+            scale = float(kept["anal_mean"][v].abs().max())
+            floor = float((alt[v] - want[v]).abs().max())
+            tol = (MESH_TOL * incr + 2 * float(np.spacing(np.float32(scale)))
+                   + 2 * floor)
+            err = float((got[v] - want[v]).abs().max())
+            row[name] = {"max_abs_err": err, "floor": floor, "tol": tol,
+                         "over_tol": err / tol if tol > 0 else
+                         (0.0 if err == 0 else float("inf"))}
+        out[key] = row
+    return out
+
+
+def _mesh_stats_errors(res, res2, kept) -> dict:
+    """O−B and O−A RMSE per monitored group against the undecomposed
+    run's: |Δ| over 1e-4 relative plus twice the undecomposed path's
+    rounding floor (its perturbed run's distance, as _mesh_errors)."""
+    out = {}
+    for tag, k in (("omb", "stats_gues"), ("oma", "stats_anal")):
+        st, st2 = getattr(res, k)[0], getattr(res2, k)[0]
+        want = kept[k]
+        for n, r in want.rmse.items():
+            if not want.nobs[n]:
+                continue
+            if st.nobs[n] != want.nobs[n]:
+                raise AssertionError(f"{tag} {n}: {st.nobs[n]} obs against "
+                                     f"{want.nobs[n]}")
+            floor = abs(st2.rmse[n] - r)
+            tol = MESH_TOL * r + 2 * floor + 1e-12
+            out[f"{tag}_{n}"] = {"mesh": st.rmse[n], "cycle": r,
+                                 "floor": floor,
+                                 "over_tol": abs(st.rmse[n] - r) / tol}
+    return out
+
+
+def phase_mesh_cycle(device, kept: dict):
+    """The main path of this slice: the cycle phase's composition (the
+    18-km configuration at full width, its seeded ensemble and nature run,
+    the 24,400-report network, one run_osse cycle of CYCLE_STEPS) through
+    CycleDriver(mesh=make_mesh(2, 2, 2)) with halo 'explicit': 8 blocks of
+    25 members × 180 × 240 columns, all in this process on the card. The
+    forecast steps the blocks' member batches together with halo
+    exchanges (kernels #2 and #3 periodic on every extended block), the
+    analysis gathers each member slab for H(x) and runs the ensemble
+    transpose. Held to the cycle phase's outputs (kept on the host): the
+    guess and analysis means and spreads and the O−B / O−A tables, within
+    MESH_TOL of the largest increment plus twice the rounding floor of the
+    undecomposed path — the cycle phase's composition run again,
+    undecomposed, from inputs perturbed by one rounding. Returns
+    the row, and the operands for phase mesh_real: kernel #1's first
+    Grams, one extended block at the forecast's member batch, and the
+    final blocks (for phase mesh_checks)."""
+    import dataclasses
+
+    from scale_letkf_torch.cli.main import load_config_and_grid
+    from scale_letkf_torch.gpu_check import expected_launches
+    from scale_letkf_torch.parallel import halo
+    from scale_letkf_torch.synthetic import synthetic_conv_network
+
+    cfg, grid, dycfg, dom = load_config_and_grid(str(CONFIG))
+    kw = {"u0": FCST_U0, "amp_theta": CYCLE_AMP_THETA,
+          "smooth_passes": CYCLE_SMOOTH_PASSES}
+    template = synthetic_conv_network(cfg, grid, np.random.default_rng(SEED))
+    grams: dict = {}
+    row, driver, truth, ens, res = mesh_run(device, cfg, grid, dycfg, dom,
+                                            template, kw, False, grams)
+    info = res.info
+    mesh = driver.mesh
+    batches = -(-(cfg.ensemble.member // MESH[0]) // driver.batch)
+    expected = expected_launches(cfg, grid, CYCLE_STEPS, batches,
+                                 info["diag"].chunk, blocks=mesh.n_blocks,
+                                 shares=info["diag"].share_chunks)
+    # one extended block's operands at the forecast's batch, then the rest
+    # of the run's tensors are dropped before the floor's (undecomposed) run
+    first = {b: type(s)(*(f[:driver.batch].clone() for f in s))
+             for b, s in ens.blocks.items()}
+    ext0 = halo.extend_state(mesh, first, halo.HALO_W,
+                             dycfg.lateral == "periodic")[0]
+    operands = {"grams": (grams["a"], grams["areg"]),
+                "ensemble": ext0, "blocks": first,
+                "nature": type(truth)(*(f[None] for f in truth)),
+                "column": (driver.rho_ref, driver.p_ref, driver.vg,
+                           dataclasses.replace(dycfg, lateral="periodic"))}
+    sections, counts = dict(driver.timer.records), dict(driver.timer.counts)
+    finite = all(bool(torch.isfinite(f).all()) for s in ens.blocks.values()
+                 for f in s) and all(bool(torch.isfinite(info[k]).all())
+                                     for k in ("anal_mean", "anal_sprd"))
+    del ens, driver, truth
+    torch.cuda.empty_cache()
+    row2, _, _, _, res2 = mesh_run(device, cfg, grid, dycfg, dom, template,
+                                   kw, True, decomposed=False)
+    torch.cuda.empty_cache()
+    errs = _mesh_errors(info, res2.info, kept)
+    stats = _mesh_stats_errors(res, res2, kept)
+    worst = max(max(r["over_tol"] for r in v.values())
+                for v in errs.values())
+    row.update(
+        phase="mesh_cycle", config=CONFIG.name, mesh=list(MESH),
+        halo="explicit", grid=f"{grid.nx}x{grid.ny}x{grid.nz}",
+        members=cfg.ensemble.member,
+        block=f"{grid.nx // MESH[2]}x{grid.ny // MESH[1]}",
+        extended_block=f"{grid.nx // MESH[2] + 2 * halo.HALO_W}x"
+                       f"{grid.ny // MESH[1] + 2 * halo.HALO_W}",
+        steps_per_cycle=CYCLE_STEPS, batches=batches,
+        block_batches=batches * mesh.n_blocks, expected_launches=expected,
+        sections_s=sections, section_counts=counts,
+        share_chunks=info["diag"].share_chunks,
+        cycle_peak_mem_gb=kept["peak_mem_gb"],
+        floor_run_wall_s=row2["wall_s"], obs_kept=res.nobs[0],
+        errors_over_tol=errs, stats_over_tol=stats,
+        worst_over_tol=worst, finite=finite)
+    emit(row)
+    if not finite:
+        raise AssertionError("the grid's cycle is not finite")
+    if row["kernel_launches"] != expected:
+        raise AssertionError(f"kernel launches {row['kernel_launches']}, "
+                             f"expected {expected}")
+    if not row["peak_mem_gb"] < 80:
+        raise AssertionError(f"peak memory {row['peak_mem_gb']:.2f} GB")
+    if not (worst <= 1 and all(v["over_tol"] <= 1 for v in stats.values())):
+        raise AssertionError("the grid's cycle is not the undecomposed one")
+    return row, operands
+
+
+def phase_mesh_checks(device, operands) -> dict:
+    """Two checks on the final blocks of phase mesh_cycle (members
+    :MESH_OVERLAP_MEMBERS of each): one explicit-core step (dt 1 s, the
+    core's own regime) with halo 'explicit_overlap' against 'explicit' on
+    the (1, 2, 2) blocks of member slab 0, to gpu_check.TOL_TENDENCY of
+    each field's largest increment; and init_distributed in a world of one
+    (NCCL) with local_device_count 4, whose global_device_mesh(1, 2, 2)
+    must give one SI step bit-equal to make_mesh(1, 2, 2)'s."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as dist
+
+    from scale_letkf_torch.gpu_check import TOL_TENDENCY
+    from scale_letkf_torch.model.dycore_si import SplitConfig
+    from scale_letkf_torch.parallel import halo
+    from scale_letkf_torch.parallel.distributed import (
+        global_device_mesh, init_distributed)
+    from scale_letkf_torch.parallel.mesh import make_mesh
+    from scale_letkf_torch.cli.main import load_config_and_grid
+    rho_ref, p_ref, vg, dycfg = operands["column"]
+    grid = load_config_and_grid(str(CONFIG))[1]
+    zc = torch.as_tensor(np.asarray(grid.cz), dtype=torch.float32,
+                         device=device)
+    sub = {b: type(s)(*(f[:MESH_OVERLAP_MEMBERS].contiguous() for f in s))
+           for b, s in operands["blocks"].items() if b < 4}
+    m122 = make_mesh(1, 2, 2)
+    cfg1 = dataclasses.replace(dycfg, dt=1.0)
+    outs = {}
+    for h in ("explicit", "explicit_overlap"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[h] = halo.rk3_step_blocks(m122, sub, cfg1, rho_ref, p_ref, zc,
+                                       vg, overlap=h == "explicit_overlap")
+        torch.cuda.synchronize()
+        outs[h + "_s"] = time.perf_counter() - t0
+    overlap = {}
+    for name, k in zip(type(sub[0])._fields, range(6)):
+        incr = max(float((outs["explicit"][b][k] - sub[b][k]).abs().max())
+                   for b in sub)
+        err = max(float((outs["explicit_overlap"][b][k]
+                         - outs["explicit"][b][k]).abs().max()) for b in sub)
+        overlap[name] = err / max(TOL_TENDENCY * incr, 1e-30)
+    del outs["explicit_overlap"]
+    s_ = socket.socket()
+    s_.bind(("127.0.0.1", 0))
+    port = s_.getsockname()[1]
+    s_.close()
+    split = SplitConfig(dtau=dycfg.dt / 10)
+    init_distributed(f"127.0.0.1:{port}", 1, 0, local_device_count=4)
+    try:
+        backend = dist.get_backend()
+        gm = global_device_mesh(1, 2, 2)
+        a = halo.rk3_step_si_blocks(gm, sub, dycfg, split, rho_ref, p_ref,
+                                    zc, 10, vg)
+    finally:
+        dist.destroy_process_group()
+    b_ = halo.rk3_step_si_blocks(m122, sub, dycfg, split, rho_ref, p_ref,
+                                 zc, 10, vg)
+    equal = all(torch.equal(x, y) for blk in a for x, y in zip(a[blk],
+                                                                  b_[blk]))
+    row = {"phase": "mesh_checks", "members": MESH_OVERLAP_MEMBERS,
+           "overlap_over_tol": overlap,
+           "explicit_s": outs["explicit_s"],
+           "explicit_overlap_s": outs["explicit_overlap_s"],
+           "backend": backend, "world": 1, "local_device_count": 4,
+           "global_mesh_bit_equal": equal}
+    emit(row)
+    if not (all(v <= 1 for v in overlap.values()) and equal
+            and backend == "nccl"):
+        raise AssertionError(f"grid checks failed: {row}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the GPU smoke run cannot run here",
@@ -2810,12 +3149,22 @@ def main() -> int:
     del capture
     phase_small(device)
     torch.cuda.empty_cache()
-    cy, operands = phase_cycle(device)
+    kept: dict = {}
+    cy, operands = phase_cycle(device, keep=kept)
     cy_rows = phase_cycle_real(cy, operands)
     del operands
     torch.cuda.empty_cache()
     phase_cycle_small(device)
     del cy_rows
+    torch.cuda.empty_cache()
+    mc, operands = phase_mesh_cycle(device, kept)
+    del kept
+    mesh_rows = phase_cycle_real(
+        {"kernel_launches": mc["kernel_launches"],
+         "steps_per_cycle": CYCLE_STEPS, "batches": mc["block_batches"]},
+        operands, "mesh_real")
+    phase_mesh_checks(device, operands)
+    del operands
     torch.cuda.empty_cache()
     pc, operands = phase_cycle(device, "physics_cycle", PHYS_STEPS,
                                physics=True)
@@ -2864,10 +3213,13 @@ def main() -> int:
     fr = phase_fused_radar_cycle(device, rd["wall_s"])
     torch.cuda.empty_cache()
     phase_nested_small(device)
-    # the kernels line: launches of the nested cycle, this slice's main
-    # path, which runs all three; times on the deterministic cycle's
-    # operands (phase det_real); launches_by_path: each path's own run,
-    # counts reset before it; physics_cycle: the times on the physics
+    # the kernels line: launches of the grid's cycle (mesh_cycle), this
+    # slice's main path, which runs all three, and the times on its own
+    # operands (phase mesh_real: #1 on a share's Grams, #2 and #3 on an
+    # extended block and on the nature run's batch of one); det_cycle: the
+    # times on the deterministic cycle's operands (phase det_real), the
+    # kernels line's until this slice; launches_by_path: each path's own
+    # run, counts reset before it; physics_cycle: the times on the physics
     # cycle's operands (phase physics_real); production_grams: kernel #1 on
     # the production cycle's Grams (phase production_real); radar_grid: the
     # stencil kernels on the radar forecast's operands (phase radar_real);
@@ -2876,8 +3228,9 @@ def main() -> int:
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "bound_share")
     for name in KERNELS:
-        dc_rows[name]["launches"] = nc["kernel_launches"][name]
-        dc_rows[name]["launches_by_path"] = {
+        mesh_rows[name]["launches"] = mc["kernel_launches"][name]
+        mesh_rows[name]["det_cycle"] = {k: dc_rows[name][k] for k in timing}
+        mesh_rows[name]["launches_by_path"] = {
             "forecast": fc["kernel_launches"].get(name, 0),
             "analysis": sl["kernel_launches"] if name == "invsqrt_ns" else 0,
             "cycle": cy["kernel_launches"][name],
@@ -2889,7 +3242,9 @@ def main() -> int:
             "resident_cycle": rs["kernel_launches"][name],
             "radar_cycle": rd["kernel_launches"][name],
             "nested_cycle": nc["kernel_launches"][name],
-            "fused_radar_cycle": fr["kernel_launches"][name]}
+            "fused_radar_cycle": fr["kernel_launches"][name],
+            "mesh_cycle": mc["kernel_launches"][name]}
+        dc_rows[name] = mesh_rows[name]
         dc_rows[name]["child_grid"] = {
             k: nested_rows[name][k] for k in timing + (
                 ("open_ms", "periodic_ms") if name != "invsqrt_ns" else ())}
@@ -2910,8 +3265,8 @@ def main() -> int:
     # inverse square root, no such stencil), so library_ms is null
     keys = ("launches", "launches_by_path", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_fp32_ms", "bound_by", "bound_share",
-            "gb_per_s", "tflops", "shapes", "physics_cycle", "radar_grid",
-            "production_grams", "streamed_tile", "child_grid")
+            "gb_per_s", "tflops", "shapes", "det_cycle", "physics_cycle",
+            "radar_grid", "production_grams", "streamed_tile", "child_grid")
     emit({"kernels": [{"name": name, "route": "cuda",
                        "source": f"scale_letkf_torch/csrc/{name}.cu",
                        "replaces": REPLACES[name],

@@ -24,6 +24,17 @@ directory). `cycle --streamed` runs the member-streamed executor
 --pipeline). A [nest] section makes `cycle` run a one-way nested child
 domain beside the parent (nested.py: --nest-init, --nest-obs-pattern; the
 child saved under OUT/nest).
+
+A [process] table (mesh_member, mesh_y, mesh_x) runs `fcst`, `letkf` and
+`cycle` on a process grid (parallel/): every block in this process, or,
+with the options before the verb,
+
+  python -m scale_letkf_torch --coordinator HOST:PORT --num-processes N \
+      --process-id RANK [--local-device-count B] cycle ...
+
+spread over N processes of B blocks each (torch.distributed: NCCL with
+--device cuda, gloo with --device cpu). Each process reads its own members'
+restart files; the outputs are gathered and process 0 writes them.
 """
 
 from __future__ import annotations
@@ -83,8 +94,8 @@ def make_driver(cfg, grid, dycfg, dom, device: torch.device):
     [physics] section (its keys those of PhysicsConfig; others raise
     ValueError), Davies relaxation toward a boundary file (bdy_file,
     bdy_width, bdy_tau) and the topography of topo_file (an npz with key
-    'topo', as the pp verb writes it). A mesh raises NotImplementedError
-    (CycleDriver names the ROADMAP item)."""
+    'topo', as the pp verb writes it) and the process grid of [process]
+    (process_grid)."""
     import dataclasses
 
     from scale_letkf_torch.cycle import CycleDriver
@@ -109,16 +120,43 @@ def make_driver(cfg, grid, dycfg, dom, device: torch.device):
             raise ValueError(f"unknown [physics] keys: {sorted(unknown)} "
                              f"(valid: {sorted(valid)})")
         phys_cfg = PhysicsConfig(**dom["physics"])
-    pc = cfg.process
-    mesh = (pc.mesh_member, pc.mesh_y, pc.mesh_x) \
-        if pc.mesh_member * pc.mesh_y * pc.mesh_x > 1 else None
     return CycleDriver(grid, cfg, dycfg, rho_ref, p_ref,
                        use_physics=dom.get("use_physics", False),
-                       topo=topo, phys_cfg=phys_cfg, mesh=mesh,
+                       topo=topo, phys_cfg=phys_cfg,
+                       mesh=process_grid(cfg),
                        core=dom.get("core", "explicit"),
                        n_small=dom.get("n_small", 6),
                        bdy=bdy, bdy_width=dom.get("bdy_width", 0),
                        bdy_tau=dom.get("bdy_tau", 300.0))
+
+
+def process_grid(cfg):
+    """The ProcessGrid of [process] (mesh_member, mesh_y, mesh_x): over the
+    torch.distributed world when one is running, else every block in this
+    process; None for a grid of one block."""
+    pc = cfg.process
+    if pc.mesh_member * pc.mesh_y * pc.mesh_x == 1:
+        return None
+    import torch.distributed as dist
+
+    from scale_letkf_torch.parallel.distributed import global_device_mesh
+    from scale_letkf_torch.parallel.mesh import make_mesh
+    if dist.is_initialized():
+        return global_device_mesh(pc.mesh_member, pc.mesh_y, pc.mesh_x)
+    return make_mesh(pc.mesh_member, pc.mesh_y, pc.mesh_x)
+
+
+def _writer() -> bool:
+    """Whether this process writes the outputs (process 0 of a world)."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _global(driver, ens):
+    """The global ensemble of a driver's output (gathered on a grid)."""
+    from scale_letkf_torch.parallel.mesh import Sharded
+    return driver.mesh.gather_ensemble(ens) if isinstance(ens, Sharded) \
+        else ens
 
 
 def make_nested(cfg, grid, dycfg, dom, device: torch.device):
@@ -167,9 +205,16 @@ def slot_steps_from_cfg(cfg, nsteps: int, dt: float) -> list[int] | None:
 
 
 def _device(args) -> torch.device:
+    """--device; under torch.distributed with CUDA the card the process
+    group bound (init_distributed)."""
+    import torch.distributed as dist
+
     from scale_letkf_torch.utils.device import require_cuda
-    return (require_cuda() if args.device == "cuda"
-            else torch.device(args.device))
+    if args.device != "cuda":
+        return torch.device(args.device)
+    return require_cuda(torch.cuda.current_device()
+                        if dist.is_initialized() and torch.cuda.is_available()
+                        else 0)
 
 
 def _setup(args):
@@ -196,15 +241,25 @@ def load_addi_ens(cfg, dirpath, device: torch.device):
     return state_trans(to_collocated(dycore_state_to_torch(addi, device)))
 
 
-def _load_ens(path: str, device: torch.device):
+def _load_ens(path: str, device: torch.device, mesh=None):
     """(ensemble on `device`, deterministic member on `device` or None,
-    aux, meta) of a checkpoint."""
-    from scale_letkf_torch.io.checkpoint import load_det, load_ensemble
+    aux, meta) of a checkpoint. On a grid spread over processes the
+    ensemble is this process's blocks (a Sharded) from its own members'
+    files alone, the reference's rank-addressed stage-in."""
+    from scale_letkf_torch.io.checkpoint import (
+        load_det, load_ensemble, manifest_members)
     from scale_letkf_torch.io.convert import dycore_state_to_torch
-    ens, aux, meta = load_ensemble(path)
+    from scale_letkf_torch.parallel.distributed import (
+        ensemble_from_process_local)
+    members = None
+    if mesh is not None and mesh.world > 1:
+        members = mesh.local_members(manifest_members(path))
+    ens, aux, meta = load_ensemble(path, members=members)
+    ens = dycore_state_to_torch(ens, device)
+    if members is not None:
+        ens = ensemble_from_process_local(mesh, ens)
     det = load_det(path)
-    return (dycore_state_to_torch(ens, device),
-            None if det is None else dycore_state_to_torch(det, device),
+    return (ens, None if det is None else dycore_state_to_torch(det, device),
             aux, meta)
 
 
@@ -250,17 +305,17 @@ def _print_stats(cfg, info, label=""):
 def cmd_letkf(args):
     from scale_letkf_torch.da.obsope import assign_slots
     from scale_letkf_torch.io.checkpoint import (
-        filename_replace_mem, load_history, save_ensemble)
+        filename_replace_mem, load_history, manifest_members, save_ensemble)
     from scale_letkf_torch.obs import io as obsio
     cfg, grid, dycfg, dom, driver, device = _setup(args)
-    ens, det, aux, meta = _load_ens(args.gues, device)
+    ens, det, aux, meta = _load_ens(args.gues, device, driver.mesh)
     obs = read_obs_files(cfg, args.obs)
     precomputed = None
     if args.obsda:
         # OBSDA_IN path: per-member H(x) files from a separate obsope
         recs = [obsio.read_obs_da(filename_replace_mem(args.obsda, m),
                                   obs.nobs)
-                for m in range(ens.rho.shape[0])]
+                for m in range(manifest_members(args.gues))]
         lev = (np.stack([r[4] for r in recs]).mean(axis=0)
                if len(recs[0]) > 4 else None)
         precomputed = (np.stack([r[2] for r in recs]),
@@ -281,6 +336,9 @@ def cmd_letkf(args):
     # mean/spread outputs (GUES_SPRD_OUT/ANAL_SPRD_OUT semantics)
     for k in ("anal_mean", "anal_sprd", "gues_mean", "gues_sprd"):
         aux_out[k] = info[k]
+    ens_a = _global(driver, ens_a)
+    if not _writer():
+        return
     save_ensemble(args.anal, ens_a, basename="anal.@@@@", aux=aux_out,
                   det=info["det"], meta={**meta, "step": "letkf"})
     if cfg.monitor.obsdep_out:
@@ -389,15 +447,11 @@ def cmd_pp(args):
 
 
 def cmd_fcst(args):
-    from scale_letkf_torch.io.checkpoint import (
-        load_det, load_ensemble, save_ensemble, save_history)
-    from scale_letkf_torch.io.convert import dycore_state_to_torch
+    from scale_letkf_torch.io.checkpoint import save_ensemble, save_history
     device = _device(args)
     cfg, grid, dycfg, dom = load_config_and_grid(args.config)
     driver = make_driver(cfg, grid, dycfg, dom, device)
-    ens, aux, meta = load_ensemble(args.init)
-    ens = dycore_state_to_torch(ens, device)
-    det = load_det(args.init)
+    ens, det, aux, meta = _load_ens(args.init, device, driver.mesh)
     slot_steps = slot_steps_from_cfg(cfg, args.steps, dycfg.dt)
     hist = None
     if slot_steps is not None:
@@ -406,8 +460,10 @@ def cmd_fcst(args):
     else:
         ens = driver.forecast(ens, args.steps)
     if det is not None:
-        det = driver.forecast_one(dycore_state_to_torch(det, device),
-                                  args.steps)
+        det = driver.forecast_one(det, args.steps)
+    ens = _global(driver, ens)
+    if not _writer():
+        return
     save_ensemble(args.out, ens, basename="gues.@@@@", aux=aux, det=det,
                   meta={**meta, "step": "fcst", "steps": args.steps})
     if hist is not None:
@@ -505,11 +561,14 @@ def cmd_cycle(args):
     from scale_letkf_torch.da.obsope import assign_slots
     from scale_letkf_torch.io.checkpoint import save_ensemble
     cfg, grid, dycfg, dom, driver, device = _setup(args)
+    if driver.mesh is not None and (args.streamed or "nest" in dom):
+        sys.exit("error: --streamed and [nest] do not run on a [process] "
+                 "grid")
     if args.streamed:
         return _cycle_streamed(args, cfg, dom, driver)
     # DET_RUN_CYCLED: a deterministic member in the initial checkpoint is
     # forecast and analysed (transmd weights) every cycle
-    ens, det, aux, _ = _load_ens(args.init, device)
+    ens, det, aux, _ = _load_ens(args.init, device, driver.mesh)
     addi = load_addi_ens(cfg, args.init, device)
     # the one reference to the ensemble; pop() hands it to the step, which
     # frees it once the next one exists (CycleDriver.run_osse does the same)
@@ -563,8 +622,10 @@ def cmd_cycle(args):
     aux_out = {"infl": infl} if infl is not None else {}
     if driver.tsfc is not None:
         aux_out["tsfc"] = driver.tsfc
-    save_ensemble(args.out, ens.pop(), basename="anal.@@@@", aux=aux_out,
-                  det=det, meta={"cycles": args.cycles})
+    ens = _global(driver, ens.pop())
+    if _writer():
+        save_ensemble(args.out, ens, basename="anal.@@@@", aux=aux_out,
+                      det=det, meta={"cycles": args.cycles})
     print(driver.timer.report())
 
 
@@ -577,6 +638,18 @@ def _add_device(q):
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="scale_letkf_torch")
+    # the multi-process runtime (the reference's MPI launcher layer,
+    # common_mpi_scale.f90:367-512), given BEFORE the verb:
+    #   python -m scale_letkf_torch --coordinator host:1234 \
+    #       --num-processes 4 --process-id $RANK cycle ...
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0; starts torch.distributed "
+                        "so that the [process] grid spans every process")
+    p.add_argument("--num-processes", type=int, default=1)
+    p.add_argument("--process-id", type=int, default=0)
+    p.add_argument("--local-device-count", type=int, default=None,
+                   help="grid blocks each process holds (1 when omitted): "
+                        "several blocks may share one device")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     q = sub.add_parser("letkf", help="LETKF analysis step")
@@ -667,4 +740,15 @@ def main(argv=None):
     q.set_defaults(fn=cmd_cycle)
 
     args = p.parse_args(argv)
-    args.fn(args)
+    if not args.coordinator:
+        return args.fn(args)
+    import torch.distributed as dist
+
+    from scale_letkf_torch.parallel.distributed import init_distributed
+    init_distributed(args.coordinator, args.num_processes, args.process_id,
+                     args.local_device_count,
+                     backend="nccl" if args.device == "cuda" else "gloo")
+    try:
+        return args.fn(args)
+    finally:
+        dist.destroy_process_group()

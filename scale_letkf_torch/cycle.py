@@ -31,8 +31,18 @@ its output alone, when the caller hands the ensemble over too (passes it
 without keeping a reference). The analysis results carry the guess and
 analysis ensemble mean and spread, not the ensembles.
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: a device mesh and the explicit halo backends.
+On a process grid (`mesh`, parallel/mesh.py: member slabs × a 2-D X×Y
+domain decomposition, the reference's COMM_e × COMM_d) the ensemble flows
+as a Sharded — this process's blocks. A grid that decomposes the domain
+forecasts through the explicit halo steps (parallel/halo.py) whatever
+`DycoreConfig.halo` says: 'gspmd' (a compiler placing the collectives) has
+no counterpart here, so it runs the explicit exchange; a member-only grid
+forecasts each block's slab with the undecomposed step. The analysis
+gathers each member slab over the domain for H(x), builds the same obs
+context on every process, and runs analyze(mesh=), the ensemble transpose.
+The reference's refusals of the explicit halo stand: the explicit core
+with terrain, and physics. The physics suite is refused under any grid:
+its per-member slab state (tsfc) is not sharded.
 """
 
 from __future__ import annotations
@@ -54,8 +64,8 @@ from scale_letkf_torch.da.obsope import (
 )
 from scale_letkf_torch.grid import Grid
 from scale_letkf_torch.model.dycore import (
-    DycoreConfig, DycoreState, from_collocated, make_vgrid, rk3_step,
-    to_collocated,
+    HALO_MODES, DycoreConfig, DycoreState, from_collocated, make_vgrid,
+    rk3_step, to_collocated,
 )
 from scale_letkf_torch.model.boundary import (
     BoundaryData, apply_boundary_relaxation, relaxation_weight,
@@ -67,6 +77,8 @@ from scale_letkf_torch.model.physics_suite import (
 )
 from scale_letkf_torch.model.terrain import make_metrics, rk3_step_terrain
 from scale_letkf_torch.obs.types import ID_H08IR, Observations
+from scale_letkf_torch.parallel import halo
+from scale_letkf_torch.parallel.mesh import ProcessGrid, Sharded
 from scale_letkf_torch.state import (
     ensemble_mean, ensemble_spread, state_to_history, state_trans,
     state_trans_inv,
@@ -128,6 +140,12 @@ class CycleResult:
     info: dict | None = None
 
 
+def _contiguous_rho(s: DycoreState) -> DycoreState:
+    """ρ and ρθ of from_collocated as fields of their own (views would pin
+    the restart stack, and the kernels take contiguous fields)."""
+    return s._replace(rho=s.rho.clone(), rhot=s.rhot.clone())
+
+
 class CycleDriver:
     """Cycling DA driver composing the forecast model from the config:
 
@@ -147,25 +165,26 @@ class CycleDriver:
     rho_ref and p_ref (nz, 1, 1) are tensors on the device the cycle runs
     on; ensembles and boundary data passed in must be on it too. topo
     (ny, nx), array or tensor, None for flat: z_full = grid.calc_z(topo).
-    A mesh is not ported yet and raises."""
+
+    mesh: a ProcessGrid (parallel/mesh.py). `forecast` and `analysis` then
+    take a Sharded of this process's blocks, or a global ensemble, which
+    they shard, and return a Sharded (`mesh.gather_ensemble` makes it
+    global); boundary data, the deterministic member, the inflation field
+    and the additive-inflation source stay global."""
 
     def __init__(self, grid: Grid, cfg: Config, dycfg: DycoreConfig,
                  rho_ref: torch.Tensor, p_ref: torch.Tensor,
                  use_physics: bool = False, phys_interval: int = 5,
                  topo=None, phys_cfg: PhysicsConfig | None = None,
-                 mesh=None, core: str = "explicit", n_small: int = 6,
+                 mesh: ProcessGrid | None = None, core: str = "explicit",
+                 n_small: int = 6,
                  bdy: BoundaryData | None = None, bdy_width: int = 0,
                  bdy_tau: float = 300.0):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP queue 1, parallel/)")
-        if dycfg.halo != "gspmd":
-            raise NotImplementedError(
-                f"halo={dycfg.halo!r}: the explicit halo backends are not "
-                f"ported yet (ROADMAP queue 1, parallel/)")
         if core not in ("explicit", "si"):
             raise ValueError(f"unknown core {core!r} (valid: 'explicit', "
                              f"'si')")
+        if dycfg.halo not in HALO_MODES:
+            raise ValueError(f"unknown halo backend {dycfg.halo!r}")
         self.grid = grid
         self.cfg = cfg
         self.dycfg = dycfg
@@ -215,6 +234,8 @@ class CycleDriver:
         # checkpoint; threaded across forecast calls
         self.tsfc = None
         self.batch = None          # members per batch of the last forecast
+        self._check_grid(mesh, use_physics, phys_cfg)
+        self.mesh = mesh
         if core == "si":
             split = SplitConfig(dtau=dycfg.dt / n_small)
 
@@ -232,6 +253,34 @@ class CycleDriver:
                 return rk3_step(s, dycfg, rho_ref, p_ref, self.z_centers,
                                 self.vg, timer=self.timer)
         self._dyn_step = dyn_step
+        self._metrics_ext = (halo.extended_metrics(
+            mesh, self.metrics, dycfg.lateral == "periodic")
+            if self.exchange else None)
+
+    def _check_grid(self, mesh, use_physics, phys_cfg):
+        """The reference's refusals of the explicit halo
+        (scale_letkf_tpu/cycle.py:225-246), which a decomposing grid runs
+        whatever dycfg.halo says, and the physics suite under any grid."""
+        self.exchange = dycfg_halo = self.dycfg.halo != "gspmd"
+        if mesh is not None and mesh.spatial:
+            self.exchange = True
+        if self.exchange:
+            why = (f"halo={self.dycfg.halo!r}" if dycfg_halo else
+                   "a grid that decomposes the domain (its halo exchange is "
+                   "explicit)")
+            if self.core == "explicit" and self.metrics is not None:
+                raise NotImplementedError(
+                    f"{why} with terrain requires core='si' "
+                    f"(tendencies_terrain rides the SI halo step)")
+            if use_physics or phys_cfg is not None:
+                raise NotImplementedError(
+                    f"{why} does not compose with physics yet")
+            if mesh is None:
+                raise ValueError(f"{why} requires a process grid (mesh)")
+        if mesh is not None and phys_cfg is not None:
+            raise NotImplementedError(
+                "the physics suite under a process grid: its per-member "
+                "slab state (tsfc) is not sharded")
 
     def _step(self, s: DycoreState, t, bdy):
         """One dynamics step, then the Davies relaxation toward `bdy` at the
@@ -242,16 +291,17 @@ class CycleDriver:
                 s = self._apply_bdy(s, t, bdy)
         return s
 
-    def _apply_bdy(self, s: DycoreState, t, bdy: BoundaryData):
+    def _apply_bdy(self, s: DycoreState, t, bdy: BoundaryData, w2d=None):
         """Davies nudging toward the target interpolated at t, the weight
-        clipped to [0, 1]."""
+        clipped to [0, 1]; w2d: the weight (a block's, on a grid), the
+        domain's when None."""
         bt0, bt1 = np.float32(bdy.t0), np.float32(bdy.t1)
         a = float(np.clip((t - bt0) / max(bt1 - bt0, np.float32(1e-9)),
                           0.0, 1.0))
         target = DycoreState(*((1.0 - a) * x0 + a * x1
                                for x0, x1 in zip(bdy.state0, bdy.state1)))
-        return apply_boundary_relaxation(s, target, self._bdy_w2d,
-                                         self.dycfg.dt)
+        return apply_boundary_relaxation(
+            s, target, self._bdy_w2d if w2d is None else w2d, self.dycfg.dt)
 
     def _chunks(self, s: DycoreState, nsteps: int, t0, bdy, physics=None):
         """nsteps dynamics steps (each with the relaxation), and
@@ -318,6 +368,103 @@ class CycleDriver:
             f[b0:b0 + B].to(self.device) for f in getattr(bdy, k)))
             for k in ("state0", "state1")})
 
+    def _grid_step(self, blocks: dict) -> dict:
+        """One dynamics step of this process's blocks (halo exchanges)."""
+        if self.core == "si":
+            return halo.rk3_step_si_blocks(
+                self.mesh, blocks, self.dycfg, SplitConfig(
+                    dtau=self.dycfg.dt / self.n_small), self.rho_ref,
+                self.p_ref, self.z_centers, self.n_small, self.vg,
+                self._metrics_ext, timer=self.timer)
+        return halo.rk3_step_blocks(
+            self.mesh, blocks, self.dycfg, self.rho_ref, self.p_ref,
+            self.z_centers, self.vg,
+            overlap=self.dycfg.halo == "explicit_overlap", timer=self.timer)
+
+    def _grid_batch(self, sh: Sharded) -> int:
+        """Members per batch of every block, from the free memory at the
+        halo-extended blocks' size, the least over the processes (every
+        process must step the same batches: they exchange halos)."""
+        h = halo.HALO_W
+        ext = sum(f.shape[-3] * (f.shape[-2] + 2 * h) * (f.shape[-1] + 2 * h)
+                  for f in (s.rho for s in sh.blocks.values()))
+        f0 = next(iter(sh.blocks.values())).rho
+        B = member_batch(f0.shape[0], ext * f0.element_size(), self.device,
+                         self.fields_per_member)
+        if self.mesh.world > 1:
+            import torch.distributed as dist
+            t = torch.tensor([B], device=self.device)
+            dist.all_reduce(t, op=dist.ReduceOp.MIN)
+            B = int(t)
+        return B
+
+    def _forecast_grid(self, ens, nsteps: int, t0) -> Sharded:
+        """forecast on the process grid: each block's member slab in
+        batches, every block of the process stepping together (their halos
+        exchanged each stage), the Davies relaxation per block; a
+        member-only grid forecasts each slab undecomposed."""
+        grid = self.mesh
+        sh = ens if isinstance(ens, Sharded) else grid.shard_ensemble(ens)
+        del ens
+        if not self.exchange:
+            out = {}
+            for b, s in sh.blocks.items():
+                out[b] = self._forecast_members(
+                    s, nsteps, t0, grid.members(b, sh.K).start)
+            return sh._replace(blocks=out)
+        self.batch = B = self._grid_batch(sh)
+        w2d = bdy = None
+        if self._bdy_w2d is not None and self.bdy is not None:
+            bdy = self.bdy
+            w2d = {b: self._bdy_w2d[grid.rows(b, sh.ny), grid.cols(b, sh.nx)]
+                   for b in sh.blocks}
+        dt = self.dycfg.dt
+
+        def run(b0, batch):
+            bdy_b = None
+            if bdy is not None:
+                bdy_b = {b: self._bdy_block(b, sh, b0, B) for b in batch}
+            for j in range(nsteps):
+                batch = self._grid_step(batch)
+                if bdy_b is not None:
+                    t = t0 + np.float32(j + 1) * np.float32(dt)
+                    with self.timer.section("boundary"):
+                        batch = {b: self._apply_bdy(s, t, bdy_b[b], w2d[b])
+                                 for b, s in batch.items()}
+            return batch
+
+        return sh._replace(blocks=self._in_batches(sh.blocks, B, run))
+
+    @staticmethod
+    def _in_batches(blocks: dict, B: int, run) -> dict:
+        """Every block's members in batches of B: run(b0, batch) takes and
+        returns a dict of DycoreState over the blocks (members b0..b0+B of
+        each); the results are written into new ensembles."""
+        out = {b: DycoreState(*(torch.empty_like(f) for f in s))
+               for b, s in blocks.items()}
+        K = next(iter(blocks.values())).rho.shape[0]
+        for b0 in range(0, K, B):
+            res = run(b0, {b: DycoreState(*(f[b0:b0 + B] for f in s))
+                           for b, s in blocks.items()})
+            for b, r in res.items():
+                for dst, src in zip(out[b], r):
+                    dst[b0:b0 + B] = src
+            del res
+        return out
+
+    def _bdy_block(self, b: int, sh: Sharded, b0: int, B: int
+                   ) -> BoundaryData:
+        """Block b's boundary data for its members b0..b0+B: per-member
+        targets sliced by global member, a shared one whole, each over the
+        block's columns."""
+        grid, bdy = self.mesh, self.bdy
+        ys, xs = grid.rows(b, sh.ny), grid.cols(b, sh.nx)
+        m0 = grid.members(b, sh.K).start + b0
+        per_member = bdy.state0.rho.dim() != 3
+        return bdy._replace(**{k: DycoreState(*(
+            (f[m0:m0 + B] if per_member else f)[..., ys, xs].to(self.device)
+            for f in getattr(bdy, k))) for k in ("state0", "state1")})
+
     def forecast_one(self, s: DycoreState, nsteps: int,
                      t0: float = 0.0) -> DycoreState:
         """nsteps steps of the composed forecast of one member (the
@@ -343,31 +490,37 @@ class CycleDriver:
         calls. Timed as section `forecast` (with `tendencies`, `acoustic`,
         `sponge`, `physics` and `boundary` inside)."""
         with self.timer.section("forecast"):
-            K = ens.rho.shape[0]
-            out = DycoreState(*(torch.empty_like(f) for f in ens))
-            field_bytes = ens.rho[0].numel() * ens.rho.element_size()
-            self.batch = B = member_batch(K, field_bytes, self.device,
-                                          self.fields_per_member)
-            t0 = np.float32(t0)
-            if self.phys_cfg is not None:
-                tsfc = (skin_temperature(ens) if self.tsfc is None
-                        else torch.as_tensor(self.tsfc, dtype=torch.float32,
-                                             device=self.device))
-                tsfc_out = torch.empty_like(tsfc)
-            for b0 in range(0, K, B):
-                batch = DycoreState(*(f[b0:b0 + B] for f in ens))
-                bdy = self._bdy_batch(b0, B)
-                if self.phys_cfg is not None:
-                    res, tsfc_out[b0:b0 + B] = self._fcst_phys(
-                        batch, nsteps, t0, tsfc[b0:b0 + B], bdy)
-                else:
-                    res = self._fcst_one(batch, nsteps, t0, bdy)
-                for dst, src in zip(out, res):
-                    dst[b0:b0 + B] = src
-                del res, batch
-            if self.phys_cfg is not None:
-                self.tsfc = tsfc_out
-            return out
+            if self.mesh is not None:
+                return self._forecast_grid(ens, nsteps, np.float32(t0))
+            return self._forecast_members(ens, nsteps, np.float32(t0), 0)
+
+    def _forecast_members(self, ens: DycoreState, nsteps: int, t0,
+                          m0: int) -> DycoreState:
+        """The undecomposed forecast of members m0.. of the ensemble
+        (boundary data per member sliced from m0) in member batches."""
+        K = ens.rho.shape[0]
+        field_bytes = ens.rho[0].numel() * ens.rho.element_size()
+        self.batch = B = member_batch(K, field_bytes, self.device,
+                                      self.fields_per_member)
+        phys = self.phys_cfg is not None
+        if phys:
+            tsfc = (skin_temperature(ens) if self.tsfc is None
+                    else torch.as_tensor(self.tsfc, dtype=torch.float32,
+                                         device=self.device))
+            tsfc_out = torch.empty_like(tsfc)
+
+        def run(b0, batch):
+            bdy = self._bdy_batch(m0 + b0, B)
+            if not phys:
+                return {0: self._fcst_one(batch[0], nsteps, t0, bdy)}
+            res, tsfc_out[b0:b0 + B] = self._fcst_phys(
+                batch[0], nsteps, t0, tsfc[b0:b0 + B], bdy)
+            return {0: res}
+
+        out = self._in_batches({0: ens}, B, run)[0]
+        if phys:
+            self.tsfc = tsfc_out
+        return out
 
     def forecast_slots(self, ens: DycoreState, nsteps: int,
                        slot_steps: list[int], t0: float = 0.0
@@ -391,7 +544,10 @@ class CycleDriver:
             if pt == nsteps:
                 state_at_n = state
             if pt in slot_steps:
-                snaps[pt] = state_trans(to_collocated(state)).cpu()
+                full = (state if self.mesh is None
+                        else self.mesh.gather_ensemble(state))
+                snaps[pt] = state_trans(to_collocated(full)).cpu()
+                del full
         hist = torch.stack([snaps[s] for s in slot_steps], dim=1)
         return state_at_n, hist
 
@@ -429,12 +585,21 @@ class CycleDriver:
         obsope, process_obs, das_letkf (analyze's own inside),
         state_trans_inv (with the analysis mean and spread), monitor."""
         cfg = self.cfg
+        grid = self.mesh
         with self.timer.section("state_trans"):
-            gues = state_trans(to_collocated(ens))
+            if grid is None:
+                gues = state_trans(to_collocated(ens))
+                gues_mean, gues_sprd = (ensemble_mean(gues),
+                                        ensemble_spread(gues))
+            else:
+                if not isinstance(ens, Sharded):
+                    ens = grid.shard_ensemble(ens)
+                gues = halo.to_collocated_blocks(grid, ens, self.timer)
+                gues = gues._replace(blocks={b: state_trans(v) for b, v
+                                             in gues.blocks.items()})
             del ens
             gues_det = (state_trans(to_collocated(det))
                         if det is not None else None)
-            gues_mean, gues_sprd = ensemble_mean(gues), ensemble_spread(gues)
 
         with self.timer.section("obsope"):
             if precomputed_hx is not None:
@@ -446,6 +611,8 @@ class CycleDriver:
             elif hist_slots is not None:
                 hx = obsope_slots(hist_slots, obs, self.grid, cfg,
                                   self.z_full, self.topo, slots)
+            elif grid is not None:
+                hx = self._obsope_grid(gues, obs)
             else:
                 # with the physics suite, stability-corrected screen
                 # diagnostics from the persisted skin temperature
@@ -474,26 +641,38 @@ class CycleDriver:
             anal, diag = analyze(gues, ctx, cfg, self.grid, self.z_full,
                                  infl_field=infl, device=self.device,
                                  gues_det=gues_det, addi_ens=addi_ens,
-                                 rng=rng, timer=self.timer)
+                                 rng=rng, mesh=grid, timer=self.timer)
             del gues, gues_det
 
         with self.timer.section("state_trans_inv"):
-            anal_mean, anal_sprd = ensemble_mean(anal), ensemble_spread(anal)
-            restart = state_trans_inv(
-                anal, positive_definite_q=cfg.letkf.positive_definite_q,
-                positive_definite_qhyd=cfg.letkf.positive_definite_qhyd)
-            del anal
-            # ρ and ρθ would be views pinning the whole restart stack
-            ens_out = from_collocated(restart)
-            ens_out = ens_out._replace(rho=ens_out.rho.clone(),
-                                       rhot=ens_out.rhot.clone())
+            pd = dict(positive_definite_q=cfg.letkf.positive_definite_q,
+                      positive_definite_qhyd=cfg.letkf.positive_definite_qhyd)
+            if grid is None:
+                anal_mean, anal_sprd = (ensemble_mean(anal),
+                                        ensemble_spread(anal))
+                restart = state_trans_inv(anal, **pd)
+                del anal
+                ens_out = from_collocated(restart)
+            else:
+                gues_mean, gues_sprd, anal_mean, anal_sprd = (
+                    diag.stats[k] for k in ("gues_mean", "gues_sprd",
+                                            "anal_mean", "anal_sprd"))
+                restart = anal._replace(blocks={
+                    b: state_trans_inv(v, **pd)
+                    for b, v in anal.blocks.items()})
+                del anal
+                ens_out = halo.from_collocated_blocks(grid, restart,
+                                                      self.timer)
             del restart
+            # ρ and ρθ would be views pinning the whole restart stack
+            ens_out = (_contiguous_rho(ens_out) if grid is None else
+                       ens_out._replace(blocks={
+                           b: _contiguous_rho(s)
+                           for b, s in ens_out.blocks.items()}))
             det_out = None
             if diag.anal_det is not None:
-                det_out = from_collocated(state_trans_inv(
-                    diag.anal_det,
-                    positive_definite_q=cfg.letkf.positive_definite_q,
-                    positive_definite_qhyd=cfg.letkf.positive_definite_qhyd))
+                det_out = from_collocated(state_trans_inv(diag.anal_det,
+                                                          **pd))
                 diag.anal_det = None
 
         # O−A from the analysis mean against the preprocessed obs values
@@ -524,6 +703,41 @@ class CycleDriver:
                                                   ctx.qc),
             "diag": diag, "obsdep": obsdep, "det": det_out,
         }
+
+    def _obsope_grid(self, gues: Sharded, obs: Observations
+                     ) -> ObsOpeResult:
+        """The ensemble H(x) on the grid: each member slab's blocks gathered
+        over the domain on the process holding its first block, H(x) of
+        the slab there, and every slab's values gathered onto every
+        process, then reduced over all K members as obsope_ensemble does
+        (qc the largest, lev and val2 the mean). Timer section `gather`
+        for the moves."""
+        grid = self.mesh
+        per_slab = []
+        for m in range(grid.n_member):
+            leader = grid.owner(grid.index(m, 0, 0))
+            with self.timer.section("gather"):
+                slab = grid.gather_slab(gues, m, leader)
+            payload = shapes = None
+            if slab is not None:
+                y, qc, lev, val2 = compute_hx_single(
+                    state_to_history(slab, self.z_full, self.topo), obs,
+                    self.grid, self.cfg, self.z_full, with_aux=True)
+                del slab
+                payload = [y, qc.to(y.dtype), lev.to(y.dtype),
+                           val2.to(y.dtype)]
+            Km = gues.K // grid.n_member
+            shapes = [(Km, obs.nobs)] * 4
+            with self.timer.section("gather"):
+                got = grid.route([(leader, dst, payload, shapes)
+                                  for dst in range(grid.world)],
+                                 torch.float32, self.device)
+            per_slab.append(got[grid.rank])
+        y, qc, lev, val2 = (torch.cat(p, dim=0) for p in zip(*per_slab))
+        return ObsOpeResult(ensval=y,
+                            qc=qc.to(torch.int32).amax(dim=0).cpu().numpy(),
+                            lev=lev.mean(dim=0).cpu().numpy(),
+                            val2=val2.mean(dim=0).cpu().numpy())
 
     # -- full OSSE twin experiment --
     def run_osse(self, truth0: DycoreState, ens0: DycoreState,

@@ -50,7 +50,9 @@ from scale_letkf_torch.ops.obs_select import (
     candidate_width, gather_candidates, local_weights, limit_obs_topk,
     gather_obs_data,
 )
-from scale_letkf_torch.state import IA_P, IA_Q0
+from scale_letkf_torch.state import (
+    IA_P, IA_Q0, ensemble_mean, ensemble_spread,
+)
 from scale_letkf_torch.utils.device import full_fp32
 from scale_letkf_torch.utils.timing import Timer, maybe_section
 
@@ -77,6 +79,12 @@ class AnalysisDiag:
     anal_det: torch.Tensor | None = None  # (NV3D, nz, ny, nx) analysed
                                           # deterministic member, on the
                                           # analysis device (DET_RUN)
+    # under a process grid (analyze(mesh=)): the guess and analysis
+    # ensemble means and spreads (NV3D, nz, ny, nx) on the analysis device,
+    # taken where each gridpoint holds all K members, and (points, chunk)
+    # of each of this process's shares
+    stats: dict | None = None
+    share_chunks: list | None = None
 
 
 @dataclass(frozen=True)
@@ -312,7 +320,8 @@ def analyze_points(plan: _Plan, dctx: DeviceObsContext,
     for lev in range(nz):
         with maybe_section(timer, "level"):
             g_l = members[:, :, lev]                    # (K, nv, B) view
-            mean_l = g_l.mean(dim=0) if mean is None else mean[:, lev]
+            mean_l = (ensemble_mean(g_l) if mean is None
+                      else mean[:, lev])
             logp_l = torch.log(torch.clamp(mean_l[IA_P], min=1e-3))
         for b0 in range(0, B, chunk):
             sl = slice(b0, min(B, b0 + chunk))
@@ -382,7 +391,7 @@ def analyze_points(plan: _Plan, dctx: DeviceObsContext,
 
 @full_fp32()
 def analyze(
-    gues: torch.Tensor,            # (K, NV3D, nz, ny, nx) analysis variables
+    gues,                          # (K, NV3D, nz, ny, nx), or Sharded blocks
     ctx: ObsContext,
     cfg: Config,
     grid: Grid,
@@ -395,7 +404,7 @@ def analyze(
     rng: np.random.Generator | None = None,
     mesh=None,
     timer: Timer | None = None,
-) -> tuple[torch.Tensor, AnalysisDiag]:
+):
     """Analysis update of the ensemble `gues` on `device`. Returns (anal,
     diag): anal a new (K, NV3D, nz, ny, nx) tensor, diag on the host but
     for diag.anal_det.
@@ -407,26 +416,36 @@ def analyze(
     required when INFL_ADD > 0 (da/inflation.py; rng shuffles its members
     under INFL_ADD_SHUFFLE, default_rng(0) when None).
 
+    mesh: a process grid (parallel/mesh.py). gues is then a Sharded of
+    (K/n_member, NV3D, nz, ny_b, nx_b) blocks in the forecast layout (or
+    the global ensemble, sharded here), consumed (its dict emptied) once
+    transposed, and anal a Sharded in the same layout. The 'ensemble
+    transpose' (the reference's da/letkf.py:141-183, layout ('dy', 'dx',
+    'member')): each spatial block's gridpoints are split over its member
+    slabs by an all-to-all along the member axis only, each block analyses
+    its share for all K members, and the inverse all-to-all brings the
+    analysis back. Per-gridpoint outputs (inflation, obs counts, RTPS
+    factor, the deterministic member, and the ensemble means and spreads
+    in diag.stats) are gathered onto every process. Without a mesh the
+    whole domain is the one share.
+
     timer, when given, gets the sections 'level', 'select', 'gather',
-    'gram', 'solve', 'weights', 'apply' and 'addi'. Float32 products run in
-    full FP32 whatever matmul precision the caller set (full_fp32)."""
+    'gram', 'solve', 'weights', 'apply' and 'addi', and under a mesh
+    'transpose' and 'collect'. Float32 products run in full FP32 whatever
+    matmul precision the caller set (full_fp32)."""
+    _check_inputs(cfg, ctx, addi_ens, gues_det)
     if mesh is not None:
-        raise NotImplementedError(
-            "multi-device mesh: not ported yet (ROADMAP queue 1, "
-            "parallel/)")
-    if gues.device != device:
-        raise ValueError(f"gues is on {gues.device}, analysis on {device}")
-    if cfg.letkf.relax_spread_out and cfg.letkf.relax_alpha_spread == 0.0:
-        raise ValueError("RELAX_SPREAD_OUT requires RELAX_ALPHA_SPREAD")
-    if cfg.letkf.infl_add > 0 and addi_ens is None:
-        raise ValueError(
-            "INFL_ADD > 0 requires an additive-inflation ensemble "
-            "(addi_ens; reference INFL_ADD_IN_BASENAME files)")
-    if gues_det is not None and ctx.depd is None:
-        raise ValueError("a deterministic member needs the obs context's "
-                         "depd (build_obs_context(..., ensval_det=))")
-    K, nv, nz, ny, nx = gues.shape
-    dtype = gues.dtype
+        from scale_letkf_torch.parallel.mesh import Sharded
+        if not isinstance(gues, Sharded):
+            gues = mesh.shard_ensemble(gues)
+        K, proto = gues.K, next(iter(gues.blocks.values()))
+    else:
+        K, proto = gues.shape[0], gues
+    if proto.device != device:
+        raise ValueError(f"gues is on {proto.device}, analysis on {device}")
+    nv, nz = proto.shape[1:3]
+    ny, nx = grid.ny, grid.nx
+    dtype = proto.dtype
     B = ny * nx
     plan = _make_plan(ctx, cfg, nv)
     dctx = obs_context_to_device(ctx, device, dtype)
@@ -437,43 +456,104 @@ def analyze(
                            device=device)
     else:
         infl0 = infl_field.to(device=device, dtype=dtype).reshape(nz, B)
-    g = gues.reshape(K, nv, nz, B)
     det = (None if gues_det is None
            else gues_det.to(device=device, dtype=dtype).reshape(nv, nz, B))
-    anal, infl_out, nobs_out, rtps_out, anal_det, chunk = analyze_points(
-        plan, dctx, g, None, infl0, gp_x, gp_y, dist_bdy, z_zb, det=det,
-        timer=timer)
-
-    anal = anal.reshape(K, nv, nz, ny, nx)
+    addi = None
     if cfg.letkf.infl_add > 0:
-        with maybe_section(timer, "addi"):
-            gues_mean = (g.mean(dim=0).reshape(nv, nz, ny, nx)
-                         if cfg.letkf.infl_add_q_ratio else None)
-            _additive_inflation(anal, addi_ens, cfg, ctx, gp_x, gp_y,
-                                gues_mean, rng)
-
-    nobs_np = nobs_out.cpu().numpy()
+        weight, shuffle = _addi_weight_shuffle(cfg, ctx, gp_x, gp_y, rng,
+                                               K, dtype)
+        addi = addi_ens.reshape(K, nv, nz, B)
+    if mesh is not None:
+        with maybe_section(timer, "transpose"):
+            shares = mesh.to_points(gues)
+            gues.blocks.clear()
+        points = {b: torch.as_tensor(mesh.share_points(b, ny, nx),
+                                     device=device) for b in shares}
+    else:
+        shares, points = {0: gues.reshape(K, nv, nz, B)}, {0: slice(None)}
+    stats = ("gues_mean", "gues_sprd", "anal_mean", "anal_sprd")
+    outs: dict[str, dict] = {k: {} for k in (
+        "infl", "nobs", "rtps", "det") + stats}
+    chunks = []
+    for b in list(shares):
+        pts = points[b]
+        g = shares.pop(b)
+        gues_mean = None
+        if mesh is not None or (addi is not None
+                                and cfg.letkf.infl_add_q_ratio):
+            gues_mean = ensemble_mean(g)
+        if mesh is not None:
+            outs["gues_mean"][b] = gues_mean
+            outs["gues_sprd"][b] = ensemble_spread(g)
+        res = analyze_points(
+            plan, dctx, g, None, infl0[:, pts], gp_x[pts], gp_y[pts],
+            dist_bdy[pts], z_zb[:, pts],
+            det=None if det is None else det[..., pts], timer=timer)
+        anal = res.anal
+        del g
+        if addi is not None:
+            with maybe_section(timer, "addi"):
+                inflation.apply_additive_inflation(
+                    anal, addi[..., pts if isinstance(pts, slice)
+                               else pts.to(addi.device)],
+                    cfg.letkf.infl_add, shuffle=shuffle,
+                    weight=None if weight is None else weight[pts],
+                    q_ratio=cfg.letkf.infl_add_q_ratio, gues_mean=gues_mean)
+        shares[b] = anal
+        if mesh is not None:
+            outs["anal_mean"][b] = ensemble_mean(anal)
+            outs["anal_sprd"][b] = ensemble_spread(anal)
+        outs["nobs"][b] = res.nobs
+        for k, v in (("infl", res.infl), ("rtps", res.rtps),
+                     ("det", res.anal_det)):
+            if v is not None:
+                outs[k][b] = v
+        chunks.append((anal.shape[-1], res.chunk))
+    if mesh is not None:
+        with maybe_section(timer, "transpose"):
+            anal = mesh.from_points(shares, K, ny, nx)
+            shares.clear()
+        with maybe_section(timer, "collect"):
+            glob = {k: mesh.gather_points(v, ny, nx) if v else None
+                    for k, v in outs.items()}
+    else:
+        anal = shares.pop(0).reshape(K, nv, nz, ny, nx)
+        glob = {k: v.get(0) for k, v in outs.items()}
+    nobs_np = glob["nobs"].cpu().numpy()
     diag = AnalysisDiag(
         nobs_per_level=nobs_np.mean(axis=1),
-        infl_field=(infl_out.reshape(nz, ny, nx).cpu().numpy()
+        infl_field=(glob["infl"].reshape(nz, ny, nx).cpu().numpy()
                     if plan.adaptive else None),
-        rtps_field=(rtps_out.reshape(nv, nz, ny, nx).cpu().numpy()
-                    if rtps_out is not None else None),
+        rtps_field=(glob["rtps"].reshape(nv, nz, ny, nx).cpu().numpy()
+                    if glob["rtps"] is not None else None),
         nobs_field=(nobs_np.reshape(nz, ny, nx).astype(np.float64)
                     if cfg.letkf.nobs_out else None),
-        chunk=chunk,
-        anal_det=None if anal_det is None else anal_det.reshape(
-            nv, nz, ny, nx))
+        chunk=min(c for _, c in chunks),
+        anal_det=(None if glob["det"] is None
+                  else glob["det"].reshape(nv, nz, ny, nx)),
+        stats=(None if mesh is None else
+               {k: glob[k].reshape(nv, nz, ny, nx) for k in stats}),
+        share_chunks=None if mesh is None else chunks)
     return anal, diag
 
 
-def _additive_inflation(anal, addi_ens, cfg: Config, ctx: ObsContext,
-                        gp_x, gp_y, gues_mean, rng):
-    """The additive-inflation stage (letkf_tools.f90:804-929), in place on
-    anal: the INFL_ADD_REF_ONLY weight from the radar reflectivity obs
-    (zero without them), the INFL_ADD_SHUFFLE permutation and the
-    INFL_ADD_Q_RATIO factor (the guess mean gues_mean)."""
-    K, _, _, ny, nx = anal.shape
+def _check_inputs(cfg: Config, ctx: ObsContext, addi_ens, gues_det):
+    if cfg.letkf.relax_spread_out and cfg.letkf.relax_alpha_spread == 0.0:
+        raise ValueError("RELAX_SPREAD_OUT requires RELAX_ALPHA_SPREAD")
+    if cfg.letkf.infl_add > 0 and addi_ens is None:
+        raise ValueError(
+            "INFL_ADD > 0 requires an additive-inflation ensemble "
+            "(addi_ens; reference INFL_ADD_IN_BASENAME files)")
+    if gues_det is not None and ctx.depd is None:
+        raise ValueError("a deterministic member needs the obs context's "
+                         "depd (build_obs_context(..., ensval_det=))")
+
+
+def _addi_weight_shuffle(cfg: Config, ctx: ObsContext, gp_x, gp_y, rng,
+                         K: int, dtype):
+    """The additive inflation's INFL_ADD_REF_ONLY weight (B,) from the radar
+    reflectivity obs (zero without them; None when not asked for) and its
+    INFL_ADD_SHUFFLE member permutation (None when not asked for)."""
     weight = None
     if cfg.letkf.infl_add_ref_only:
         ref_ct = [ct for ct in ctx.ctypes if ct.elem == ID_RADAR_REF]
@@ -485,9 +565,7 @@ def _additive_inflation(anal, addi_ens, cfg: Config, ctx: ObsContext,
                 obs_y_all=ctx.y)
         else:
             weight = torch.zeros_like(gp_x)
-        weight = weight.to(anal.dtype).reshape(ny, nx)
+        weight = weight.to(dtype)
     shuffle = (inflation.knuth_shuffle(rng or np.random.default_rng(0), K)
                if cfg.letkf.infl_add_shuffle else None)
-    inflation.apply_additive_inflation(
-        anal, addi_ens, cfg.letkf.infl_add, shuffle=shuffle, weight=weight,
-        q_ratio=cfg.letkf.infl_add_q_ratio, gues_mean=gues_mean)
+    return weight, shuffle

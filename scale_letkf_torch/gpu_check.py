@@ -308,14 +308,17 @@ def var_local_groups(cfg) -> int:
         tuple(col) for col in cfg.var_local.table(NV3D).T.tolist()))
 
 
-def expected_launches(cfg, grid, steps: int, batches: int,
-                      chunk: int) -> dict:
+def expected_launches(cfg, grid, steps: int, batches: int, chunk: int,
+                      blocks: int = 1, shares=None) -> dict:
     """Launches of each kernel in one run_osse cycle on the card: 3 RK
     stages × steps × (the ensemble's member batches + the nature run's
     one) for both stencil kernels; levels × chunks per level × var-local
-    groups for the solver."""
-    fcst = 3 * steps * (batches + 1)
-    return {"invsqrt_ns": grid.nz * -(-grid.ny * grid.nx // chunk)
+    groups for the solver. On a process grid every batch runs on each of
+    `blocks` blocks, and the solver runs per share of the gridpoints:
+    shares, the (points, chunk) of each (AnalysisDiag.share_chunks)."""
+    fcst = 3 * steps * (batches * blocks + 1)
+    shares = shares or [(grid.ny * grid.nx, chunk)]
+    return {"invsqrt_ns": sum(grid.nz * -(-n // c) for n, c in shares)
             * var_local_groups(cfg),
             "dyn_tendency": fcst, "adv_ud3": fcst}
 

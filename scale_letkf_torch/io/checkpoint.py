@@ -71,15 +71,25 @@ def save_ensemble(dirpath: str | Path, ens: DycoreState,
     (d / "manifest.json").write_text(json.dumps(manifest, indent=1))
 
 
-def load_ensemble(dirpath: str | Path, basename: str | None = None
+def manifest_members(dirpath: str | Path) -> int:
+    """The member count a checkpoint's manifest records."""
+    return int(json.loads((Path(dirpath) / "manifest.json").read_text())
+               ["members"])
+
+
+def load_ensemble(dirpath: str | Path, basename: str | None = None,
+                  members: list[int] | None = None
                   ) -> tuple[DycoreState, dict[str, np.ndarray], dict]:
-    """(state of numpy arrays, K leading; aux fields; meta)."""
+    """(state of numpy arrays, K leading; aux fields; meta). members: the
+    member indices to read (all when None), in that order."""
     d = Path(dirpath)
     manifest = json.loads((d / "manifest.json").read_text())
     basename = basename or manifest["basename"]
-    members = [load_member(d / (filename_replace_mem(basename, m) + ".npz"))
-               for m in range(manifest["members"])]
-    ens = DycoreState(*(np.stack(f) for f in zip(*members)))
+    if members is None:
+        members = range(manifest["members"])
+    states = [load_member(d / (filename_replace_mem(basename, m) + ".npz"))
+              for m in members]
+    ens = DycoreState(*(np.stack(f) for f in zip(*states)))
     aux = {k: np.load(d / f"{k}.npz")["data"]
            for k in manifest.get("aux", [])}
     return ens, aux, manifest.get("meta", {})

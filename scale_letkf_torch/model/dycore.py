@@ -40,6 +40,7 @@ from scale_letkf_torch.utils.timing import Timer, maybe_section
 
 CPDRY = RD + CVDRY
 LATERAL_MODES = ("periodic", "open")
+HALO_MODES = ("gspmd", "explicit", "explicit_overlap")
 
 
 @dataclass(frozen=True)
@@ -54,7 +55,11 @@ class DycoreConfig:
     sponge_tau: float = 60.0   # sponge damping timescale [s]
     ztop: float = 0.0          # set from the grid
     lateral: str = "periodic"  # 'periodic' | 'open' (edge-clamped stencils)
-    halo: str = "gspmd"        # multi-device halo backend (only 'gspmd' here)
+    halo: str = "gspmd"        # halo backend under a spatial grid: 'gspmd'
+                               # (the explicit exchange, there being no
+                               # compiler to place collectives),
+                               # 'explicit' or 'explicit_overlap'
+                               # (parallel/halo.py)
 
 
 class DycoreState(NamedTuple):
@@ -250,8 +255,17 @@ def integrate(s: DycoreState, cfg: DycoreConfig, rho_ref, p_ref, z_center,
 def to_collocated(s: DycoreState, lateral: str = "periodic") -> torch.Tensor:
     """Staggered → stacked collocated restart view (..., NV3D, nz, ny, nx);
     momenta averaged to cell centers."""
-    rhou_c = 0.5 * (s.rhou + roll_x(s.rhou, -1, lateral))
-    rhov_c = 0.5 * (s.rhov + roll_y(s.rhov, -1, lateral))
+    return collocate(s, roll_x(s.rhou, -1, lateral),
+                     roll_y(s.rhov, -1, lateral))
+
+
+def collocate(s: DycoreState, rhou_w: torch.Tensor,
+              rhov_s: torch.Tensor) -> torch.Tensor:
+    """to_collocated with the faces west and south of each cell given (ρu at
+    i−1/2, ρv at j−1/2): the halo path (parallel/halo.py) takes them from
+    its neighbours' blocks."""
+    rhou_c = 0.5 * (s.rhou + rhou_w)
+    rhov_c = 0.5 * (s.rhov + rhov_s)
     rhow_c = 0.5 * (zsl(s.rhow, 1) + zsl(s.rhow, None, -1))
     core = torch.stack([s.rho, rhou_c, rhov_c, rhow_c, s.rhot], dim=-4)
     return torch.cat([core, mixing_ratios(s)], dim=-4)
@@ -260,11 +274,19 @@ def to_collocated(s: DycoreState, lateral: str = "periodic") -> torch.Tensor:
 def from_collocated(v: torch.Tensor, lateral: str = "periodic") -> DycoreState:
     """Stacked collocated restart view → staggered dycore state: center
     momenta averaged back to faces, w boundary faces set to 0."""
+    return stagger(v, roll_x(v[..., IR_RHOU, :, :, :], 1, lateral),
+                   roll_y(v[..., IR_RHOV, :, :, :], 1, lateral))
+
+
+def stagger(v: torch.Tensor, rhou_e: torch.Tensor,
+            rhov_n: torch.Tensor) -> DycoreState:
+    """from_collocated with the center momenta east and north of each cell
+    given (ρu at i+1, ρv at j+1), as `collocate` takes its faces."""
     def var(i):
         return v[..., i, :, :, :]
     rho = var(IR_RHO)
-    rhou = 0.5 * (var(IR_RHOU) + roll_x(var(IR_RHOU), 1, lateral))
-    rhov = 0.5 * (var(IR_RHOV) + roll_y(var(IR_RHOV), 1, lateral))
+    rhou = 0.5 * (var(IR_RHOU) + rhou_e)
+    rhov = 0.5 * (var(IR_RHOV) + rhov_n)
     rhow_c = var(IR_RHOW)
     rhow_int = 0.5 * (zsl(rhow_c, 1) + zsl(rhow_c, None, -1))
     zeros = torch.zeros_like(zsl(rhow_c, None, 1))

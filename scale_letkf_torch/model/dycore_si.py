@@ -65,21 +65,19 @@ def _thomas_solve(a, b, c, d, dim: int = 0):
     return xs.movedim(0, dim)
 
 
-def acoustic_substeps(s_start: DycoreState, s_stage: DycoreState,
-                      slow: DycoreState, cfg: DycoreConfig,
-                      split: SplitConfig, n_steps: int, dt_stage: float,
-                      vg: VGrid | None = None) -> DycoreState:
-    """Integrate the acoustic system for dt_stage = n_steps·dτ, linearized
-    around s_stage, from s_start; returns the updated full state. vg:
-    stretched metric (None ⇒ uniform cfg.dz): dzc divides the flux
-    divergences at centers, dzf the gradients at interior faces."""
-    lateral = cfg.lateral
-    dx, dy = cfg.dx, cfg.dy
+def acoustic_coeffs(s_stage: DycoreState, cfg: DycoreConfig,
+                    split: SplitConfig, dtau: float,
+                    vg: VGrid | None = None) -> dict:
+    """The column operators of the acoustic system linearized around
+    s_stage, for substeps of dτ: the metric (dzc, dzf) and its products
+    with dτ·β (abf at interior faces, abc at centers), c², θ at centers and
+    faces, and the implicit vertical solve's tridiagonal coefficients
+    (a_sub, b_diag, c_sup at the interior faces k = 1..nz-1). Everything
+    here is column-local, so the undecomposed substeps and those of a
+    halo-extended block (parallel/halo.py) share it."""
     vg = metric(s_stage, cfg, vg)
     dzc, dzf = vg.dzc, vg.dzf
-    dtau = dt_stage / n_steps
     beta = split.beta
-
     rho0 = s_stage.rho
     rhot0 = s_stage.rhot
     p0 = moist_pressure(rhot0, mixing_ratios(s_stage))
@@ -103,10 +101,74 @@ def acoustic_substeps(s_start: DycoreState, s_stage: DycoreState,
     tf_mid = zsl(theta_face, 1, -1)
     tf_up = zsl(theta_face, 2)
     tf_dn = zsl(theta_face, None, -2)
-    b_diag = (1.0 + abf * tf_mid * (c2_up * abc_up + c2_dn * abc_dn)
-              + g_half * (abc_up - abc_dn))
-    c_sup = -abf * c2_up * abc_up * tf_up - g_half * abc_up
-    a_sub = -abf * c2_dn * abc_dn * tf_dn + g_half * abc_dn
+    return dict(
+        dzc=dzc, dzf=dzf, abf=abf, abc=abc, c2=c2, c2_up=c2_up, c2_dn=c2_dn,
+        theta0=theta0, theta_face=theta_face, g_half=g_half,
+        b_diag=(1.0 + abf * tf_mid * (c2_up * abc_up + c2_dn * abc_dn)
+                + g_half * (abc_up - abc_dn)),
+        c_sup=-abf * c2_up * abc_up * tf_up - g_half * abc_up,
+        a_sub=-abf * c2_dn * abc_dn * tf_dn + g_half * abc_dn)
+
+
+def acoustic_column(co: dict, drho, drhow, drhot, dp, div_h, div_h_th,
+                    slow: DycoreState, dtau: float, beta: float):
+    """The vertical part of one acoustic substep, column by column, after
+    the horizontal momenta: the explicit ρ'' and ρθ'' (with the (1-β) old
+    vertical flux and the horizontal flux divergences div_h, div_h_th of the
+    new momenta), the implicit solve for ρw'' at the interior faces, and the
+    implicit corrections. co: acoustic_coeffs. Returns (ρ'', ρw'', ρθ'')."""
+    dzc, dzf, abf, abc = co["dzc"], co["dzf"], co["abf"], co["abc"]
+    c2_up, c2_dn, theta_face = co["c2_up"], co["c2_dn"], co["theta_face"]
+    g_half = co["g_half"]
+    # explicit parts of ρ'' and ρθ'' (with the (1-β) old vertical flux)
+    w_old = drhow
+    dflux_w = (zsl(w_old, 1) - zsl(w_old, None, -1)) / dzc
+    wth_old = w_old * theta_face
+    dflux_wth = (zsl(wth_old, 1) - zsl(wth_old, None, -1)) / dzc
+    rho_exp = (drho + dtau * (slow.rho - div_h)
+               - dtau * (1 - beta) * dflux_w)
+    rhot_exp = (drhot + dtau * (slow.rhot - div_h_th)
+                - dtau * (1 - beta) * dflux_wth)
+
+    # right-hand side at the interior faces
+    dp_z = (zsl(dp, 1) - zsl(dp, None, -1)) / dzf
+    rho_face_old = 0.5 * (zsl(drho, 1) + zsl(drho, None, -1))
+    d_rhs = (zsl(w_old, 1, -1)
+             + dtau * zsl(slow.rhow, 1, -1)
+             - dtau * (1 - beta) * (dp_z + GRAV * rho_face_old)
+             - abf * (c2_up * zsl(rhot_exp, 1)
+                      - c2_dn * zsl(rhot_exp, None, -1))
+             - g_half * (zsl(rho_exp, 1) + zsl(rho_exp, None, -1)))
+
+    w_new_int = _thomas_solve(co["a_sub"], co["b_diag"], co["c_sup"], d_rhs,
+                              dim=-3)
+    zeros = torch.zeros_like(zsl(drhow, None, 1))
+    w_new = torch.cat([zeros, w_new_int, zeros], dim=-3)
+
+    # implicit corrections to ρ'' and ρθ''
+    drho = rho_exp - abc * (zsl(w_new, 1) - zsl(w_new, None, -1))
+    wth_new = w_new * theta_face
+    drhot = rhot_exp - abc * (zsl(wth_new, 1) - zsl(wth_new, None, -1))
+    return drho, w_new, drhot
+
+
+def acoustic_substeps(s_start: DycoreState, s_stage: DycoreState,
+                      slow: DycoreState, cfg: DycoreConfig,
+                      split: SplitConfig, n_steps: int, dt_stage: float,
+                      vg: VGrid | None = None) -> DycoreState:
+    """Integrate the acoustic system for dt_stage = n_steps·dτ, linearized
+    around s_stage, from s_start; returns the updated full state. vg:
+    stretched metric (None ⇒ uniform cfg.dz): dzc divides the flux
+    divergences at centers, dzf the gradients at interior faces. The
+    horizontal neighbours are rolls here; parallel/halo.py steps a block
+    with halo exchanges in their place and shares acoustic_coeffs and
+    acoustic_column."""
+    lateral = cfg.lateral
+    dx, dy = cfg.dx, cfg.dy
+    dtau = dt_stage / n_steps
+    co = acoustic_coeffs(s_stage, cfg, split, dtau, vg)
+    c2, theta0 = co["c2"], co["theta0"]
+    rho0, rhot0 = s_stage.rho, s_stage.rhot
 
     def rx(f, n):
         return roll_x(f, n, lateral)
@@ -136,35 +198,9 @@ def acoustic_substeps(s_start: DycoreState, s_stage: DycoreState,
         v_th = drhov * theta_yf
         div_h_th = ((u_th - rx(u_th, -1)) / dx + (v_th - ry(v_th, -1)) / dy)
 
-        # explicit parts of ρ'' and ρθ'' (with the (1-β) old vertical flux)
-        w_old = drhow
-        dflux_w = (zsl(w_old, 1) - zsl(w_old, None, -1)) / dzc
-        wth_old = w_old * theta_face
-        dflux_wth = (zsl(wth_old, 1) - zsl(wth_old, None, -1)) / dzc
-        rho_exp = (drho + dtau * (slow.rho - div_h)
-                   - dtau * (1 - beta) * dflux_w)
-        rhot_exp = (drhot + dtau * (slow.rhot - div_h_th)
-                    - dtau * (1 - beta) * dflux_wth)
-
-        # right-hand side at the interior faces
-        dp_z = (zsl(dp, 1) - zsl(dp, None, -1)) / dzf
-        rho_face_old = 0.5 * (zsl(drho, 1) + zsl(drho, None, -1))
-        d_rhs = (zsl(w_old, 1, -1)
-                 + dtau * zsl(slow.rhow, 1, -1)
-                 - dtau * (1 - beta) * (dp_z + GRAV * rho_face_old)
-                 - abf * (c2_up * zsl(rhot_exp, 1)
-                          - c2_dn * zsl(rhot_exp, None, -1))
-                 - g_half * (zsl(rho_exp, 1) + zsl(rho_exp, None, -1)))
-
-        w_new_int = _thomas_solve(a_sub, b_diag, c_sup, d_rhs, dim=-3)
-        zeros = torch.zeros_like(zsl(drhow, None, 1))
-        w_new = torch.cat([zeros, w_new_int, zeros], dim=-3)
-
-        # implicit corrections to ρ'' and ρθ''
-        drho = rho_exp - abc * (zsl(w_new, 1) - zsl(w_new, None, -1))
-        wth_new = w_new * theta_face
-        drhot = rhot_exp - abc * (zsl(wth_new, 1) - zsl(wth_new, None, -1))
-        drhow = w_new
+        drho, drhow, drhot = acoustic_column(co, drho, drhow, drhot, dp,
+                                             div_h, div_h_th, slow, dtau,
+                                             split.beta)
 
     # tracers advance with the slow tendency only (advected by the stage
     # winds; acoustic modes do not transport tracers)

@@ -350,3 +350,23 @@ def read_obs_dep(path: str):
     return (elem, wk[:, 1], wk[:, 2], wk[:, 3], wk[:, 4], wk[:, 5],
             wk[:, 6].astype(np.int32), wk[:, 7],
             wk[:, 8].astype(np.int32), wk[:, 9], wk[:, 10])
+
+
+# ---------------------------------------------------------------------------
+# Dispatcher (read_obs_all analogue)
+# ---------------------------------------------------------------------------
+
+def read_obs_all(cfg: Config) -> list[Observations]:
+    """Every configured obs input file (OBS_IN_NAME), read by its
+    OBS_IN_FORMAT (common_obs_scale.f90:2596-2644)."""
+    out = []
+    for name, fmt in zip(cfg.obsope.obs_in_name, cfg.obsope.obs_in_format):
+        if fmt.upper() == "RADAR":
+            out.append(read_obs_radar(name))
+        elif fmt.upper() == "PREPBUFR":
+            out.append(read_obs(name, cfg))
+        elif fmt.upper() == "HIMAWARI8":
+            out.append(read_obs_h08(name, cfg))
+        else:
+            raise ValueError(f"unsupported obs format: {fmt}")
+    return out

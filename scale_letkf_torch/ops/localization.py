@@ -33,3 +33,18 @@ def normalized_dist2(dx: torch.Tensor, dy: torch.Tensor, hori_scale,
     nd_v2 = torch.where(has_v, (dvert / safe_v) ** 2,
                         torch.zeros_like(nd_h2))
     return nd_h2 + nd_v2
+
+
+def gaspari_cohn(r: torch.Tensor) -> torch.Tensor:
+    """Gaspari & Cohn (1999) 5th-order piecewise-rational compact taper, an
+    alternative localization function (r normalized so that it reaches
+    zero at r = 2)."""
+    r = torch.abs(r)
+    r2, r3 = r * r, r * r * r
+    inner = (-0.25 * r3 * r2 + 0.5 * r2 * r2 + 0.625 * r3
+             - (5.0 / 3.0) * r2 + 1.0)
+    outer = ((1.0 / 12.0) * r3 * r2 - 0.5 * r2 * r2 + 0.625 * r3
+             + (5.0 / 3.0) * r2 - 5.0 * r + 4.0
+             - (2.0 / 3.0) / torch.clamp(r, min=1e-10))
+    zero = torch.zeros_like(r)
+    return torch.where(r <= 1.0, inner, torch.where(r <= 2.0, outer, zero))

@@ -160,10 +160,26 @@ def state_to_history(anal: torch.Tensor, z_full: torch.Tensor,
 
 
 def ensemble_mean(stack: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """Ensemble mean over the member axis (ensmean_grd analogue)."""
-    return torch.mean(stack, dim=dim)
+    """Ensemble mean over the member axis (ensmean_grd analogue): the
+    members' sum in member order, over K. Element-wise adds, so every
+    gridpoint's mean has the same bits whatever the layout around it — the
+    whole domain, a level, or a process grid's share of its columns (a
+    reduction kernel's summation order depends on the tensor's shape)."""
+    stack = stack.movedim(dim, 0)
+    acc = stack[0].clone()
+    for k in range(1, stack.shape[0]):
+        acc += stack[k]
+    return acc.div_(stack.shape[0])
 
 
 def ensemble_spread(stack: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """Ensemble spread, stdev with 1/(K-1) (enssprd_grd analogue)."""
-    return torch.std(stack, dim=dim, correction=1)
+    """Ensemble spread, stdev with 1/(K-1) (enssprd_grd analogue), two-pass
+    about ensemble_mean, the squares summed in member order (as
+    ensemble_mean, the same bits in any layout)."""
+    stack = stack.movedim(dim, 0)
+    mean = ensemble_mean(stack)
+    acc = torch.zeros_like(mean)
+    for k in range(stack.shape[0]):
+        d = stack[k] - mean
+        acc += d.mul_(d)
+    return acc.div_(stack.shape[0] - 1).sqrt_()

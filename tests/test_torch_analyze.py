@@ -210,13 +210,28 @@ def test_analysis_products_in_full_fp32(monkeypatch):
 
 
 def test_unported_inputs_raise():
-    """A device mesh is not ported (the deterministic member and additive
-    inflation are: tests/test_torch_det_addi.py)."""
+    """A device mesh, the last input that raised, is ported (parallel/;
+    tests/test_torch_mesh_analysis.py holds it to the reference): on the
+    (2, 2, 2) grid the analysis equals the single block's to float32
+    rounding of the per-level means (1e-5 of max|Δ| + 2 ulp); a grid that
+    does not divide the domain raises."""
+    from scale_letkf_torch.parallel.mesh import make_mesh
     _, _, cfg, grid = _configs("rtpp")
     restart, obs, ensval = _inputs(cfg, grid)
     gues = state.state_trans(ensemble_to_torch(restart, CPU))
     ctx = build_obs_context(obs, ensval, np.zeros(obs.nobs, np.int32), cfg,
                             grid)
     z = grid.calc_z(torch.zeros((grid.ny, grid.nx)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*parallel/"):
-        letkf.analyze(gues, ctx, cfg, grid, z, device=CPU, mesh=1)
+    one, _ = letkf.analyze(gues, ctx, cfg, grid, z, device=CPU)
+    mesh = make_mesh(2, 2, 2)
+    anal, _ = letkf.analyze(mesh.shard_ensemble(gues), ctx, cfg, grid, z,
+                            device=CPU, mesh=mesh)
+    got = mesh.gather_ensemble(anal)
+    for v in range(gues.shape[1]):
+        d = (one[:, v] - gues[:, v]).abs().max()
+        tol = 1e-5 * d + 2 * torch.finfo(torch.float32).eps \
+            * one[:, v].abs().max()
+        assert (got[:, v] - one[:, v]).abs().max() <= tol, v
+    with pytest.raises(ValueError, match="nx = 24 does not divide into 5"):
+        letkf.analyze(gues, ctx, cfg, grid, z, device=CPU,
+                      mesh=make_mesh(1, 1, 5))

@@ -218,7 +218,9 @@ def test_unported_options_raise(runs, key, value, item):
 def test_terrain_and_mesh_raise(runs, tmp_path):
     """A topo_file, which raised NotImplementedError until model/terrain.py
     was ported, now builds a driver with terrain metrics and z_full on the
-    topography; a mesh still raises, naming its ROADMAP item."""
+    topography; a [process] grid, which raised until parallel/ was ported,
+    builds a driver on the grid, and terrain under the explicit core on a
+    grid that decomposes the domain raises the reference's refusal."""
     tmp, _, _ = runs
     cfg, grid, dycfg, dom = load_config_and_grid(str(tmp / "exp.toml"))
     np.savez(tmp_path / "topo.npz", topo=np.full((12, 12), 100.0))
@@ -228,8 +230,11 @@ def test_terrain_and_mesh_raise(runs, tmp_path):
     assert driver.metrics is not None
     assert float(driver.z_full[0].min()) > 100.0
     cfg.process.mesh_member = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.*parallel"):
-        make_driver(cfg, grid, dycfg, dom, CPU)
+    assert make_driver(cfg, grid, dycfg, dom, CPU).mesh.shape == (2, 1, 1)
+    cfg.process.mesh_y = 2
+    with pytest.raises(NotImplementedError, match="terrain requires core"):
+        make_driver(cfg, grid, dycfg,
+                    {**dom, "topo_file": str(tmp_path / "topo.npz")}, CPU)
 
 
 def test_synthetic_ensemble_matches_reference_construction():

@@ -32,7 +32,8 @@ def test_every_module_imports_without_jax():
               "da.resident", "utils.staging", "model.nesting", "nested",
               "da.fastcycle", "io.netcdf",
               "io.checkpoint", "io.convert", "cli.main", "synthetic",
-              "gpu_check", "__main__"):
+              "gpu_check", "__main__", "parallel.mesh", "parallel.halo",
+              "parallel.distributed"):
         assert f"scale_letkf_torch.{m}" in mods, m
     code = (
         "import sys\n"
