@@ -11,11 +11,14 @@ unchanged: 480×360×36 stretched levels, K = 50)
 the ensemble forecast (split-explicit core, dt 30 s, 10 acoustic substeps,
 2 steps), the LETKF analysis (the synthetic conventional network of ~24k
 obs), the DA cycle that joins them (CycleDriver.run_osse) and the physics
-cycle (the same with the physics suite and Davies boundary forcing, 10
+cycle (the same with the physics suite and Davies boundary forcing, 6
 steps), and the production cycle (the physics cycle over the reference
 bench's synthetic topography, with conventional and Himawari-8 obs); and
 the radar configuration's forecast (configs/bda_1km_radar.toml, unchanged:
-192×192×48, K = 50, Kessler physics) over its 30-s window:
+192×192×48, K = 50, Kessler physics) over its 30-s window; the physics
+cycle and the radar forecast on a (2, 2, 2) process grid of blocks, each
+held exactly to its undecomposed run; and the executors, the nested and
+the fused cycles:
 
   1. device         — the card, and nvidia-smi's name and power limit
   2. build          — nvcc builds of the three kernels, all started
@@ -220,24 +223,28 @@ the radar configuration's forecast (configs/bda_1km_radar.toml, unchanged:
  39. fused_small    — one FusedCycle step of the coarsened radar
                       configuration on the card against the CPU
  40. mesh_cycle     — the main path of the multi-device slice, run after
-                      phase 14: phase 12's composition and seeded inputs
-                      through CycleDriver(mesh=make_mesh(2, 2, 2)) with
-                      halo 'explicit', 8 blocks of 25 members × 180 × 240
+                      phase 16: phase 15's composition and seeded inputs
+                      (the production physics suite, Davies toward the
+                      base state, 6 steps, two physics steps) through
+                      CycleDriver(mesh=make_mesh(2, 2, 2)) with halo
+                      'explicit', 8 blocks of 25 members × 180 × 240
                       columns all in this process on the card (extended
                       to 188 × 248 for the slow tendencies, kernels #2
                       and #3 periodic on each): the forecast's member
                       batches step every block together with halo
-                      exchanges, the analysis gathers each member slab
-                      for H(x) and runs the ensemble transpose; sections
-                      (forecast/halo, forecast/acoustic/halo, obsope/gather,
-                      das_letkf/transpose, das_letkf/collect), launches
-                      against gpu_check.expected_launches for 8 blocks and
-                      8 shares, peak beside phase 12's; the guess and
-                      analysis means and spreads and the O−B / O−A tables
-                      held to phase 12's (kept on the host) within 1e-4
-                      of the largest increment plus twice the rounding
-                      floor of the undecomposed path: phase 12's cycle
-                      run again from inputs perturbed by one rounding
+                      exchanges and run the suite on every block (the
+                      PBL's one-column halo, each block's skin
+                      temperature), the analysis gathers each member slab
+                      and its skin temperature for H(x) and runs the
+                      ensemble transpose; sections (forecast/halo,
+                      forecast/acoustic/halo, forecast/physics/halo,
+                      obsope/gather, das_letkf/transpose,
+                      das_letkf/collect), launches against
+                      gpu_check.expected_launches for 8 blocks and 8
+                      shares, peak beside phase 15's; the guess and
+                      analysis means and spreads, the O−B / O−A tables
+                      and the skin temperature held exactly to phase 15's
+                      (kept on the host)
  41. mesh_real      — every kernel vs plain on phase 40's operands: #1 on
                       a share's first Grams, #2 and #3 (periodic) on one
                       extended block at the member batch and on the
@@ -246,18 +253,32 @@ the radar configuration's forecast (configs/bda_1km_radar.toml, unchanged:
                       with halo 'explicit_overlap' against 'explicit', and
                       init_distributed in a world of one (NCCL) whose
                       global_device_mesh(1, 2, 2) of 4 local blocks steps
-                      bit-equal to make_mesh(1, 2, 2)
+                      bit-equal to make_mesh(1, 2, 2); and phase 12's
+                      composition coarsened (32×24×12, K = 20) on
+                      make_mesh(2, 2, 2), bit-equal to its undecomposed
+                      run on the card
+ 43. mesh_radar_forecast — phase 17 on make_mesh(2, 2, 2), run after
+                      phase 18: the radar configuration as shipped, 8
+                      blocks of 25 members × 96 × 96 columns (104 × 104
+                      extended), Kessler on every block; sections
+                      (forecast/physics, forecast/halo), launches, Kessler
+                      calls and peak; the final ensemble held exactly to
+                      phase 17's (kept on the card)
+ 44. mesh_radar_real — #2 and #3 vs plain on one extended radar block of
+                      phase 43 at its member batch
 
-Each phase prints one JSON line; any failed check raises, so the script
+The phases run in the order 1–16, 40–42, 17, 18, 43, 44, 19–39. Each
+phase prints one JSON line; any failed check raises, so the script
 exits non-zero. Every kernel-vs-plain check runs the kernel twice and holds
 both runs to the bound (invsqrt_ns, which has no atomics, must also give
 bit-identical runs). Kernel and plain versions are timed with CUDA events,
 in turns (plain, kernel, kernel, plain), after a warm-up. The line before
 the last lists every kernel: route, source, the TPU kernel it replaces,
-its launches in phase 40, this slice's main path, which runs all three
+its launches in phase 40, the grid's physics cycle, which runs all three
 (each path's own beside them under launches_by_path, counts reset before
 each — the production cycle's: #1 only), its error and time against the
-plain version on phase 40's operands (phase 41; phase 24's under
+plain version on phase 40's operands (phase 41; the radar grid's block
+under `radar_block`, phase 44; phase 24's under
 `det_cycle`, phase 25; #1 on phase 30's tile under
 `streamed_tile`; for the stencil kernels the mean
 over the two batch sizes weighted by their launches, so launches × ms is
@@ -656,8 +677,9 @@ def phase_cycle(device, phase: str = "cycle", steps: int = CYCLE_STEPS,
     members of the final ensemble.
 
     keep: a dict that receives, on the host, the analysis's guess and
-    analysis means and spreads and its O−B / O−A tables (what phase
-    mesh_cycle holds its decomposed run to)."""
+    analysis means and spreads, its O−B / O−A tables and, with physics,
+    the final skin temperature (what phase mesh_cycle holds its decomposed
+    run to)."""
     from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
     from scale_letkf_torch.da.obsmake import obsmake
     from scale_letkf_torch.gpu_check import (
@@ -752,7 +774,8 @@ def phase_cycle(device, phase: str = "cycle", steps: int = CYCLE_STEPS,
         keep.update({k: info[k].cpu() for k in (
             "gues_mean", "gues_sprd", "anal_mean", "anal_sprd")},
             stats_gues=res.stats_gues[0], stats_anal=res.stats_anal[0],
-            peak_mem_gb=peak / 2 ** 30)
+            peak_mem_gb=peak / 2 ** 30, wall_s=wall,
+            tsfc=driver.tsfc.cpu() if physics else None)
 
     # the section obsmake again, twice, on the final nature state: whether
     # its time in the run is a cost of the first call in the process
@@ -1022,9 +1045,10 @@ def phase_radar_forecast(device):
     30-s window, RADAR_STEPS steps, from a restart ensemble made on the card
     with rain and cloud blobs (gpu_check.RADAR_QR_BLOB at the peak) and a
     10 m/s wind. Each Kessler call is wrapped to record how far it moved
-    qc and qr and the least qr it left. Returns the phase's row and a copy
+    qc and qr and the least qr it left. Returns the phase's row, a copy
     of the first member batch of the forecast (the stencil kernels'
-    operands on the radar grid) with the driver's column and metric."""
+    operands on the radar grid) with the driver's column and metric, and
+    the final ensemble (what phase mesh_radar_forecast is held to)."""
     from scale_letkf_torch import cycle as cycle_mod
     from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
     from scale_letkf_torch.gpu_check import RADAR_QR_BLOB, RADAR_STEPS
@@ -1097,19 +1121,20 @@ def phase_radar_forecast(device):
         raise AssertionError(f"a Kessler step changed neither qc nor qr: "
                              f"{calls}")
     sample = type(out)(*(f[:driver.batch].clone() for f in out))
-    del ens, out, qr
-    return row, (sample, driver.rho_ref, driver.p_ref, driver.vg, dycfg)
+    del ens, qr
+    return row, (sample, driver.rho_ref, driver.p_ref, driver.vg, dycfg), out
 
 
-def phase_radar_real(sample) -> dict:
+def phase_radar_real(sample, phase: str = "radar_real") -> dict:
     """Both stencil kernels vs plain on one launch's operands of the radar
-    forecast (192×192×48, the forecast's member batch)."""
+    forecast (192×192×48, the forecast's member batch), or of its grid
+    (phase mesh_radar_real: one 104×104 extended block)."""
     s, rho_ref, p_ref, vg, dycfg = sample
     dyn, adv = stencil_operands(s, rho_ref, p_ref, vg, dycfg)
-    rows = {"dyn_tendency": check_dyn(dyn, "radar batch"),
-            "adv_ud3": check_adv(adv, "radar batch")}
+    rows = {"dyn_tendency": check_dyn(dyn, f"{phase} batch"),
+            "adv_ud3": check_adv(adv, f"{phase} batch")}
     for name, row in rows.items():
-        emit({"phase": "radar_real", "kernel": name,
+        emit({"phase": phase, "kernel": name,
               "batch": int(s.rho.shape[0]), **row})
     return rows
 
@@ -2831,8 +2856,6 @@ def phase_fused_radar_cycle(device, radar_cycle_s: float):
 
 # --- the multi-device layer: the cycle on a process grid -------------------
 MESH = (2, 2, 2)            # (member, dy, dx) blocks, all in this process
-MESH_TOL = 1e-4             # of the largest increment: the CPU tests' bound
-                            # for the analysis means and spreads
 MESH_OVERLAP_MEMBERS = 2
 
 
@@ -2845,24 +2868,31 @@ def rounded_state(s, seed: int):
 
 
 def mesh_run(device, cfg, grid, dycfg, dom, template, kw, rounded: bool,
-             capture: dict | None = None, decomposed: bool = True):
-    """One run_osse cycle of CYCLE_STEPS from the cycle phase's seeded
-    inputs (perturbed by one rounding when `rounded`): on the grid MESH
-    (halo 'explicit', every block in this process on `device`), or
-    undecomposed as phase cycle runs it when not `decomposed`. Returns
-    (row of launches, peaks, seconds and member batch, driver, final
-    nature state, final ensemble — Sharded on the grid — and result);
-    capture receives kernel #1's first operands."""
+             capture: dict | None = None, decomposed: bool = True,
+             physics: bool = False):
+    """One run_osse cycle from the cycle phase's seeded inputs (perturbed
+    by one rounding when `rounded`): on the grid MESH (halo 'explicit',
+    every block in this process on `device`), or undecomposed when not
+    `decomposed`; CYCLE_STEPS of the cycle phase's composition, or with
+    `physics` PHYS_STEPS of the physics cycle's (the production physics
+    suite, Davies toward the base state). Returns (row of launches, peaks,
+    seconds and member batch, driver, final nature state, final ensemble —
+    Sharded on the grid — and result); capture receives kernel #1's first
+    operands."""
     import dataclasses
 
     from scale_letkf_torch.cli.main import make_driver
+    from scale_letkf_torch.gpu_check import PHYS_PROD
     from scale_letkf_torch.ops import invsqrt as invsqrt_mod
-    from scale_letkf_torch.synthetic import synthetic_ens_dycore_device
+    from scale_letkf_torch.synthetic import (
+        base_boundary, synthetic_ens_dycore_device)
     from scale_letkf_torch.utils import kernels
     (cfg.process.mesh_member, cfg.process.mesh_y,
      cfg.process.mesh_x) = MESH if decomposed else (1, 1, 1)
     dycfg = dataclasses.replace(dycfg,
                                 halo="explicit" if decomposed else "gspmd")
+    if physics:
+        dom = {**dom, "physics": PHYS_PROD}
     K = cfg.ensemble.member
     ens0, _, _ = synthetic_ens_dycore_device(SEED, K, grid, dom, device, **kw)
     nat, _, _ = synthetic_ens_dycore_device(SEED + 1, 1, grid, dom, device,
@@ -2873,6 +2903,8 @@ def mesh_run(device, cfg, grid, dycfg, dom, template, kw, rounded: bool,
     states = [nat, ens0]
     del nat, ens0
     driver = make_driver(cfg, grid, dycfg, dom, device)
+    if physics:
+        driver.bdy = base_boundary(grid, dom, device)
     launch = invsqrt_mod.invsqrt_ns_kernel
 
     def recording(a, areg, *args):
@@ -2887,10 +2919,10 @@ def mesh_run(device, cfg, grid, dycfg, dom, template, kw, rounded: bool,
     kernels.reset_launches()
     t0 = time.perf_counter()
     try:
-        truth, ens, res = driver.run_osse(states.pop(0), states.pop(0),
-                                          template, n_cycles=1,
-                                          steps_per_cycle=CYCLE_STEPS,
-                                          seed=SEED)
+        truth, ens, res = driver.run_osse(
+            states.pop(0), states.pop(0), template, n_cycles=1,
+            steps_per_cycle=PHYS_STEPS if physics else CYCLE_STEPS,
+            seed=SEED)
         torch.cuda.synchronize()
     finally:
         invsqrt_mod.invsqrt_ns_kernel = launch
@@ -2906,78 +2938,55 @@ def mesh_run(device, cfg, grid, dycfg, dom, template, kw, rounded: bool,
     return row, driver, truth, ens, res
 
 
-def _mesh_errors(info, info2, kept) -> dict:
-    """Per analysis variable and statistic: the decomposed run's distance
-    to the undecomposed one (`err`) over its bound, MESH_TOL × the
-    variable's largest increment plus 2 ulp of its largest mean plus twice
-    the rounding floor. The floor is the undecomposed path's own: the
-    distance of its run from inputs perturbed by one rounding (info2) to
-    its unperturbed run (kept), as gpu_check takes it from the reference's
-    perturbed run; the grid's outputs enter only `err`."""
+def _range(t) -> dict:
+    return {"mean": float(t.double().mean()), "min": float(t.min()),
+            "max": float(t.max())}
+
+
+def _mesh_exact(info, res, tsfc, kept) -> dict:
+    """The grid's distance to the undecomposed run's outputs (kept, on the
+    host): the largest |Δ| per analysis variable of the guess and analysis
+    means and spreads, and of the skin temperature; and whether each O−B /
+    O−A table (obs counts, bias, RMSE per group) is the same. Every
+    distance must be 0 and every table equal."""
     from scale_letkf_torch.state import V3D_ANAL_NAMES
     out = {}
     for key in ("gues_mean", "gues_sprd", "anal_mean", "anal_sprd"):
         got, want = info[key].cpu(), kept[key]
-        alt = info2[key].cpu()
-        row = {}
-        for v, name in enumerate(V3D_ANAL_NAMES):
-            incr = float((kept["anal_mean"][v] - kept["gues_mean"][v])
-                         .abs().max())
-            scale = float(kept["anal_mean"][v].abs().max())
-            floor = float((alt[v] - want[v]).abs().max())
-            tol = (MESH_TOL * incr + 2 * float(np.spacing(np.float32(scale)))
-                   + 2 * floor)
-            err = float((got[v] - want[v]).abs().max())
-            row[name] = {"max_abs_err": err, "floor": floor, "tol": tol,
-                         "over_tol": err / tol if tol > 0 else
-                         (0.0 if err == 0 else float("inf"))}
-        out[key] = row
-    return out
-
-
-def _mesh_stats_errors(res, res2, kept) -> dict:
-    """O−B and O−A RMSE per monitored group against the undecomposed
-    run's: |Δ| over 1e-4 relative plus twice the undecomposed path's
-    rounding floor (its perturbed run's distance, as _mesh_errors)."""
-    out = {}
+        out[key] = {name: float((got[v] - want[v]).abs().max())
+                    for v, name in enumerate(V3D_ANAL_NAMES)}
+    out["tsfc"] = float((tsfc.cpu() - kept["tsfc"]).abs().max())
     for tag, k in (("omb", "stats_gues"), ("oma", "stats_anal")):
-        st, st2 = getattr(res, k)[0], getattr(res2, k)[0]
-        want = kept[k]
-        for n, r in want.rmse.items():
-            if not want.nobs[n]:
-                continue
-            if st.nobs[n] != want.nobs[n]:
-                raise AssertionError(f"{tag} {n}: {st.nobs[n]} obs against "
-                                     f"{want.nobs[n]}")
-            floor = abs(st2.rmse[n] - r)
-            tol = MESH_TOL * r + 2 * floor + 1e-12
-            out[f"{tag}_{n}"] = {"mesh": st.rmse[n], "cycle": r,
-                                 "floor": floor,
-                                 "over_tol": abs(st.rmse[n] - r) / tol}
+        st, want = getattr(res, k)[0], kept[k]
+        out[f"{tag}_equal"] = (st.nobs == want.nobs and st.rmse == want.rmse
+                               and st.bias == want.bias)
+        out[f"{tag}_rmse"] = {n: r for n, r in st.rmse.items()
+                              if st.nobs[n]}
     return out
 
 
 def phase_mesh_cycle(device, kept: dict):
-    """The main path of this slice: the cycle phase's composition (the
-    18-km configuration at full width, its seeded ensemble and nature run,
-    the 24,400-report network, one run_osse cycle of CYCLE_STEPS) through
-    CycleDriver(mesh=make_mesh(2, 2, 2)) with halo 'explicit': 8 blocks of
-    25 members × 180 × 240 columns, all in this process on the card. The
-    forecast steps the blocks' member batches together with halo
-    exchanges (kernels #2 and #3 periodic on every extended block), the
-    analysis gathers each member slab for H(x) and runs the ensemble
-    transpose. Held to the cycle phase's outputs (kept on the host): the
-    guess and analysis means and spreads and the O−B / O−A tables, within
-    MESH_TOL of the largest increment plus twice the rounding floor of the
-    undecomposed path — the cycle phase's composition run again,
-    undecomposed, from inputs perturbed by one rounding. Returns
-    the row, and the operands for phase mesh_real: kernel #1's first
-    Grams, one extended block at the forecast's member batch, and the
-    final blocks (for phase mesh_checks)."""
+    """The main path of this slice: the physics cycle phase's composition
+    (the 18-km configuration at full width, its seeded ensemble and nature
+    run, the 24,400-report network, the production physics suite and
+    Davies relaxation toward the base state, one run_osse cycle of
+    PHYS_STEPS: two physics steps) through CycleDriver(mesh=make_mesh(2, 2,
+    2)) with halo 'explicit': 8 blocks of 25 members × 180 × 240 columns,
+    all in this process on the card. The forecast steps the blocks' member
+    batches together with halo exchanges (kernels #2 and #3 periodic on
+    every extended block), runs the suite on every block (the PBL's
+    one-column halo exchanged) with each block's slab skin temperature;
+    the analysis gathers each member slab and its skin temperature for
+    H(x) and runs the ensemble transpose. Held exactly to the physics
+    cycle phase's outputs (kept on the host): the guess and analysis means
+    and spreads, the O−B / O−A tables and the final skin temperature.
+    Returns the row, and the operands for phase mesh_real: kernel #1's
+    first Grams, one extended block at the forecast's member batch, and
+    the final blocks (for phase mesh_checks)."""
     import dataclasses
 
     from scale_letkf_torch.cli.main import load_config_and_grid
-    from scale_letkf_torch.gpu_check import expected_launches
+    from scale_letkf_torch.gpu_check import PHYS_PROD, expected_launches
     from scale_letkf_torch.parallel import halo
     from scale_letkf_torch.synthetic import synthetic_conv_network
 
@@ -2987,15 +2996,17 @@ def phase_mesh_cycle(device, kept: dict):
     template = synthetic_conv_network(cfg, grid, np.random.default_rng(SEED))
     grams: dict = {}
     row, driver, truth, ens, res = mesh_run(device, cfg, grid, dycfg, dom,
-                                            template, kw, False, grams)
+                                            template, kw, False, grams,
+                                            physics=True)
     info = res.info
     mesh = driver.mesh
     batches = -(-(cfg.ensemble.member // MESH[0]) // driver.batch)
-    expected = expected_launches(cfg, grid, CYCLE_STEPS, batches,
+    expected = expected_launches(cfg, grid, PHYS_STEPS, batches,
                                  info["diag"].chunk, blocks=mesh.n_blocks,
                                  shares=info["diag"].share_chunks)
-    # one extended block's operands at the forecast's batch, then the rest
-    # of the run's tensors are dropped before the floor's (undecomposed) run
+    tsfc = mesh.gather_ensemble(driver.tsfc)
+    exact = _mesh_exact(info, res, tsfc, kept)
+    # one extended block's operands at the forecast's batch
     first = {b: type(s)(*(f[:driver.batch].clone() for f in s))
              for b, s in ens.blocks.items()}
     ext0 = halo.extend_state(mesh, first, halo.HALO_W,
@@ -3006,60 +3017,163 @@ def phase_mesh_cycle(device, kept: dict):
                 "column": (driver.rho_ref, driver.p_ref, driver.vg,
                            dataclasses.replace(dycfg, lateral="periodic"))}
     sections, counts = dict(driver.timer.records), dict(driver.timer.counts)
-    finite = all(bool(torch.isfinite(f).all()) for s in ens.blocks.values()
-                 for f in s) and all(bool(torch.isfinite(info[k]).all())
-                                     for k in ("anal_mean", "anal_sprd"))
-    del ens, driver, truth
-    torch.cuda.empty_cache()
-    row2, _, _, _, res2 = mesh_run(device, cfg, grid, dycfg, dom, template,
-                                   kw, True, decomposed=False)
-    torch.cuda.empty_cache()
-    errs = _mesh_errors(info, res2.info, kept)
-    stats = _mesh_stats_errors(res, res2, kept)
-    worst = max(max(r["over_tol"] for r in v.values())
-                for v in errs.values())
+    finite = (all(bool(torch.isfinite(f).all()) for s in ens.blocks.values()
+                  for f in s)
+              and all(bool(torch.isfinite(info[k]).all())
+                      for k in ("anal_mean", "anal_sprd"))
+              and bool(torch.isfinite(tsfc).all()))
+    n_phys = -(-PHYS_STEPS // driver.phys_interval)
     row.update(
         phase="mesh_cycle", config=CONFIG.name, mesh=list(MESH),
         halo="explicit", grid=f"{grid.nx}x{grid.ny}x{grid.nz}",
-        members=cfg.ensemble.member,
+        members=cfg.ensemble.member, physics=PHYS_PROD,
+        bdy_width=dom["bdy_width"], bdy_tau=dom["bdy_tau"],
         block=f"{grid.nx // MESH[2]}x{grid.ny // MESH[1]}",
         extended_block=f"{grid.nx // MESH[2] + 2 * halo.HALO_W}x"
                        f"{grid.ny // MESH[1] + 2 * halo.HALO_W}",
-        steps_per_cycle=CYCLE_STEPS, batches=batches,
+        steps_per_cycle=PHYS_STEPS, batches=batches,
         block_batches=batches * mesh.n_blocks, expected_launches=expected,
         sections_s=sections, section_counts=counts,
         share_chunks=info["diag"].share_chunks,
-        cycle_peak_mem_gb=kept["peak_mem_gb"],
-        floor_run_wall_s=row2["wall_s"], obs_kept=res.nobs[0],
-        errors_over_tol=errs, stats_over_tol=stats,
-        worst_over_tol=worst, finite=finite)
+        physics_cycle_wall_s=kept["wall_s"],
+        physics_cycle_peak_mem_gb=kept["peak_mem_gb"],
+        obs_kept=res.nobs[0], tsfc_after=_range(tsfc),
+        physics_cycle_tsfc_after=_range(kept["tsfc"]),
+        distance_to_physics_cycle=exact, finite=finite)
     emit(row)
+    del ens, driver, truth
+    torch.cuda.empty_cache()
     if not finite:
         raise AssertionError("the grid's cycle is not finite")
     if row["kernel_launches"] != expected:
         raise AssertionError(f"kernel launches {row['kernel_launches']}, "
                              f"expected {expected}")
+    if not (counts.get("forecast/physics") == n_phys * batches
+            and counts.get("forecast/physics/halo") == 2 * n_phys * batches
+            and counts.get("forecast/boundary") == PHYS_STEPS * batches):
+        raise AssertionError(f"physics, its halo or boundary sections "
+                             f"missing: {counts}")
     if not row["peak_mem_gb"] < 80:
         raise AssertionError(f"peak memory {row['peak_mem_gb']:.2f} GB")
-    if not (worst <= 1 and all(v["over_tol"] <= 1 for v in stats.values())):
-        raise AssertionError("the grid's cycle is not the undecomposed one")
+    distances = [exact["tsfc"]] + [d for k in ("gues_mean", "gues_sprd",
+                                               "anal_mean", "anal_sprd")
+                                   for d in exact[k].values()]
+    if any(d != 0 for d in distances) or not (exact["omb_equal"]
+                                              and exact["oma_equal"]):
+        raise AssertionError("the grid's physics cycle is not the "
+                             f"undecomposed one: {exact}")
     return row, operands
 
 
+def phase_mesh_radar_forecast(device, want):
+    """The radar configuration's forecast on a grid: configs/
+    bda_1km_radar.toml as shipped (Kessler every 5 steps on the per-level
+    thickness, RADAR_STEPS steps) through CycleDriver(mesh=make_mesh(2, 2,
+    2)): 8 blocks of 25 members × 96 × 96 columns (104 × 104 extended),
+    from phase radar_forecast's seeded ensemble; Kessler on every block.
+    Held exactly to phase radar_forecast's final ensemble (`want`, on the
+    card). Sections (forecast/physics, forecast/halo), launches, Kessler
+    calls and peak; returns the row and one extended block's operands at
+    the member batch (kernels #2 and #3 on the radar grid's blocks)."""
+    from scale_letkf_torch import cycle as cycle_mod
+    from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
+    from scale_letkf_torch.gpu_check import RADAR_QR_BLOB, RADAR_STEPS
+    from scale_letkf_torch.parallel import halo
+    from scale_letkf_torch.synthetic import synthetic_ens_dycore_device
+    from scale_letkf_torch.utils import kernels
+
+    cfg, grid, dycfg, dom = load_config_and_grid(str(RADAR_CONFIG))
+    (cfg.process.mesh_member, cfg.process.mesh_y,
+     cfg.process.mesh_x) = MESH
+    K = cfg.ensemble.member
+    ens, _, _ = synthetic_ens_dycore_device(SEED, K, grid, dom, device,
+                                            u0=FCST_U0, qr_blob=RADAR_QR_BLOB)
+    driver = make_driver(cfg, grid, dycfg, dom, device)
+    mesh = driver.mesh
+    kessler = cycle_mod.kessler_step
+    calls = []
+
+    def counting(s, dt, dz):
+        calls.append(dt)
+        return kessler(s, dt, dz)
+
+    cycle_mod.kessler_step = counting
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = driver.forecast(ens, RADAR_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        cycle_mod.kessler_step = kessler
+    wall = time.perf_counter() - t0
+    del ens
+    launches = {k: kernels.LAUNCHES[k] for k in ("dyn_tendency", "adv_ud3")}
+    peak = torch.cuda.max_memory_allocated(device)
+    batches = -(-(K // MESH[0]) // driver.batch)
+    expected = 3 * RADAR_STEPS * batches * mesh.n_blocks
+    n_phys = -(-RADAR_STEPS // driver.phys_interval)
+    first = {b: type(s)(*(f[:driver.batch].clone() for f in s))
+             for b, s in out.blocks.items()}
+    sample = halo.extend_state(mesh, first, halo.HALO_W, True)[0]
+    del first
+    full = mesh.gather_ensemble(out)
+    del out
+    dist = {n: float((a - b).abs().max())
+            for n, a, b in zip(type(full)._fields, full, want)}
+    finite = all(bool(torch.isfinite(f).all()) for f in full)
+    del full
+    counts = dict(driver.timer.counts)
+    row = {"phase": "mesh_radar_forecast", "config": RADAR_CONFIG.name,
+           "mesh": list(MESH), "grid": f"{grid.nx}x{grid.ny}x{grid.nz}",
+           "members": K, "block": f"{grid.nx // MESH[2]}x{grid.ny // MESH[1]}",
+           "extended_block": f"{grid.nx // MESH[2] + 2 * halo.HALO_W}x"
+                             f"{grid.ny // MESH[1] + 2 * halo.HALO_W}",
+           "steps": RADAR_STEPS, "wall_s": wall,
+           "sections_s": dict(driver.timer.records), "section_counts": counts,
+           "member_batch": driver.batch, "batches": batches,
+           "block_batches": batches * mesh.n_blocks,
+           "peak_mem_gb": peak / 2 ** 30, "kernel_launches": launches,
+           "expected_launches": expected, "kessler_calls": len(calls),
+           "distance_to_radar_forecast": dist, "finite": finite}
+    emit(row)
+    if not finite:
+        raise AssertionError("the radar grid forecast is not finite")
+    if any(n != expected for n in launches.values()):
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{expected} each")
+    if not (len(calls) == n_phys * batches * mesh.n_blocks
+            and counts.get("forecast/physics") == n_phys * batches):
+        raise AssertionError(f"{len(calls)} Kessler calls, sections "
+                             f"{counts}")
+    if any(d != 0 for d in dist.values()):
+        raise AssertionError(f"the radar grid forecast is not the "
+                             f"undecomposed one: {dist}")
+    return row, (sample, driver.rho_ref, driver.p_ref, driver.vg, dycfg)
+
+
 def phase_mesh_checks(device, operands) -> dict:
-    """Two checks on the final blocks of phase mesh_cycle (members
+    """Three checks. On the final blocks of phase mesh_cycle (members
     :MESH_OVERLAP_MEMBERS of each): one explicit-core step (dt 1 s, the
     core's own regime) with halo 'explicit_overlap' against 'explicit' on
     the (1, 2, 2) blocks of member slab 0, to gpu_check.TOL_TENDENCY of
     each field's largest increment; and init_distributed in a world of one
     (NCCL) with local_device_count 4, whose global_device_mesh(1, 2, 2)
-    must give one SI step bit-equal to make_mesh(1, 2, 2)'s."""
+    must give one SI step bit-equal to make_mesh(1, 2, 2)'s. And the flat
+    cycle (the cycle phase's composition, no physics) coarsened
+    (gpu_check.grid_cycle_on_device: 32×24×12, K = 20) on make_mesh(2, 2,
+    2), bit-equal to the undecomposed run on the card, with its launches;
+    with gpu_check.batch_invariance, the LETKF core's products over the
+    obs giving each matrix the same bits in any batch of 7 or more."""
     import dataclasses
     import socket
 
     import torch.distributed as dist
 
-    from scale_letkf_torch.gpu_check import TOL_TENDENCY
+    from scale_letkf_torch.gpu_check import (
+        TOL_TENDENCY, batch_invariance, batch_invariance_passes,
+        grid_cycle_on_device)
     from scale_letkf_torch.model.dycore_si import SplitConfig
     from scale_letkf_torch.parallel import halo
     from scale_letkf_torch.parallel.distributed import (
@@ -3107,7 +3221,13 @@ def phase_mesh_checks(device, operands) -> dict:
                                  zc, 10, vg)
     equal = all(torch.equal(x, y) for blk in a for x, y in zip(a[blk],
                                                                   b_[blk]))
+    del a, b_, sub
+    t0 = time.perf_counter()
+    flat = grid_cycle_on_device(device, str(CONFIG), SEED)
+    flat["seconds"] = time.perf_counter() - t0
+    batch = batch_invariance(device, SEED)
     row = {"phase": "mesh_checks", "members": MESH_OVERLAP_MEMBERS,
+           "flat_grid_cycle": flat, "batch_invariance": batch,
            "overlap_over_tol": overlap,
            "explicit_s": outs["explicit_s"],
            "explicit_overlap_s": outs["explicit_overlap_s"],
@@ -3115,7 +3235,10 @@ def phase_mesh_checks(device, operands) -> dict:
            "global_mesh_bit_equal": equal}
     emit(row)
     if not (all(v <= 1 for v in overlap.values()) and equal
-            and backend == "nccl"):
+            and backend == "nccl" and flat["bit_equal"]
+            and batch_invariance_passes(batch)
+            and flat["stats_equal"]
+            and flat["kernel_launches"] == flat["expected_launches"]):
         raise AssertionError(f"grid checks failed: {row}")
     return row
 
@@ -3149,30 +3272,34 @@ def main() -> int:
     del capture
     phase_small(device)
     torch.cuda.empty_cache()
-    kept: dict = {}
-    cy, operands = phase_cycle(device, keep=kept)
+    cy, operands = phase_cycle(device)
     cy_rows = phase_cycle_real(cy, operands)
     del operands
     torch.cuda.empty_cache()
     phase_cycle_small(device)
     del cy_rows
     torch.cuda.empty_cache()
+    kept: dict = {}
+    pc, operands = phase_cycle(device, "physics_cycle", PHYS_STEPS,
+                               physics=True, keep=kept)
+    pc_rows = phase_cycle_real(pc, operands, "physics_real")
+    del operands
+    torch.cuda.empty_cache()
     mc, operands = phase_mesh_cycle(device, kept)
     del kept
     mesh_rows = phase_cycle_real(
         {"kernel_launches": mc["kernel_launches"],
-         "steps_per_cycle": CYCLE_STEPS, "batches": mc["block_batches"]},
+         "steps_per_cycle": PHYS_STEPS, "batches": mc["block_batches"]},
         operands, "mesh_real")
     phase_mesh_checks(device, operands)
     del operands
     torch.cuda.empty_cache()
-    pc, operands = phase_cycle(device, "physics_cycle", PHYS_STEPS,
-                               physics=True)
-    pc_rows = phase_cycle_real(pc, operands, "physics_real")
-    del operands
-    torch.cuda.empty_cache()
-    rf, sample = phase_radar_forecast(device)
+    rf, sample, want = phase_radar_forecast(device)
     radar_rows = phase_radar_real(sample)
+    del sample
+    mr, sample = phase_mesh_radar_forecast(device, want)
+    del want
+    radar_block = phase_radar_real(sample, "mesh_radar_real")
     del sample
     torch.cuda.empty_cache()
     phase_physics_small(device)
@@ -3243,7 +3370,8 @@ def main() -> int:
             "radar_cycle": rd["kernel_launches"][name],
             "nested_cycle": nc["kernel_launches"][name],
             "fused_radar_cycle": fr["kernel_launches"][name],
-            "mesh_cycle": mc["kernel_launches"][name]}
+            "mesh_cycle": mc["kernel_launches"][name],
+            "mesh_radar_forecast": mr["kernel_launches"].get(name, 0)}
         dc_rows[name] = mesh_rows[name]
         dc_rows[name]["child_grid"] = {
             k: nested_rows[name][k] for k in timing + (
@@ -3253,6 +3381,11 @@ def main() -> int:
         dc_rows[name]["radar_grid"] = (
             {k: radar_rows[name][k] for k in timing}
             if name in radar_rows else None)
+        dc_rows[name]["radar_block"] = (
+            {"batch": mr["member_batch"], "extended_block":
+             mr["extended_block"], **{k: radar_block[name][k]
+                                      for k in timing}}
+            if name in radar_block else None)
         dc_rows[name]["production_grams"] = (
             {"B": prod_real["B"], **{k: prod_real[k] for k in timing}}
             if name == "invsqrt_ns" else None)
@@ -3266,7 +3399,8 @@ def main() -> int:
     keys = ("launches", "launches_by_path", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_fp32_ms", "bound_by", "bound_share",
             "gb_per_s", "tflops", "shapes", "det_cycle", "physics_cycle",
-            "radar_grid", "production_grams", "streamed_tile", "child_grid")
+            "radar_grid", "radar_block", "production_grams", "streamed_tile",
+            "child_grid")
     emit({"kernels": [{"name": name, "route": "cuda",
                        "source": f"scale_letkf_torch/csrc/{name}.cu",
                        "replaces": REPLACES[name],

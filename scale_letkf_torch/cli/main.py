@@ -34,7 +34,9 @@ with the options before the verb,
 
 spread over N processes of B blocks each (torch.distributed: NCCL with
 --device cuda, gloo with --device cpu). Each process reads its own members'
-restart files; the outputs are gathered and process 0 writes them.
+restart files (and their part of a resumed skin temperature); the outputs
+are gathered and process 0 writes them. Kessler (use_physics) and a
+[physics] section run on every grid; `cycle --streamed` and [nest] do not.
 """
 
 from __future__ import annotations
@@ -153,10 +155,25 @@ def _writer() -> bool:
 
 
 def _global(driver, ens):
-    """The global ensemble of a driver's output (gathered on a grid)."""
+    """The global ensemble of a driver's output, or its skin temperature
+    (gathered on a grid)."""
     from scale_letkf_torch.parallel.mesh import Sharded
     return driver.mesh.gather_ensemble(ens) if isinstance(ens, Sharded) \
         else ens
+
+
+def _resume_tsfc(driver, tsfc, device: torch.device):
+    """A checkpoint's slab skin temperature (K, ny, nx) for the driver: the
+    global field, or on a grid spread over processes this process's blocks
+    from its own members' part (the ensemble's stage-in)."""
+    from scale_letkf_torch.parallel.distributed import (
+        ensemble_from_process_local)
+    mesh = driver.mesh
+    tsfc = np.asarray(tsfc, np.float32)
+    if mesh is not None and mesh.world > 1:
+        return ensemble_from_process_local(mesh, torch.as_tensor(
+            tsfc[mesh.local_members(tsfc.shape[0])], device=device))
+    return torch.as_tensor(tsfc, device=device)
 
 
 def make_nested(cfg, grid, dycfg, dom, device: torch.device):
@@ -590,8 +607,7 @@ def cmd_cycle(args):
     rng = np.random.default_rng(0)
     if "tsfc" in aux:
         # resume the persisted slab skin temperature (physics-suite runs)
-        driver.tsfc = torch.as_tensor(aux["tsfc"], dtype=torch.float32,
-                                      device=device)
+        driver.tsfc = _resume_tsfc(driver, aux["tsfc"], device)
     infl = aux.get("infl")
     slot_steps = slot_steps_from_cfg(cfg, args.steps_per_cycle, dycfg.dt)
     for c in range(args.cycles):
@@ -621,7 +637,7 @@ def cmd_cycle(args):
         del info, hist
     aux_out = {"infl": infl} if infl is not None else {}
     if driver.tsfc is not None:
-        aux_out["tsfc"] = driver.tsfc
+        aux_out["tsfc"] = _global(driver, driver.tsfc)
     ens = _global(driver, ens.pop())
     if _writer():
         save_ensemble(args.out, ens, basename="anal.@@@@", aux=aux_out,

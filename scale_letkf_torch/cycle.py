@@ -37,12 +37,16 @@ as a Sharded — this process's blocks. A grid that decomposes the domain
 forecasts through the explicit halo steps (parallel/halo.py) whatever
 `DycoreConfig.halo` says: 'gspmd' (a compiler placing the collectives) has
 no counterpart here, so it runs the explicit exchange; a member-only grid
-forecasts each block's slab with the undecomposed step. The analysis
-gathers each member slab over the domain for H(x), builds the same obs
-context on every process, and runs analyze(mesh=), the ensemble transpose.
-The reference's refusals of the explicit halo stand: the explicit core
-with terrain, and physics. The physics suite is refused under any grid:
-its per-member slab state (tsfc) is not sharded.
+forecasts each block's slab with the undecomposed step. Physics runs on
+every block on the undecomposed schedule: Kessler and the suite's column
+schemes per block, the PBL's face ↔ centre averages through a halo of one
+column, and the suite's slab skin temperature sharded like the ensemble
+(parallel/halo.py physics_step_blocks). The analysis gathers each member
+slab over the domain for H(x) (with its skin temperature), builds the
+same obs context on every process, and runs analyze(mesh=), the ensemble
+transpose. The reference's refusal of the explicit halo over terrain
+under the explicit core stands; it also refuses physics there, which the
+port runs.
 """
 
 from __future__ import annotations
@@ -231,10 +235,12 @@ class CycleDriver:
                          if bdy_width > 0 else None)
         # per-member slab skin temperature (K, ny, nx) of the physics suite:
         # None until the first forecast cold-starts it, or set from a
-        # checkpoint; threaded across forecast calls
+        # checkpoint; threaded across forecast calls (on a grid a Sharded
+        # of this process's blocks once a forecast ran; a global tensor set
+        # by hand is sharded by the next forecast)
         self.tsfc = None
         self.batch = None          # members per batch of the last forecast
-        self._check_grid(mesh, use_physics, phys_cfg)
+        self._check_grid(mesh)
         self.mesh = mesh
         if core == "si":
             split = SplitConfig(dtau=dycfg.dt / n_small)
@@ -257,10 +263,12 @@ class CycleDriver:
             mesh, self.metrics, dycfg.lateral == "periodic")
             if self.exchange else None)
 
-    def _check_grid(self, mesh, use_physics, phys_cfg):
-        """The reference's refusals of the explicit halo
-        (scale_letkf_tpu/cycle.py:225-246), which a decomposing grid runs
-        whatever dycfg.halo says, and the physics suite under any grid."""
+    def _check_grid(self, mesh):
+        """The reference's refusal of the explicit halo that still stands
+        (scale_letkf_tpu/cycle.py:235-238), which a decomposing grid runs
+        whatever dycfg.halo says: the explicit core over terrain. Physics
+        runs on every grid (parallel/halo.py physics_step_blocks), where the
+        reference refuses it under its explicit halo."""
         self.exchange = dycfg_halo = self.dycfg.halo != "gspmd"
         if mesh is not None and mesh.spatial:
             self.exchange = True
@@ -272,15 +280,8 @@ class CycleDriver:
                 raise NotImplementedError(
                     f"{why} with terrain requires core='si' "
                     f"(tendencies_terrain rides the SI halo step)")
-            if use_physics or phys_cfg is not None:
-                raise NotImplementedError(
-                    f"{why} does not compose with physics yet")
             if mesh is None:
                 raise ValueError(f"{why} requires a process grid (mesh)")
-        if mesh is not None and phys_cfg is not None:
-            raise NotImplementedError(
-                "the physics suite under a process grid: its per-member "
-                "slab state (tsfc) is not sharded")
 
     def _step(self, s: DycoreState, t, bdy):
         """One dynamics step, then the Davies relaxation toward `bdy` at the
@@ -303,8 +304,9 @@ class CycleDriver:
         return apply_boundary_relaxation(
             s, target, self._bdy_w2d if w2d is None else w2d, self.dycfg.dt)
 
-    def _chunks(self, s: DycoreState, nsteps: int, t0, bdy, physics=None):
-        """nsteps dynamics steps (each with the relaxation), and
+    def _chunks(self, s, nsteps: int, t0, step, physics=None):
+        """nsteps steps s = step(s, t), t the step's end time (dynamics and
+        relaxation; `s` a state, or a dict of blocks on a grid), and
         physics(s, i, dt_phys) after every phys_interval of them and after
         the remainder (section `physics`). Times are float32, as the
         reference's traced clock. Each state is dropped once the next
@@ -315,8 +317,7 @@ class CycleDriver:
         for i, n in enumerate([chunk] * n_chunks + [rem] * (rem > 0)):
             tc = t0 + np.float32(i) * np.float32(chunk * dt)
             for j in range(n):
-                s = self._step(s, tc + np.float32(j + 1) * np.float32(dt),
-                               bdy)
+                s = step(s, tc + np.float32(j + 1) * np.float32(dt))
             if physics:
                 with self.timer.section("physics"):
                     s = physics(s, i, dt * n)
@@ -341,8 +342,12 @@ class CycleDriver:
                                       self.dycfg.lateral)
             return s
 
-        s = self._chunks(s, nsteps, t0, bdy, suite)
+        s = self._chunks(s, nsteps, t0, self._stepper(bdy), suite)
         return s, phys[0].tsfc
+
+    def _stepper(self, bdy):
+        """step(s, t) of _chunks: one dynamics step and the relaxation."""
+        return lambda s, t: self._step(s, t, bdy)
 
     def _fcst_one(self, s: DycoreState, nsteps: int, t0, bdy):
         """nsteps of the composed forecast: dynamics (+ boundary relaxation),
@@ -350,10 +355,11 @@ class CycleDriver:
         physics suite (phys_cfg, cold-started slab) every phys_interval
         steps."""
         if nsteps == 0 or (not self.use_physics and self.phys_cfg is None):
-            return self._chunks(s, nsteps, t0, bdy)
+            return self._chunks(s, nsteps, t0, self._stepper(bdy))
         if self.phys_cfg is not None:
             return self._fcst_phys(s, nsteps, t0, None, bdy)[0]
-        return self._chunks(s, nsteps, t0, bdy, lambda s, i, dt_phys:
+        return self._chunks(s, nsteps, t0, self._stepper(bdy),
+                            lambda s, i, dt_phys:
                             kessler_step(s, dt_phys, self.dz_col))
 
     def _bdy_batch(self, b0: int, B: int) -> BoundaryData | None:
@@ -398,19 +404,43 @@ class CycleDriver:
             B = int(t)
         return B
 
+    def _grid_tsfc(self, sh: Sharded) -> Sharded:
+        """The physics suite's slab skin temperature as this process's
+        blocks of sh's grid: self.tsfc as it is when already sharded, cut
+        into blocks when global (a checkpoint's, or set by hand), else
+        cold-started on each block (column-local: the global cold start's
+        bits)."""
+        if isinstance(self.tsfc, Sharded):
+            return self.tsfc
+        if self.tsfc is not None:
+            return self.mesh.shard_ensemble(torch.as_tensor(
+                self.tsfc, dtype=torch.float32, device=self.device))
+        return sh._replace(blocks={b: skin_temperature(s)
+                                   for b, s in sh.blocks.items()})
+
     def _forecast_grid(self, ens, nsteps: int, t0) -> Sharded:
         """forecast on the process grid: each block's member slab in
         batches, every block of the process stepping together (their halos
-        exchanged each stage), the Davies relaxation per block; a
-        member-only grid forecasts each slab undecomposed."""
+        exchanged each stage), the Davies relaxation per block, and physics
+        on every block of the batch on _chunks' schedule — Kessler per
+        block, the suite through halo.physics_step_blocks with each block's
+        own slab skin temperature (self.tsfc, a Sharded, threaded across
+        calls); a member-only grid forecasts each slab undecomposed, with
+        its own members' skin temperature."""
         grid = self.mesh
         sh = ens if isinstance(ens, Sharded) else grid.shard_ensemble(ens)
         del ens
+        phys = self.phys_cfg is not None
+        tsfc = self._grid_tsfc(sh) if phys else None
+        t_out = {}
         if not self.exchange:
             out = {}
             for b, s in sh.blocks.items():
-                out[b] = self._forecast_members(
-                    s, nsteps, t0, grid.members(b, sh.K).start)
+                out[b], t_out[b] = self._forecast_members(
+                    s, nsteps, t0, grid.members(b, sh.K).start,
+                    tsfc.blocks[b] if phys else None)
+            if phys:
+                self.tsfc = tsfc._replace(blocks=t_out)
             return sh._replace(blocks=out)
         self.batch = B = self._grid_batch(sh)
         w2d = bdy = None
@@ -418,22 +448,52 @@ class CycleDriver:
             bdy = self.bdy
             w2d = {b: self._bdy_w2d[grid.rows(b, sh.ny), grid.cols(b, sh.nx)]
                    for b in sh.blocks}
-        dt = self.dycfg.dt
+        if phys:
+            t_out = {b: torch.empty_like(t) for b, t in tsfc.blocks.items()}
+        periodic = self.dycfg.lateral == "periodic"
 
         def run(b0, batch):
             bdy_b = None
             if bdy is not None:
                 bdy_b = {b: self._bdy_block(b, sh, b0, B) for b in batch}
-            for j in range(nsteps):
+
+            def step(batch, t):
                 batch = self._grid_step(batch)
                 if bdy_b is not None:
-                    t = t0 + np.float32(j + 1) * np.float32(dt)
                     with self.timer.section("boundary"):
                         batch = {b: self._apply_bdy(s, t, bdy_b[b], w2d[b])
                                  for b, s in batch.items()}
+                return batch
+
+            physics = None
+            if phys:
+                ph = {b: PhysicsState(
+                    tsfc=tsfc.blocks[b][b0:b0 + B],
+                    drhot_rad=torch.zeros_like(s.rhot),
+                    rad_sfc=torch.zeros_like(tsfc.blocks[b][b0:b0 + B]))
+                    for b, s in batch.items()}
+
+                def physics(batch, i, dt_phys):
+                    batch, new = halo.physics_step_blocks(
+                        grid, batch, ph, i, self.phys_cfg, dt_phys,
+                        self.dz_phys, self.z_centers, periodic, self.timer)
+                    ph.update(new)
+                    return batch
+            elif self.use_physics:
+                def physics(batch, i, dt_phys):
+                    return {b: kessler_step(s, dt_phys, self.dz_col)
+                            for b, s in batch.items()}
+
+            batch = self._chunks(batch, nsteps, t0, step, physics)
+            if phys:
+                for b, p in ph.items():
+                    t_out[b][b0:b0 + B] = p.tsfc
             return batch
 
-        return sh._replace(blocks=self._in_batches(sh.blocks, B, run))
+        out = self._in_batches(sh.blocks, B, run)
+        if phys:
+            self.tsfc = tsfc._replace(blocks=t_out)
+        return sh._replace(blocks=out)
 
     @staticmethod
     def _in_batches(blocks: dict, B: int, run) -> dict:
@@ -492,20 +552,27 @@ class CycleDriver:
         with self.timer.section("forecast"):
             if self.mesh is not None:
                 return self._forecast_grid(ens, nsteps, np.float32(t0))
-            return self._forecast_members(ens, nsteps, np.float32(t0), 0)
+            out, tsfc = self._forecast_members(ens, nsteps, np.float32(t0),
+                                               0, self.tsfc)
+            if tsfc is not None:
+                self.tsfc = tsfc
+            return out
 
     def _forecast_members(self, ens: DycoreState, nsteps: int, t0,
-                          m0: int) -> DycoreState:
+                          m0: int, tsfc=None):
         """The undecomposed forecast of members m0.. of the ensemble
-        (boundary data per member sliced from m0) in member batches."""
+        (boundary data per member sliced from m0) in member batches; with
+        the physics suite from these members' skin temperature `tsfc`
+        (cold-started when None). Returns (ensemble, skin temperature after,
+        None without the suite)."""
         K = ens.rho.shape[0]
         field_bytes = ens.rho[0].numel() * ens.rho.element_size()
         self.batch = B = member_batch(K, field_bytes, self.device,
                                       self.fields_per_member)
         phys = self.phys_cfg is not None
         if phys:
-            tsfc = (skin_temperature(ens) if self.tsfc is None
-                    else torch.as_tensor(self.tsfc, dtype=torch.float32,
+            tsfc = (skin_temperature(ens) if tsfc is None
+                    else torch.as_tensor(tsfc, dtype=torch.float32,
                                          device=self.device))
             tsfc_out = torch.empty_like(tsfc)
 
@@ -518,9 +585,7 @@ class CycleDriver:
             return {0: res}
 
         out = self._in_batches({0: ens}, B, run)[0]
-        if phys:
-            self.tsfc = tsfc_out
-        return out
+        return out, (tsfc_out if phys else None)
 
     def forecast_slots(self, ens: DycoreState, nsteps: int,
                        slot_steps: list[int], t0: float = 0.0
@@ -680,8 +745,7 @@ class CycleDriver:
         with self.timer.section("monitor"):
             y_a, _ = compute_hx_single(
                 state_to_history(anal_mean, self.z_full, self.topo,
-                                 tsfc=None if self.tsfc is None
-                                 else torch.mean(self.tsfc, dim=0)), obs,
+                                 tsfc=self._tsfc_mean()), obs,
                 self.grid, cfg, self.z_full)
             y_a = y_a.cpu().numpy().astype(np.float64)
             # the H08 all-sky BT without its cloudy-sky sign flag
@@ -704,26 +768,47 @@ class CycleDriver:
             "diag": diag, "obsdep": obsdep, "det": det_out,
         }
 
+    def _tsfc_mean(self):
+        """The members' mean skin temperature (ny, nx) for the O−A monitor,
+        summed in member order (state.ensemble_mean: the same bits from a
+        grid's blocks as undecomposed); None without one."""
+        if self.tsfc is None:
+            return None
+        tsfc = self.tsfc
+        if isinstance(tsfc, Sharded):
+            with self.timer.section("gather"):
+                tsfc = self.mesh.gather_ensemble(tsfc)
+        return ensemble_mean(torch.as_tensor(tsfc, dtype=torch.float32,
+                                             device=self.device))
+
     def _obsope_grid(self, gues: Sharded, obs: Observations
                      ) -> ObsOpeResult:
         """The ensemble H(x) on the grid: each member slab's blocks gathered
-        over the domain on the process holding its first block, H(x) of
+        over the domain on the process holding its first block, with its
+        skin temperature when the physics suite runs (the stability-
+        corrected screen diagnostics of the undecomposed path), H(x) of
         the slab there, and every slab's values gathered onto every
         process, then reduced over all K members as obsope_ensemble does
         (qc the largest, lev and val2 the mean). Timer section `gather`
         for the moves."""
         grid = self.mesh
+        tsfc = None
+        if self.tsfc is not None:
+            tsfc = self._grid_tsfc(gues)
         per_slab = []
         for m in range(grid.n_member):
             leader = grid.owner(grid.index(m, 0, 0))
             with self.timer.section("gather"):
                 slab = grid.gather_slab(gues, m, leader)
+                tsfc_m = (None if tsfc is None
+                          else grid.gather_slab(tsfc, m, leader))
             payload = shapes = None
             if slab is not None:
                 y, qc, lev, val2 = compute_hx_single(
-                    state_to_history(slab, self.z_full, self.topo), obs,
+                    state_to_history(slab, self.z_full, self.topo,
+                                     tsfc=tsfc_m), obs,
                     self.grid, self.cfg, self.z_full, with_aux=True)
-                del slab
+                del slab, tsfc_m
                 payload = [y, qc.to(y.dtype), lev.to(y.dtype),
                            val2.to(y.dtype)]
             Km = gues.K // grid.n_member

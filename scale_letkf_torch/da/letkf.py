@@ -44,7 +44,8 @@ from scale_letkf_torch.grid import Grid
 from scale_letkf_torch.io.convert import DeviceObsContext, obs_context_to_device
 from scale_letkf_torch.obs.types import ID_RADAR_REF
 from scale_letkf_torch.ops.letkf_core import (
-    letkf_core, weight_rtpp, weight_rtps, total_weight, relax_beta,
+    letkf_core, weight_rtpp, weight_rtps, weight_update, total_weight,
+    relax_beta,
 )
 from scale_letkf_torch.ops.obs_select import (
     candidate_width, gather_candidates, local_weights, limit_obs_topk,
@@ -376,7 +377,7 @@ def analyze_points(plan: _Plan, dctx: DeviceObsContext,
                         trans = (weight_rtpp(res.trans, parm, plan.relax_alpha)
                                  if plan.relax_alpha != 0.0 else res.trans)
                         w_tot = total_weight(trans, res.transm, beta)
-                        upd = torch.einsum("vbk,bkm->vbm", pert_g, w_tot)
+                        upd = weight_update(pert_g, w_tot)
                     anal_c[vi] = upd.add_(mean_c[vi][..., None])
                     if det is not None:
                         # det + β·Σ_k Xb'_k transmd_k (letkf_tools.f90:489-497)

@@ -63,6 +63,13 @@ hold against the reference package.
   nature run's blobs. Bounds as the forecast's (1e-4·max|increment| plus
   twice the CPU's own rounding floor, per field and for the skin
   temperature), the obs QC equal.
+- Physics on a process grid: the physics-suite and Kessler forecasts above
+  run a second time on the card on make_mesh(2, 2, 2) (GRID), which must
+  give the undecomposed card run's state and skin temperature bit for bit
+  (and so meet the CPU at its bounds too); grid_cycle_on_device runs the
+  coarsened cycle (osse_vs_cpu's inputs) undecomposed and on GRID on the
+  card, which must agree exactly — final ensemble, nature run, means,
+  spreads and O−B / O−A.
 """
 
 from __future__ import annotations
@@ -72,7 +79,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from scale_letkf_torch.cli.main import load_config_and_grid
+from scale_letkf_torch.cli.main import _global, load_config_and_grid
 from scale_letkf_torch.da.letkf import analyze
 from scale_letkf_torch.da.letkf_obs import build_obs_context
 from scale_letkf_torch.da.obsope import (
@@ -115,6 +122,7 @@ STEPS_FCST = 3
 MEMBERS_CYCLE = 20
 STEPS_CYCLE = 2
 KERNELS = ("invsqrt_ns", "dyn_tendency", "adv_ud3")
+GRID = (2, 2, 2)        # (member, dy, dx) blocks of the grid checks
 
 
 def random_dyn_state(seed: int, B: int, nz: int, ny: int, nx: int,
@@ -314,8 +322,10 @@ def expected_launches(cfg, grid, steps: int, batches: int, chunk: int,
     stages × steps × (the ensemble's member batches + the nature run's
     one) for both stencil kernels; levels × chunks per level × var-local
     groups for the solver. On a process grid every batch runs on each of
-    `blocks` blocks, and the solver runs per share of the gridpoints:
-    shares, the (points, chunk) of each (AnalysisDiag.share_chunks)."""
+    `blocks` blocks (the nature run stays undecomposed, a batch of one),
+    and the solver runs per share of the gridpoints: shares, the (points,
+    chunk) of each (AnalysisDiag.share_chunks). Physics — Kessler or the
+    suite, on a grid too — is plain PyTorch and adds no launch."""
     fcst = 3 * steps * (batches * blocks + 1)
     shares = shares or [(grid.ny * grid.nx, chunk)]
     return {"invsqrt_ns": sum(grid.nz * -(-n // c) for n, c in shares)
@@ -387,6 +397,113 @@ def osse_vs_cpu(device: torch.device, config: str, seed: int = 0) -> dict:
             "finite": all(bool(np.isfinite(f).all())
                           for f in runs["device"]["state"]),
             "max_err_over_tol": err}
+
+
+def grid_cycle_on_device(device: torch.device, config: str,
+                         seed: int = 0) -> dict:
+    """osse_vs_cpu's cycle (its coarsened sizes, K = MEMBERS_CYCLE, its
+    seeded inputs) on `device`, undecomposed and on the GRID process grid:
+    whether the grid's final ensemble and nature run, the guess and
+    analysis means and spreads and the O−B / O−A tables equal the
+    undecomposed run's bit for bit, the largest difference, and the grid
+    run's launches against expected_launches for its blocks and shares."""
+    from scale_letkf_torch.cli.main import make_driver
+    cfg, grid, dycfg, dom = load_config_and_grid(config, COARSE_FCST)
+    cfg.ensemble.member = K = MEMBERS_CYCLE
+    ens0, _, _ = synthetic_ens_dycore_device(seed, K, grid, dom, device,
+                                             u0=10.0)
+    nat, _, _ = synthetic_ens_dycore_device(seed + 1, 1, grid, dom, device,
+                                            u0=10.0)
+    truth0 = type(nat)(*(f[0] for f in nat))
+    template = synthetic_conv_network(cfg, grid, np.random.default_rng(seed),
+                                      n_sonde=30, n_ps=60)
+    runs = {}
+    for key, c in (("undecomposed", cfg), ("grid", _on_grid(cfg))):
+        driver = make_driver(c, grid, dycfg, dom, device)
+        before = dict(kernels.LAUNCHES)
+        truth, ens, res = driver.run_osse(truth0, ens0, template, n_cycles=1,
+                                          steps_per_cycle=STEPS_CYCLE,
+                                          seed=seed)
+        info = res.info
+        runs[key] = {
+            "arrays": [f.cpu() for f in (*_global(driver, ens), *truth)]
+            + [info[k].cpu() for k in ("gues_mean", "gues_sprd",
+                                       "anal_mean", "anal_sprd")],
+            "stats": [(st.nobs, st.rmse, st.bias) for st in (
+                res.stats_gues[0], res.stats_anal[0])],
+            "launches": {k: kernels.LAUNCHES[k] - before[k]
+                         for k in KERNELS},
+            "expected": expected_launches(
+                cfg, grid, STEPS_CYCLE, -(-(K // GRID[0]) // driver.batch),
+                info["diag"].chunk, blocks=int(np.prod(GRID)),
+                shares=info["diag"].share_chunks)
+            if key == "grid" else None}
+    a, b = runs["grid"]["arrays"], runs["undecomposed"]["arrays"]
+    return {"grid": "{nx}x{ny}x{nz}".format(**COARSE_FCST), "members": K,
+            "mesh": list(GRID), "steps": STEPS_CYCLE,
+            "bit_equal": all(torch.equal(x, y) for x, y in zip(a, b)),
+            "stats_equal": runs["grid"]["stats"] == runs["undecomposed"][
+                "stats"],
+            "max_abs_diff": max(float((x - y).abs().max())
+                                for x, y in zip(a, b)),
+            "kernel_launches": runs["grid"]["launches"],
+            "expected_launches": runs["grid"]["expected"]}
+
+
+BATCH_CASES = ((20, 1000, 768), (50, 1000, 4096))   # (K, L, B)
+SUB_BATCHES = (7, 48, 96, 500)
+
+
+def batch_invariance(device: torch.device, seed: int = 0) -> dict:
+    """Whether the LETKF core's products over the obs give each matrix the
+    same bits whatever the batch it is in (a chunk of the undecomposed
+    analysis, or a grid share): on seeded (B, L, K) perturbation blocks,
+    departures and K×K matrices, n rows (n..2n, or the last n) of a product
+    of those n matrices against the same rows of the product of all B,
+    per product, counted
+    in mismatching elements. 'gram' (HδXᵀ·HδX), 'dep_block' (Pa·(HδXᵀ·
+    the DEP_COLUMNS-wide departure block), letkf_core's form) and 'apply'
+    (letkf_core.weight_update, analyze_points' weight application: each
+    point's K×K weights on the variables' perturbations) must be 0; the
+    forms they replaced are reported beside them: 'matvec' (Pa·(HδXᵀ·d) as
+    matrix-vector products) and 'apply_einsum'."""
+    from scale_letkf_torch.ops.letkf_core import DEP_COLUMNS, weight_update
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for K, L, B in BATCH_CASES:
+        a = torch.randn(B, L, K, device=device, generator=gen)
+        d = torch.randn(B, L, device=device, generator=gen)
+        p = torch.randn(B, K, K, device=device, generator=gen)
+
+        def block(s):
+            cols = d.new_zeros((s.stop - s.start, L, DEP_COLUMNS))
+            cols[..., 0] = d[s]
+            return (p[s] @ (a[s].transpose(-1, -2) @ cols))[..., 0]
+
+        x = torch.randn(NV3D, B, K, device=device, generator=gen)
+        prods = {
+            "gram": lambda s: a[s].transpose(-1, -2) @ a[s],
+            "apply": lambda s: weight_update(x[:, s], p[s]).transpose(0, 1),
+            "apply_einsum": lambda s: torch.einsum(
+                "vbk,bkm->vbm", x[:, s], p[s]).transpose(0, 1),
+            "dep_block": block,
+            "matvec": lambda s: (p[s] @ (a[s].transpose(-1, -2)
+                                         @ d[s][..., None]))[..., 0]}
+        subs = {n: slice(n, 2 * n) if 2 * n <= B else slice(B - n, B)
+                for n in SUB_BATCHES}
+        row = {}
+        for name, f in prods.items():
+            full = f(slice(0, B))
+            row[name] = {n: int((f(s) != full[s]).sum())
+                         for n, s in subs.items()}
+        out[f"K{K}_L{L}_B{B}"] = row
+    return out
+
+
+def batch_invariance_passes(res: dict) -> bool:
+    return all(v == 0 for row in res.values()
+               for name in ("gram", "dep_block", "apply")
+               for v in row[name].values())
 
 
 def hydrometeor_analysis(seed: int, K: int, grid, dom) -> torch.Tensor:
@@ -730,15 +847,40 @@ def per_member_boundary(grid, dom, K: int, device) -> BoundaryData:
     return BoundaryData(s0, s1, 0.0, 3600.0)
 
 
+def _on_grid(cfg):
+    """cfg with the [process] grid GRID (make_driver builds it)."""
+    cfg = dataclasses.replace(cfg, process=dataclasses.replace(
+        cfg.process, mesh_member=GRID[0], mesh_y=GRID[1], mesh_x=GRID[2]))
+    return cfg
+
+
+def _grid_row(runs, steps: int, names) -> dict:
+    """The card's grid run against its undecomposed run: bit-equal per
+    array, the largest difference, and its launches against 3 stages ×
+    steps × the GRID blocks (one batch each at these sizes)."""
+    a, b = runs["device_grid"]["state"], runs["device"]["state"]
+    blocks = int(np.prod(GRID))
+    return {"mesh": list(GRID),
+            "bit_equal": {n: bool(np.array_equal(x, y))
+                          for n, x, y in zip(names, a, b)},
+            "max_abs_diff": max(float(np.abs(x - y).max())
+                                for x, y in zip(a, b)),
+            "kernel_launches": runs["device_grid"]["launches"],
+            "expected_launches": 3 * steps * blocks,
+            "sections": runs["device_grid"]["sections"]}
+
+
 def physics_forecast_vs_cpu(device: torch.device, config: str,
                             seed: int = 0) -> dict:
     """The 18-km physics-suite forecast with per-member Davies forcing at
     COARSE_PHYS, K = MEMBERS_PHYS: 7 steps from t0 = 0 then 3 from 210 s,
     on `device` and twice on the CPU (the second from inputs perturbed by
-    one rounding). Worst |Δ| over its bound per field of the final state
-    and for the skin temperature after each forecast, the floors, the
-    stencil kernels' launches and the timer's physics and boundary
-    sections."""
+    one rounding), and on `device` again on the GRID process grid. Worst
+    |Δ| over its bound per field of the final state and for the skin
+    temperature after each forecast, the floors, the stencil kernels'
+    launches, the timer's physics and boundary sections, and under `grid`
+    the grid run against the undecomposed one on `device` (_grid_row: the
+    state and both skin temperatures)."""
     from scale_letkf_torch.cli.main import make_driver
     cfg, grid, dycfg, dom = load_config_and_grid(config, COARSE_PHYS)
     dom = {**dom, "physics": PHYS_PROD, "bdy_width": 3}
@@ -748,22 +890,31 @@ def physics_forecast_vs_cpu(device: torch.device, config: str,
     gen = torch.Generator().manual_seed(seed + 3)
     runs = {}
     for key, dev, init in (("device", device, ens0), ("cpu", cpu, ens0),
-                           ("cpu_rounded", cpu, _rounded(ens0, gen))):
-        driver = make_driver(cfg, grid, dycfg, dom, dev)
+                           ("cpu_rounded", cpu, _rounded(ens0, gen)),
+                           ("device_grid", device, ens0)):
+        driver = make_driver(_on_grid(cfg) if key == "device_grid" else cfg,
+                             grid, dycfg, dom, dev)
         driver.bdy = per_member_boundary(grid, dom, MEMBERS_PHYS, dev)
         before = dict(kernels.LAUNCHES)
         e1 = driver.forecast(type(init)(*(f.to(dev) for f in init)), 7)
-        tsfc1 = driver.tsfc.cpu().numpy()
-        e2 = driver.forecast(e1, 3, t0=210.0)
+        tsfc1 = _global(driver, driver.tsfc).cpu().numpy()
+        e2 = _global(driver, driver.forecast(e1, 3, t0=210.0))
         runs[key] = {"state": [f.cpu().numpy() for f in e2],
-                     "tsfc": [tsfc1, driver.tsfc.cpu().numpy()],
+                     "tsfc": [tsfc1, _global(driver, driver.tsfc)
+                              .cpu().numpy()],
                      "launches": {k: kernels.LAUNCHES[k] - before[k]
                                   for k in ("dyn_tendency", "adv_ud3")},
                      "sections": {k: driver.timer.counts.get(k, 0) for k in
-                                  ("forecast/physics", "forecast/boundary")}}
+                                  ("forecast/physics", "forecast/boundary")
+                                  + ("forecast/physics/halo",)
+                                  * (key == "device_grid")}}
+    for r in runs.values():
+        r["state"] += r["tsfc"]
     err, floor = _err_floor(ens0._fields, runs["device"]["state"],
                             runs["cpu"]["state"], runs["cpu_rounded"]["state"],
                             ens0)
+    names = (*ens0._fields, "tsfc1", "tsfc2")
+    grid_row = _grid_row(runs, 10, names)
     from scale_letkf_torch.model.physics_suite import skin_temperature
     cold = skin_temperature(ens0).numpy()
     for i in range(2):
@@ -779,39 +930,49 @@ def physics_forecast_vs_cpu(device: torch.device, config: str,
             "rounding_floor_over_1e-4_increment": floor,
             "finite": all(bool(np.isfinite(f).all())
                           for f in runs["device"]["state"]),
-            "max_err_over_tol": err}
+            "max_err_over_tol": err, "grid": grid_row}
 
 
 def kessler_forecast_vs_cpu(device: torch.device, config: str,
                             seed: int = 0) -> dict:
     """The radar configuration's Kessler forecast over its window
     (RADAR_STEPS) at COARSE_RADAR, K = MEMBERS_PHYS, from an ensemble with
-    rain blobs, on `device` and twice on the CPU. Worst |Δ| over its bound
-    per field, the floors and the stencil kernels' launches."""
+    rain blobs, on `device` and twice on the CPU, and on `device` on the
+    GRID process grid. Worst |Δ| over its bound per field, the floors, the
+    stencil kernels' launches and under `grid` the grid run against the
+    undecomposed one on `device` (_grid_row)."""
     from scale_letkf_torch.cli.main import make_driver
     cfg, grid, dycfg, dom = load_config_and_grid(config, COARSE_RADAR)
     cpu = torch.device("cpu")
     ens0, _, _ = synthetic_ens_dycore_device(
         seed, MEMBERS_PHYS, grid, dom, cpu, u0=5.0, qr_blob=RADAR_QR_BLOB)
     gen = torch.Generator().manual_seed(seed + 4)
-    out, launches = {}, {}
+    out, launches, sections = {}, {}, {}
     for key, dev, init in (("device", device, ens0), ("cpu", cpu, ens0),
-                           ("cpu_rounded", cpu, _rounded(ens0, gen))):
-        driver = make_driver(cfg, grid, dycfg, dom, dev)
+                           ("cpu_rounded", cpu, _rounded(ens0, gen)),
+                           ("device_grid", device, ens0)):
+        driver = make_driver(_on_grid(cfg) if key == "device_grid" else cfg,
+                             grid, dycfg, dom, dev)
         before = dict(kernels.LAUNCHES)
-        res = driver.forecast(type(init)(*(f.to(dev) for f in init)),
-                              RADAR_STEPS)
+        res = _global(driver, driver.forecast(
+            type(init)(*(f.to(dev) for f in init)), RADAR_STEPS))
         out[key] = [f.cpu().numpy() for f in res]
         launches[key] = {k: kernels.LAUNCHES[k] - before[k]
                          for k in ("dyn_tendency", "adv_ud3")}
+        sections[key] = {k: driver.timer.counts.get(k, 0)
+                         for k in ("forecast/physics", "forecast/halo")}
     err, floor = _err_floor(ens0._fields, out["device"], out["cpu"],
                             out["cpu_rounded"], ens0)
+    grid_row = _grid_row({k: {"state": out[k], "launches": launches[k],
+                              "sections": sections[k]} for k in out},
+                         RADAR_STEPS, ens0._fields)
     return {"grid": f"{grid.nx}x{grid.ny}x{grid.nz}",
             "members": MEMBERS_PHYS, "steps": RADAR_STEPS,
-            "kernel_launches": launches,
+            "kernel_launches": {k: launches[k] for k in ("device", "cpu",
+                                                         "cpu_rounded")},
             "rounding_floor_over_1e-4_increment": floor,
             "finite": all(bool(np.isfinite(f).all()) for f in out["device"]),
-            "max_err_over_tol": err}
+            "max_err_over_tol": err, "grid": grid_row}
 
 
 def radar_template(grid, dom: dict, seed: int, n: int = 400) -> Observations:
@@ -900,10 +1061,14 @@ def physics_check_passes(res: dict) -> bool:
     """Whether coarse_physics_vs_cpu's result passes: every error within its
     bound, finite, the stencil kernels launched on the device (3 stages ×
     steps) and never on the CPU, every kernel of the radar cycle launched as
-    expected, its QC equal and radar obs of both kinds assimilated."""
+    expected, its QC equal and radar obs of both kinds assimilated; and
+    each forecast's grid run bit-equal to the undecomposed one on the
+    device, with its launches, its physics sections and the suite's PBL
+    halo exchanges."""
     fc = [res["suite"], res["kessler"]]
     cyc = res["radar_cycle"]
     steps = [sum(res["suite"]["steps"]), res["kessler"]["steps"]]
+    grids = [r["grid"] for r in fc]
     return (all(e <= 1 for e in res["modules"]["max_err_over_tol"].values())
             and all(r["finite"] and all(e <= 1 for e in
                                         r["max_err_over_tol"].values())
@@ -911,8 +1076,14 @@ def physics_check_passes(res: dict) -> bool:
             and all(all(n == 3 * st for n in r["kernel_launches"][
                 "device"].values()) and not any(r["kernel_launches"][
                     "cpu"].values()) for r, st in zip(fc, steps))
+            and all(all(g["bit_equal"].values()) and all(
+                n == g["expected_launches"]
+                for n in g["kernel_launches"].values()) for g in grids)
             and res["suite"]["sections"]["forecast/physics"] == 3
             and res["suite"]["sections"]["forecast/boundary"] == 10
+            and grids[0]["sections"]["forecast/physics"] == 3
+            and grids[0]["sections"]["forecast/physics/halo"] == 6
+            and grids[1]["sections"]["forecast/physics"] == 3
             and cyc["qc_equal"]
             and cyc["kernel_launches"]["device"] == cyc["expected_launches"]
             and not any(cyc["kernel_launches"]["cpu"].values())

@@ -88,18 +88,29 @@ class PblResult(NamedTuple):
     sfc: SurfaceFluxes
 
 
-def pbl_step(s: DycoreState, dt: float, dz: float, zc: torch.Tensor,
-             tsfc: torch.Tensor, z0: float = 1.0e-2, z0h: float = 1.0e-3,
-             beta: float = 1.0, lateral: str = "periodic") -> PblResult:
-    """One surface-layer + PBL-diffusion step on the dycore state.
+class PblColumns(NamedTuple):
+    """The column part of a PBL step: the centre-wind increments (du, dv),
+    the diffused ρθ and ρq, and the surface fluxes."""
+    du: torch.Tensor
+    dv: torch.Tensor
+    rhot: torch.Tensor
+    rhoq: torch.Tensor
+    sfc: SurfaceFluxes
 
-    zc: cell-center heights (nz,); tsfc: the surface skin temperature (...,
-    ny, nx); lateral: the dynamical core's lateral mode, for the face ↔
-    center averages of the momenta. Diffuses u, v, θ, qv; mass is
-    untouched."""
+
+def centre_winds(s: DycoreState, rhou_w: torch.Tensor, rhov_s: torch.Tensor):
+    """(u, v) at the cell centres: the face momenta averaged with their
+    west (rhou_w) and south (rhov_s) neighbours, over ρ."""
+    return 0.5 * (s.rhou + rhou_w) / s.rho, 0.5 * (s.rhov + rhov_s) / s.rho
+
+
+def pbl_columns(s: DycoreState, u, v, dt: float, dz: float,
+                zc: torch.Tensor, tsfc: torch.Tensor, z0: float = 1.0e-2,
+                z0h: float = 1.0e-3, beta: float = 1.0) -> PblColumns:
+    """The surface layer and the implicit vertical diffusion of u, v, θ and
+    qv, each column on its own: centre winds (u, v) in, their increments
+    out (no lateral neighbour is read)."""
     rho = s.rho
-    u = 0.5 * (s.rhou + roll_x(s.rhou, -1, lateral)) / rho
-    v = 0.5 * (s.rhov + roll_y(s.rhov, -1, lateral)) / rho
     theta = s.rhot / rho
     qv = tracer(s.rhoq, 0) / rho
 
@@ -130,15 +141,39 @@ def pbl_step(s: DycoreState, dt: float, dz: float, zc: torch.Tensor,
     th_new = diffuse_column(theta, rkh, rho, dt, dz, sfc.ch_mod, ths)
     qv_new = diffuse_column(qv, rkh, rho, dt, dz, sfc.ce_mod, qs_sfc)
 
-    # back to staggered momenta: face-average the velocity increments
-    du = u_new - u
-    dv = v_new - v
-    rhou = s.rhou + 0.5 * (du + roll_x(du, 1, lateral)) \
-        * 0.5 * (rho + roll_x(rho, 1, lateral))
-    rhov = s.rhov + 0.5 * (dv + roll_y(dv, 1, lateral)) \
-        * 0.5 * (rho + roll_y(rho, 1, lateral))
     rhoq = torch.cat([(rho * torch.clamp(qv_new, min=0.0)).unsqueeze(-4),
                       s.rhoq[..., 1:, :, :, :]], dim=-4)
-    return PblResult(state=s._replace(rhou=rhou, rhov=rhov,
-                                      rhot=rho * th_new, rhoq=rhoq),
-                     sfc=sfc)
+    return PblColumns(du=u_new - u, dv=v_new - v, rhot=rho * th_new,
+                      rhoq=rhoq, sfc=sfc)
+
+
+def face_momenta(s: DycoreState, du, dv, du_e, dv_n, rho_e, rho_n):
+    """Back to staggered momenta: (ρu, ρv) plus the face averages of the
+    centre increments and of ρ with the east (du_e, rho_e) and north
+    (dv_n, rho_n) neighbours."""
+    rhou = s.rhou + 0.5 * (du + du_e) * 0.5 * (s.rho + rho_e)
+    rhov = s.rhov + 0.5 * (dv + dv_n) * 0.5 * (s.rho + rho_n)
+    return rhou, rhov
+
+
+def pbl_step(s: DycoreState, dt: float, dz: float, zc: torch.Tensor,
+             tsfc: torch.Tensor, z0: float = 1.0e-2, z0h: float = 1.0e-3,
+             beta: float = 1.0, lateral: str = "periodic") -> PblResult:
+    """One surface-layer + PBL-diffusion step on the dycore state.
+
+    zc: cell-center heights (nz,); tsfc: the surface skin temperature (...,
+    ny, nx); lateral: the dynamical core's lateral mode, for the face ↔
+    center averages of the momenta (centre_winds, face_momenta: the one
+    horizontal part; parallel/halo.py physics_step_blocks runs them with
+    halo slices). Diffuses u, v, θ, qv; mass is untouched."""
+    u, v = centre_winds(s, roll_x(s.rhou, -1, lateral),
+                        roll_y(s.rhov, -1, lateral))
+    col = pbl_columns(s, u, v, dt, dz, zc, tsfc, z0=z0, z0h=z0h, beta=beta)
+    del u, v
+    rhou, rhov = face_momenta(
+        s, col.du, col.dv, roll_x(col.du, 1, lateral),
+        roll_y(col.dv, 1, lateral), roll_x(s.rho, 1, lateral),
+        roll_y(s.rho, 1, lateral))
+    return PblResult(state=s._replace(rhou=rhou, rhov=rhov, rhot=col.rhot,
+                                      rhoq=col.rhoq),
+                     sfc=col.sfc)

@@ -75,14 +75,12 @@ def init_physics_state(s: DycoreState, dz: float,
                         rad_sfc=torch.zeros_like(tsfc))
 
 
-def physics_step(s: DycoreState, phys: PhysicsState, step_index: int,
-                 pcfg: PhysicsConfig, dt: float, dz: float,
-                 zc: torch.Tensor, lateral: str = "periodic"
-                 ) -> tuple[DycoreState, PhysicsState]:
-    """One physics step of length `dt` (the physics interval, possibly
-    several dynamics steps). Radiation is recomputed when step_index is a
-    multiple of rad_interval, else its cache is reused. lateral: the
-    dynamical core's lateral mode (the PBL's face ↔ center averages)."""
+def column_physics(s: DycoreState, phys: PhysicsState, step_index: int,
+                   pcfg: PhysicsConfig, dt: float, dz: float
+                   ) -> tuple[DycoreState, torch.Tensor, torch.Tensor]:
+    """The microphysics and radiation of a physics step, each column on its
+    own. Returns (state, drhot_rad, rad_sfc): radiation recomputed when
+    step_index is a multiple of rad_interval, else the cache's."""
     if pcfg.mp_scheme == "kessler":
         s = kessler_step(s, dt, dz)
     elif pcfg.mp_scheme == "nsw6":
@@ -93,15 +91,36 @@ def physics_step(s: DycoreState, phys: PhysicsState, step_index: int,
         if step_index % pcfg.rad_interval == 0:
             drhot_rad, rad_sfc = _radiation(s, phys.tsfc, dz, pcfg)
         s = s._replace(rhot=s.rhot + dt * drhot_rad)
+    return s, drhot_rad, rad_sfc
 
+
+def slab_temperature(tsfc, rad_sfc, sfc, pcfg: PhysicsConfig, dt: float):
+    """The slab skin temperature after dt of the net surface heating
+    (radiation in, emission and the turbulent fluxes out); held when
+    slab_capacity is 0."""
+    if pcfg.slab_capacity > 0.0:
+        net = (rad_sfc - pcfg.eps_sfc * SIGMA_SB * tsfc ** 4
+               - sfc.shf - sfc.lhf)
+        tsfc = tsfc + dt * net / pcfg.slab_capacity
+    return tsfc
+
+
+def physics_step(s: DycoreState, phys: PhysicsState, step_index: int,
+                 pcfg: PhysicsConfig, dt: float, dz: float,
+                 zc: torch.Tensor, lateral: str = "periodic"
+                 ) -> tuple[DycoreState, PhysicsState]:
+    """One physics step of length `dt` (the physics interval, possibly
+    several dynamics steps). Radiation is recomputed when step_index is a
+    multiple of rad_interval, else its cache is reused. lateral: the
+    dynamical core's lateral mode (the PBL's face ↔ center averages, the
+    suite's one horizontal operation; parallel/halo.py physics_step_blocks
+    is this step on a process grid's blocks)."""
+    s, drhot_rad, rad_sfc = column_physics(s, phys, step_index, pcfg, dt, dz)
     tsfc = phys.tsfc
     if pcfg.use_pbl:
         res = pbl_step(s, dt, dz, zc, tsfc, z0=pcfg.z0, z0h=pcfg.z0h,
                        beta=pcfg.beta, lateral=lateral)
         s = res.state
-        if pcfg.slab_capacity > 0.0:
-            net = (rad_sfc - pcfg.eps_sfc * SIGMA_SB * tsfc ** 4
-                   - res.sfc.shf - res.sfc.lhf)
-            tsfc = tsfc + dt * net / pcfg.slab_capacity
+        tsfc = slab_temperature(tsfc, rad_sfc, res.sfc, pcfg, dt)
 
     return s, PhysicsState(tsfc=tsfc, drhot_rad=drhot_rad, rad_sfc=rad_sfc)

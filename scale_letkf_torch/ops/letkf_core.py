@@ -50,6 +50,15 @@ AUTO_SMALL_K_SOLVER = "eigh"
 # and takes 16,384 (chip_smoke.py's `jacobi` phase on an NVIDIA H100 80GB
 # HBM3 at 700.00 W)
 EIGH_MAX_BATCH = 16384
+# Columns of the departure block that (HδX)ᵀR⁻¹ and Pa multiply: the
+# departures (and the deterministic member's) as columns of an 8-wide
+# block, zeros beside them. cuBLAS sums a batched matrix-vector product's
+# obs in an order set by the batch count, so a gridpoint's w̄ moved with
+# the chunk or grid share it was analysed in; its matrix-matrix product of
+# 8 columns gives each matrix the same bits in any batch of 7 or more
+# (gpu_check.batch_invariance, run by chip_smoke.py's mesh_checks on an
+# NVIDIA H100 80GB HBM3 at 700.00 W)
+DEP_COLUMNS = 8
 
 
 def _eigh(gram: torch.Tensor):
@@ -141,14 +150,18 @@ def letkf_core(
         del gram
 
     with maybe_section(timer, "weights"):
-        # w̄ = Pa (HδX)ᵀ R⁻¹ d (common_letkf.f90:169-187), obs dim first
-        t = (hdxb_rinv.transpose(-1, -2) @ dep[..., None])[..., 0]
-        transm = (pao @ t[..., None])[..., 0]
+        # w̄ = Pa (HδX)ᵀ R⁻¹ d (common_letkf.f90:169-187), obs dim first;
+        # d and the deterministic member's d as columns of one block
+        # (DEP_COLUMNS: the same bits in any batch)
+        cols = dep.new_zeros(dep.shape + (DEP_COLUMNS,))
+        cols[..., 0] = dep
         if depd is not None:
-            td = (hdxb_rinv.transpose(-1, -2) @ depd[..., None])[..., 0]
-            transmd = (pao @ td[..., None])[..., 0]
-        else:
-            transmd = torch.zeros_like(transm)
+            cols[..., 1] = depd
+        tm = pao @ (hdxb_rinv.transpose(-1, -2) @ cols)
+        del cols
+        transm = tm[..., 0]
+        transmd = (tm[..., 1] if depd is not None
+                   else torch.zeros_like(transm))
 
         # adaptive multiplicative inflation (Miyoshi 2011;
         # common_letkf.f90:233-254); rows without obs keep parm_infl
@@ -195,6 +208,17 @@ def apply_weights(pert: torch.Tensor, mean: torch.Tensor,
     """Analysis ensemble xa_m = x̄ + Σ_k Xb'_k W'_{km} (letkf_tools.f90:480-487).
     pert (..., K), mean (...), w_total (..., K, K)."""
     return mean[..., None] + (pert[..., None, :] @ w_total)[..., 0, :]
+
+
+def weight_update(pert: torch.Tensor, w_total: torch.Tensor) -> torch.Tensor:
+    """Σ_k Xb'_k W'_{km} of several variables at once: pert (V, B, K) —
+    each variable's perturbations at B points — and w_total (B, K, K);
+    returns (V, B, K). Computed as W'ᵀ·Xb'ᵀ per point, the form cuBLAS
+    gives the same bits for a point in any batch (the einsum over (v, b, k)
+    took another kernel for 96 of 4,096 points at K = 50:
+    gpu_check.batch_invariance on an NVIDIA H100 80GB HBM3 at 700.00 W)."""
+    upd = w_total.transpose(-1, -2) @ pert.permute(1, 2, 0).contiguous()
+    return upd.permute(2, 0, 1)
 
 
 def weight_rtpp(trans: torch.Tensor, infl: torch.Tensor,

@@ -22,6 +22,11 @@ axis. The global-array wrappers `rk3_step_halo`, `rk3_step_halo_ens` and
 points; `rk3_step_blocks` and `rk3_step_si_blocks` step blocks in place of
 them inside the cycle (cycle.py).
 
+`physics_step_blocks` runs the physics suite's step on blocks: its
+column schemes per block, the PBL's face ↔ centre averages through two
+halo-1 exchanges (the reference runs physics only on its GSPMD path and
+refuses it under its explicit halo).
+
 Differences from the JAX module:
 - the acoustic substeps exchange dp, then ρu and ρv together (two
   messages a substep carrying the reference's three halo-1 exchanges);
@@ -44,6 +49,10 @@ from scale_letkf_torch.model.dycore import (
 )
 from scale_letkf_torch.model.dycore_si import (
     SplitConfig, acoustic_column, acoustic_coeffs)
+from scale_letkf_torch.model.pbl import (
+    centre_winds, face_momenta, pbl_columns)
+from scale_letkf_torch.model.physics_suite import (
+    PhysicsConfig, PhysicsState, column_physics, slab_temperature)
 from scale_letkf_torch.model.terrain import (
     TerrainMetrics, tendencies_terrain,
 )
@@ -370,6 +379,49 @@ def rk3_step_si_blocks(grid: ProcessGrid, blocks: dict, cfg: DycoreConfig,
     with maybe_section(timer, "sponge"):
         return {b: rayleigh_sponge(s3[b], s, cfg, z_center, dt)
                 for b, s in blocks.items()}
+
+
+def physics_step_blocks(grid: ProcessGrid, blocks: dict, phys: dict,
+                        step_index: int, pcfg: PhysicsConfig, dt: float,
+                        dz: float, zc, periodic: bool,
+                        timer: Timer | None = None) -> tuple[dict, dict]:
+    """model/physics_suite.py physics_step on this process's blocks (index →
+    DycoreState; phys: index → the block's PhysicsState). The microphysics,
+    radiation, column solves and slab are each block's own; the PBL's face
+    ↔ centre averages read one neighbour column, so (ρu, ρv) are exchanged
+    with a halo of 1 before the column solve and (du, dv) with ρ after it
+    (a halo column's du needs that column's solve, its skin temperature
+    included: the results travel, not the inputs). Open lateral boundaries
+    clamp the halo to the edge value, as roll_x/roll_y do at the domain's
+    edge. The arithmetic is physics_step's, in its order. Returns (blocks,
+    phys). Timer section `halo` for the exchanges."""
+    pre = {b: column_physics(s, phys[b], step_index, pcfg, dt, dz)
+           for b, s in blocks.items()}
+    if not pcfg.use_pbl:
+        return ({b: p[0] for b, p in pre.items()},
+                {b: PhysicsState(phys[b].tsfc, p[1], p[2])
+                 for b, p in pre.items()})
+    ext = extend_fields(grid, {b: [p[0].rhou, p[0].rhov]
+                               for b, p in pre.items()}, 1, periodic, timer)
+    cols = {}
+    for b, (s, _, _) in pre.items():
+        u, v = centre_winds(s, _xm1(ext[b][0]), _ym1(ext[b][1]))
+        cols[b] = pbl_columns(s, u, v, dt, dz, zc, phys[b].tsfc, z0=pcfg.z0,
+                              z0h=pcfg.z0h, beta=pcfg.beta)
+    del ext, u, v
+    ext = extend_fields(grid, {b: [c.du, c.dv, pre[b][0].rho]
+                               for b, c in cols.items()}, 1, periodic, timer)
+    out, out_phys = {}, {}
+    for b, c in cols.items():
+        s, drhot_rad, rad_sfc = pre[b]
+        due, dve, rhoe = ext[b]
+        rhou, rhov = face_momenta(s, c.du, c.dv, _xp1(due), _yp1(dve),
+                                  _xp1(rhoe), _yp1(rhoe))
+        out[b] = s._replace(rhou=rhou, rhov=rhov, rhot=c.rhot, rhoq=c.rhoq)
+        out_phys[b] = PhysicsState(
+            slab_temperature(phys[b].tsfc, rad_sfc, c.sfc, pcfg, dt),
+            drhot_rad, rad_sfc)
+    return out, out_phys
 
 
 # -- the reference's entry points: global states in and out --

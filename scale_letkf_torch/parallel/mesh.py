@@ -23,9 +23,11 @@ its blocks explicitly:
 package's virtual CPU devices); parallel/distributed.py's
 `global_device_mesh` spreads them over a torch.distributed world. A
 `Sharded` holds this process's blocks of one ensemble (a DycoreState or a
-tensor per block) with the global sizes; `shard_ensemble` cuts one out of a
-global ensemble and `gather_ensemble` puts the global one back together on
-every process.
+tensor per block — the physics suite's per-member skin temperature
+(K, ny, nx) is one, each block holding its (K_b, ny_b, nx_b) part) with
+the global sizes; `shard_ensemble` cuts one out of a global ensemble,
+`gather_ensemble` puts the global one back together on every process and
+`gather_slab` one member slab over the domain on one process.
 
 The shapes must divide: K by n_member, ny by n_dy, nx by n_dx (the
 reference's shard_map specs ask the same).

@@ -1,7 +1,8 @@
 """The port's process grid over several processes: 4 gloo processes × 2 blocks
 of a (2, 2, 2) grid (tests/torch_mp_worker.py, which imports no jax)
-against the same grid in one process, and the cycle verb with a [process]
-table over 4 processes (--coordinator, --num-processes, --process-id,
+against the same grid in one process (the SI halo step with terrain, and a
+cycle without and with the physics suite), and the cycle verb with a
+[process] table over 4 processes (--coordinator, --num-processes, --process-id,
 --local-device-count) against the verb in one process.
 
 The messages between processes carry the values exactly and the arithmetic
@@ -98,8 +99,12 @@ def test_four_gloo_processes_equal_one_process(tmp_path):
     np.savez(tmp_path / "reference.npz", **_fields("si", ref))
     g_r, dom = setup_pair()[2::3]
     nature, ens = states(g_r, dom)
+    from scale_letkf_torch.model.physics_suite import skin_temperature
+    tsfc = skin_temperature(DycoreState(*(torch.from_numpy(f) for f in ens)))
+    tsfc = tsfc + torch.linspace(-2.0, 2.0, tsfc.shape[0])[:, None, None]
     np.savez(tmp_path / "inputs.npz", **_fields("si", si),
              **_fields("nat", nature), **_fields("ens", ens),
+             tsfc=tsfc.numpy(),
              **{f"cfg_{k}": getattr(cfg_r, k) for k in (
                  "dx", "dy", "dz", "dt", "ztop", "sponge_height",
                  "sponge_tau")},
@@ -158,6 +163,25 @@ def test_four_gloo_processes_equal_one_process(tmp_path):
                                   res.info["anal_sprd"].numpy())
     np.testing.assert_array_equal(got["rmse"],
                                   [res.rmse_gues[0], res.rmse_anal[0]])
+
+    # the physics suite's cycle: the PBL's halo and the skin temperature
+    # across processes
+    drv = make_driver(c, grid_p, dycfg, {**dom_p, "physics": w.PHYS}, w.CPU)
+    drv.tsfc = torch.from_numpy(z["tsfc"])
+    _, ens_p, res_p = drv.run_osse(w.state(z, "nat"), w.state(z, "ens"),
+                                   tmpl, n_cycles=1, steps_per_cycle=2,
+                                   seed=3)
+    ens_p = drv.mesh.gather_ensemble(ens_p)
+    for k, f in zip(DycoreState._fields, ens_p):
+        np.testing.assert_array_equal(got[f"phys_{k}"], f.numpy(), k)
+    np.testing.assert_array_equal(
+        got["phys_tsfc"], drv.mesh.gather_ensemble(drv.tsfc).numpy())
+    np.testing.assert_array_equal(got["phys_anal_mean"],
+                                  res_p.info["anal_mean"].numpy())
+    np.testing.assert_array_equal(got["phys_rmse"],
+                                  [res_p.rmse_gues[0], res_p.rmse_anal[0]])
+    assert drv.timer.counts["forecast/physics/halo"] == 2
+    assert not np.array_equal(got["phys_rhot"], got["ens_rhot"])
 
 
 PROCESS = """

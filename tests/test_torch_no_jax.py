@@ -108,9 +108,54 @@ def _imported_modules(path):
 def test_no_jax_package_import_statements():
     """Every import statement, at top level or inside a function; comments
     and docstrings may name the reference's files."""
-    paths = [*(ROOT / "scale_letkf_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    paths = [*(ROOT / "scale_letkf_torch").rglob("*.py"),
+             ROOT / "chip_smoke.py", ROOT / "mesh_gap_probe.py",
+             ROOT / "tests" / "torch_mp_worker.py"]
     for path in paths:
         for mod in _imported_modules(path):
             assert mod.split(".")[0] not in ("jax", "scale_letkf_tpu",
                                              "ml_dtypes"), \
                 (path, mod)
+
+
+def test_grid_physics_runs_without_jax():
+    """The physics on a process grid (parallel/halo.py physics_step_blocks
+    over model/pbl.py's split PBL and model/physics_suite.py's column
+    part) imports and runs with jax and the JAX package unimportable: one
+    suite step on the (1, 2, 2) blocks of a small moist 18-km ensemble
+    equals the undecomposed step."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['scale_letkf_tpu'] = None\n"
+        "import torch\n"
+        "from scale_letkf_torch.cli.main import load_config_and_grid\n"
+        "from scale_letkf_torch.model.physics_suite import (\n"
+        "    PhysicsConfig, PhysicsState, physics_step, skin_temperature)\n"
+        "from scale_letkf_torch.parallel.halo import physics_step_blocks\n"
+        "from scale_letkf_torch.parallel.mesh import make_mesh\n"
+        "from scale_letkf_torch.synthetic import synthetic_ens_dycore_device\n"
+        "_, g, _, dom = load_config_and_grid('configs/18km_japan.toml',\n"
+        "    {'nx': 16, 'ny': 16, 'nz': 8, 'dz': 1000.0})\n"
+        "s = synthetic_ens_dycore_device(0, 2, g, dom, torch.device('cpu'),\n"
+        "                                u0=10.0, qr_blob=2e-3)[0]\n"
+        "zc = torch.as_tensor(g.cz, dtype=torch.float32)\n"
+        "p = PhysicsConfig(mp_scheme='nsw6', slab_capacity=2e5)\n"
+        "def ph(x):\n"
+        "    t = skin_temperature(x)\n"
+        "    return PhysicsState(t, torch.zeros_like(x.rhot),\n"
+        "                        torch.zeros_like(t))\n"
+        "want, _ = physics_step(s, ph(s), 0, p, 150.0, 1000.0, zc)\n"
+        "mesh = make_mesh(1, 2, 2)\n"
+        "sh = mesh.shard_ensemble(s)\n"
+        "out, _ = physics_step_blocks(mesh, sh.blocks, {b: ph(x) for b, x\n"
+        "    in sh.blocks.items()}, 0, p, 150.0, 1000.0, zc, True)\n"
+        "got = mesh.gather_ensemble(sh._replace(blocks=out))\n"
+        "assert all(torch.equal(a, b) for a, b in zip(got, want))\n"
+        "assert not torch.equal(want.rhou, s.rhou)\n"
+        "assert sys.modules['jax'] is None\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")

@@ -10,7 +10,10 @@ global_device_mesh(2, 2, 2):
 2. one run_osse cycle of 2 steps of tests/test_torch_cycle.py's coarsened
    18-km configuration from the nature member `nat_*` and the 6-member
    ensemble `ens_*`, each process holding its own members' blocks
-   (ensemble_from_process_local).
+   (ensemble_from_process_local);
+3. the same cycle with the physics suite (PHYS: a physics step after the
+   2 steps, the PBL's halo crossing processes) and the skin temperature
+   `tsfc` resumed from each process's own members.
 Process 0 writes DIR/out.npz; every process prints "OK <rank>".
 """
 
@@ -37,6 +40,7 @@ from scale_letkf_torch.synthetic import synthetic_conv_network  # noqa: E402
 CONFIG = str(ROOT / "configs" / "18km_japan.toml")
 OVER = {"nx": 16, "ny": 12, "nz": 8, "dz": 1000.0, "dz_stretch": 1.1}
 CPU = torch.device("cpu")
+PHYS = {"mp_scheme": "nsw6", "rad_interval": 2, "slab_capacity": 2.0e5}
 
 
 def state(z, prefix):
@@ -81,6 +85,17 @@ def main():
                                         n_cycles=1, steps_per_cycle=2,
                                         seed=3)
     ens_a = mesh.gather_ensemble(ens_a)
+
+    # 3. the cycle with the physics suite, the skin temperature resumed
+    phys = make_driver(c, grid, dycfg, {**dom, "physics": PHYS}, CPU)
+    phys.tsfc = ensemble_from_process_local(mesh, torch.from_numpy(
+        z["tsfc"][mesh.local_members(6)]))
+    local = ensemble_from_process_local(
+        mesh, DycoreState(*(f[mesh.local_members(6)] for f in ens)))
+    _, ens_p, res_p = phys.run_osse(state(z, "nat"), local, tmpl,
+                                    n_cycles=1, steps_per_cycle=2, seed=3)
+    ens_p = mesh.gather_ensemble(ens_p)
+    tsfc_p = mesh.gather_ensemble(phys.tsfc)
     if rank == 0:
         np.savez(out_dir / "out.npz",
                  **{f"si_{k}": f.numpy() for k, f in zip(
@@ -90,7 +105,13 @@ def main():
                  anal_mean=res.info["anal_mean"].numpy(),
                  anal_sprd=res.info["anal_sprd"].numpy(),
                  rmse=np.array([res.rmse_gues[0], res.rmse_anal[0]]),
-                 batch=driver.batch)
+                 batch=driver.batch,
+                 **{f"phys_{k}": f.numpy() for k, f in zip(
+                     DycoreState._fields, ens_p)},
+                 phys_tsfc=tsfc_p.numpy(),
+                 phys_anal_mean=res_p.info["anal_mean"].numpy(),
+                 phys_rmse=np.array([res_p.rmse_gues[0],
+                                     res_p.rmse_anal[0]]))
     import torch.distributed as dist
     dist.destroy_process_group()
     print(f"OK {rank}")
