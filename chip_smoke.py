@@ -16,9 +16,9 @@ steps), and the production cycle (the physics cycle over the reference
 bench's synthetic topography, with conventional and Himawari-8 obs); and
 the radar configuration's forecast (configs/bda_1km_radar.toml, unchanged:
 192×192×48, K = 50, Kessler physics) over its 30-s window; the physics
-cycle and the radar forecast on a (2, 2, 2) process grid of blocks, each
-held exactly to its undecomposed run; and the executors, the nested and
-the fused cycles:
+cycle, the radar forecast and the fused radar cycle on a (2, 2, 2)
+process grid of blocks, each held exactly to its undecomposed run; and the
+executors, the nested and the fused cycles:
 
   1. device         — the card, and nvidia-smi's name and power limit
   2. build          — nvcc builds of the three kernels, all started
@@ -217,6 +217,24 @@ the fused cycles:
                       and the synchronising calls of the run under
                       torch.cuda.set_sync_debug_mode('warn'), by site,
                       beside phase 33's seconds
+ 45. mesh_fused_radar_cycle — the main path of this slice, run right
+                      after phase 37 on its inputs (its seeded blob
+                      ensemble and nature member, its dBZ template — kept
+                      — and its noise seed): FusedCycle on
+                      CycleDriver(mesh=make_mesh(2, 2, 2)), 2 cycles, 8
+                      blocks of 25 members × 96 × 96 columns; each member
+                      slab gathered for H(x), the worst QC, the mean of
+                      H(x) and the min-member count over all 50 members in
+                      member order, the analysis on the 8 shares of the
+                      ensemble transpose; the final ensemble, nature run
+                      and inflation and per cycle obs used, O−B / O−A by
+                      group and the errors against the truth held exactly
+                      to phase 37's (kept on the host); seconds per cycle,
+                      sections on the device's clock (forecast/halo,
+                      obsope/gather, das_letkf/transpose), synchronising
+                      calls by site, peak, and launches against
+                      gpu_check.expected_launches for 8 blocks and 8
+                      shares with the nature run's batch of one
  38. nested_small   — the cycle verb with a [nest] section (the child
                       open) at tests/test_cli_nested.py's size on the card
                       against the CPU
@@ -256,7 +274,11 @@ the fused cycles:
                       bit-equal to make_mesh(1, 2, 2); and phase 12's
                       composition coarsened (32×24×12, K = 20) on
                       make_mesh(2, 2, 2), bit-equal to its undecomposed
-                      run on the card
+                      run on the card; the nested grid cycle (that parent
+                      and a 24 × 24 open child, ratio 3) bit-equal to its
+                      open-mode composition; one explicit-core step over
+                      hills on make_mesh(1, 2, 2) bit-equal to the
+                      undecomposed terrain step
  43. mesh_radar_forecast — phase 17 on make_mesh(2, 2, 2), run after
                       phase 18: the radar configuration as shipped, 8
                       blocks of 25 members × 96 × 96 columns (104 × 104
@@ -267,7 +289,8 @@ the fused cycles:
  44. mesh_radar_real — #2 and #3 vs plain on one extended radar block of
                       phase 43 at its member batch
 
-The phases run in the order 1–16, 40–42, 17, 18, 43, 44, 19–39. Each
+The phases run in the order 1–16, 40–42, 17, 18, 43, 44, 19–37, 45,
+38, 39. Each
 phase prints one JSON line; any failed check raises, so the script
 exits non-zero. Every kernel-vs-plain check runs the kernel twice and holds
 both runs to the bound (invsqrt_ns, which has no atomics, must also give
@@ -2743,7 +2766,48 @@ def phase_nested_small(device):
                              f"GPU disagrees with the CPU: {res}")
 
 
-def phase_fused_radar_cycle(device, radar_cycle_s: float):
+def fused_radar_inputs(device, grid, dom, K: int):
+    """The fused radar cycles' seeded inputs on the card: the blob
+    ensemble and the nature member (the radar cycle's construction)."""
+    from scale_letkf_torch.gpu_check import RADAR_QR_BLOB
+    from scale_letkf_torch.synthetic import synthetic_ens_dycore_device
+    ens, _, _ = synthetic_ens_dycore_device(SEED, K, grid, dom, device,
+                                            u0=FCST_U0, qr_blob=RADAR_QR_BLOB)
+    nat, _, _ = synthetic_ens_dycore_device(SEED + 1, 1, grid, dom, device,
+                                            u0=FCST_U0, qr_blob=RADAR_QR_BLOB)
+    return type(nat)(*(f[0] for f in nat)), ens
+
+
+def fused_series(series) -> dict:
+    """run_osse's per-cycle numbers as host floats: obs used, O−B and O−A
+    (by monitor group too), the errors against the nature run."""
+    def per_cycle(t):
+        return [float(x) for x in t]
+    out = {k: per_cycle(series[k]) for k in ("nobs_used", "omb", "oma",
+                                             "rmse_gues", "rmse_anal")}
+    out["by_group"] = {n: {"omb": per_cycle(series["omb_by_group"][n]),
+                           "oma": per_cycle(series["oma_by_group"][n])}
+                       for n in series["omb_by_group"]}
+    return out
+
+
+def sync_sites(run):
+    """run() under torch.cuda.set_sync_debug_mode('warn'): its result and
+    the synchronising calls it made, counted by the line that made them."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                        if "synchroniz" in str(w.message))
+
+
+def phase_fused_radar_cycle(device, radar_cycle_s: float,
+                            keep: dict | None = None):
     """configs/bda_1km_radar.toml as shipped through FusedCycle.run_osse,
     FUSED_CYCLES cycles of its 15-step window: the radar cycle's blob
     ensemble and nature member, the synthetic PAWR volume valued from the
@@ -2752,27 +2816,21 @@ def phase_fused_radar_cycle(device, radar_cycle_s: float):
     template enters the buckets. Per cycle: seconds (CUDA events), nobs_used, O−B → O−A for
     REF and VR; launches, peak memory, the analysis chunk, and the
     synchronising calls of the whole run under
-    torch.cuda.set_sync_debug_mode('warn'), by the line that made them."""
-    import warnings
-
+    torch.cuda.set_sync_debug_mode('warn'), by the line that made them.
+    keep: receives the template and the outputs (on the host) that phase
+    mesh_fused_radar_cycle is held to."""
     from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
     from scale_letkf_torch.da.fastcycle import FusedCycle
     from scale_letkf_torch.gpu_check import (
-        RADAR_QR_BLOB, RADAR_STEPS, dbz_template, fused_launches)
+        RADAR_STEPS, dbz_template, fused_launches)
     from scale_letkf_torch.model.dycore import to_collocated
     from scale_letkf_torch.state import state_to_history, state_trans
-    from scale_letkf_torch.synthetic import (
-        synthetic_ens_dycore_device, synthetic_radar_volume)
+    from scale_letkf_torch.synthetic import synthetic_radar_volume
     from scale_letkf_torch.utils import kernels
     cfg, grid, dycfg, dom = load_config_and_grid(str(RADAR_CONFIG))
     K = cfg.ensemble.member
     t0 = time.perf_counter()
-    ens, _, _ = synthetic_ens_dycore_device(SEED, K, grid, dom, device,
-                                            u0=FCST_U0, qr_blob=RADAR_QR_BLOB)
-    nat, _, _ = synthetic_ens_dycore_device(SEED + 1, 1, grid, dom, device,
-                                            u0=FCST_U0, qr_blob=RADAR_QR_BLOB)
-    truth0 = type(nat)(*(f[0] for f in nat))
-    del nat
+    truth0, ens = fused_radar_inputs(device, grid, dom, K)
     driver = make_driver(cfg, grid, dycfg, dom, device)
     rng = np.random.default_rng(SEED)
     volume = synthetic_radar_volume(cfg, dom, rng, RADAR_OBS_TARGET)
@@ -2792,18 +2850,10 @@ def phase_fused_radar_cycle(device, radar_cycle_s: float):
     torch.cuda.reset_peak_memory_stats(device)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            truth, ens, series = fc.run_osse(states.pop(0), states.pop(0),
-                                             FUSED_CYCLES, seed=SEED)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    (truth, ens, series), syncs = sync_sites(lambda: fc.run_osse(
+        states.pop(0), states.pop(0), FUSED_CYCLES, seed=SEED))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    syncs = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
-                    if "synchroniz" in str(w.message))
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
     launches = {k: kernels.LAUNCHES[k] for k in KERNELS}
     batches = -(-K // driver.batch)
@@ -2813,24 +2863,20 @@ def phase_fused_radar_cycle(device, radar_cycle_s: float):
     for k in ("dyn_tendency", "adv_ud3"):
         expected[k] += FUSED_CYCLES * 3 * RADAR_STEPS
     finite = all(bool(torch.isfinite(f).all()) for f in (*ens, *truth))
-
-    def per_cycle(t):
-        return [float(x) for x in t]
-    groups = {n: {"omb": per_cycle(series["omb_by_group"][n]),
-                  "oma": per_cycle(series["oma_by_group"][n])}
-              for n in series["omb_by_group"]}
+    numbers = fused_series(series)
+    groups = numbers["by_group"]
+    if keep is not None:
+        keep.update(template=tmpl, numbers=numbers, wall_s=wall,
+                    seconds=series["seconds"], peak_mem_gb=peak,
+                    sync_sites=dict(syncs), infl=series["infl"].cpu(),
+                    ens=[f.cpu() for f in ens], truth=[f.cpu() for f in truth])
     row = {"phase": "fused_radar_cycle", "config": RADAR_CONFIG.name,
            "grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members": K,
            "steps": RADAR_STEPS, "cycles": FUSED_CYCLES,
            "volume_obs": int(volume.nobs), "template_obs": int(tmpl.nobs),
            "obs_in_buckets": in_buckets, "setup_s": setup_s,
            "wall_s": wall, "seconds": series["seconds"],
-           "radar_cycle_s": radar_cycle_s,
-           "nobs_used": per_cycle(series["nobs_used"]),
-           "omb": per_cycle(series["omb"]), "oma": per_cycle(series["oma"]),
-           "by_group": groups,
-           "rmse_gues": per_cycle(series["rmse_gues"]),
-           "rmse_anal": per_cycle(series["rmse_anal"]),
+           "radar_cycle_s": radar_cycle_s, **numbers,
            "member_batch": driver.batch, "chunk": series["chunk"],
            "peak_mem_gb": peak, "kernel_launches": launches,
            "expected_launches": expected,
@@ -3165,7 +3211,14 @@ def phase_mesh_checks(device, operands) -> dict:
     (gpu_check.grid_cycle_on_device: 32×24×12, K = 20) on make_mesh(2, 2,
     2), bit-equal to the undecomposed run on the card, with its launches;
     with gpu_check.batch_invariance, the LETKF core's products over the
-    obs giving each matrix the same bits in any batch of 7 or more."""
+    obs giving each matrix the same bits in any batch of 7 or more. And
+    two coarse grid executors: the nested grid cycle (gpu_check.
+    nested_grid_cycle_on_device: that cycle's parent and a 24 × 24 open
+    child at ratio 3, 2 parent and 6 child steps, on make_mesh(2, 2, 2))
+    bit-equal to its open-mode composition, and one explicit-core step
+    (dt 1 s) over gpu_check.terrain_state's hills on make_mesh(1, 2, 2)
+    bit-equal to the undecomposed explicit terrain step (its overlap
+    variant within TOL_TENDENCY)."""
     import dataclasses
     import socket
 
@@ -3173,7 +3226,8 @@ def phase_mesh_checks(device, operands) -> dict:
 
     from scale_letkf_torch.gpu_check import (
         TOL_TENDENCY, batch_invariance, batch_invariance_passes,
-        grid_cycle_on_device)
+        grid_cycle_on_device, nested_grid_cycle_on_device,
+        terrain_grid_step_on_device)
     from scale_letkf_torch.model.dycore_si import SplitConfig
     from scale_letkf_torch.parallel import halo
     from scale_letkf_torch.parallel.distributed import (
@@ -3226,8 +3280,15 @@ def phase_mesh_checks(device, operands) -> dict:
     flat = grid_cycle_on_device(device, str(CONFIG), SEED)
     flat["seconds"] = time.perf_counter() - t0
     batch = batch_invariance(device, SEED)
+    t0 = time.perf_counter()
+    nested = nested_grid_cycle_on_device(device, str(CONFIG), SEED)
+    nested["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    terrain = terrain_grid_step_on_device(device, str(CONFIG), SEED)
+    terrain["seconds"] = time.perf_counter() - t0
     row = {"phase": "mesh_checks", "members": MESH_OVERLAP_MEMBERS,
            "flat_grid_cycle": flat, "batch_invariance": batch,
+           "nested_grid_cycle": nested, "explicit_terrain_step": terrain,
            "overlap_over_tol": overlap,
            "explicit_s": outs["explicit_s"],
            "explicit_overlap_s": outs["explicit_overlap_s"],
@@ -3238,8 +3299,110 @@ def phase_mesh_checks(device, operands) -> dict:
             and backend == "nccl" and flat["bit_equal"]
             and batch_invariance_passes(batch)
             and flat["stats_equal"]
-            and flat["kernel_launches"] == flat["expected_launches"]):
+            and flat["kernel_launches"] == flat["expected_launches"]
+            and nested["bit_equal"] and nested["stats_equal"]
+            and terrain["bit_equal"] and terrain["rhow_moved"] > 0
+            and all(v <= 1 for v in terrain["overlap_over_tol"].values())):
         raise AssertionError(f"grid checks failed: {row}")
+    return row
+
+
+def phase_mesh_fused_radar_cycle(device, kept: dict):
+    """The fused cycle on the grid: phase fused_radar_cycle's inputs (its
+    seeded blob ensemble and nature member, its dBZ template — kept — and
+    its noise seed) through FusedCycle on CycleDriver(mesh=make_mesh(2, 2,
+    2)), FUSED_CYCLES cycles of configs/bda_1km_radar.toml as shipped: 8
+    blocks of 25 members × 96 × 96 columns on the card. The forecast steps
+    the blocks with halo exchanges (#2, #3 periodic on 104 × 104 extended
+    blocks), H(x) gathers each member slab, the worst QC, the mean of H(x)
+    and the min-member count run over all 50 members in member order, and
+    the analysis runs on the 8 shares of the ensemble transpose (#1). Held
+    exactly to phase fused_radar_cycle's outputs (kept): the final
+    ensemble, nature run and inflation; per cycle obs used, O−B and O−A
+    (by group) and the errors against the truth. Per cycle seconds (CUDA
+    events), the wall time, sections on the device's clock (no waits:
+    forecast/halo, obsope/gather, das_letkf/transpose), the synchronising
+    calls by site, the peak and the launches against expected_launches
+    for the blocks and shares (the nature run's batch of one included)."""
+    from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
+    from scale_letkf_torch.da.fastcycle import FusedCycle
+    from scale_letkf_torch.gpu_check import RADAR_STEPS, expected_launches
+    from scale_letkf_torch.parallel import halo
+    from scale_letkf_torch.utils import kernels
+    from scale_letkf_torch.utils.timing import Timer
+    cfg, grid, dycfg, dom = load_config_and_grid(str(RADAR_CONFIG))
+    (cfg.process.mesh_member, cfg.process.mesh_y,
+     cfg.process.mesh_x) = MESH
+    K = cfg.ensemble.member
+    t0 = time.perf_counter()
+    states = list(fused_radar_inputs(device, grid, dom, K))
+    driver = make_driver(cfg, grid, dycfg, dom, device)
+    mesh = driver.mesh
+    fc = FusedCycle(driver, kept["template"], RADAR_STEPS)
+    fc.timer = Timer(device, clock="device")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    (truth, ens, series), syncs = sync_sites(lambda: fc.run_osse(
+        states.pop(0), states.pop(0), FUSED_CYCLES, seed=SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    fc.timer.settle()
+    launches = {k: kernels.LAUNCHES[k] for k in KERNELS}
+    batches = -(-(K // MESH[0]) // driver.batch)
+    expected = {k: FUSED_CYCLES * v for k, v in expected_launches(
+        cfg, grid, RADAR_STEPS, batches, 0, blocks=mesh.n_blocks,
+        shares=series["chunk"]).items()}
+    numbers = fused_series(series)
+    full = mesh.gather_ensemble(ens)
+    del ens
+    names = type(full)._fields
+    distance = {f"ens.{n}": float((a.cpu() - b).abs().max())
+                for n, a, b in zip(names, full, kept["ens"])}
+    distance.update({f"nature.{n}": float((a.cpu() - b).abs().max())
+                     for n, a, b in zip(names, truth, kept["truth"])})
+    distance["infl"] = float((series["infl"].cpu() - kept["infl"]).abs().max())
+    finite = all(bool(torch.isfinite(f).all()) for f in (*full, *truth))
+    del full, truth
+    want = kept["numbers"]
+    row = {"phase": "mesh_fused_radar_cycle", "config": RADAR_CONFIG.name,
+           "mesh": list(MESH), "grid": f"{grid.nx}x{grid.ny}x{grid.nz}",
+           "members": K, "block": f"{grid.nx // MESH[2]}x{grid.ny // MESH[1]}",
+           "extended_block": f"{grid.nx // MESH[2] + 2 * halo.HALO_W}x"
+                             f"{grid.ny // MESH[1] + 2 * halo.HALO_W}",
+           "steps": RADAR_STEPS, "cycles": FUSED_CYCLES,
+           "template_obs": int(kept["template"].nobs), "setup_s": setup_s,
+           "wall_s": wall, "seconds": series["seconds"],
+           "fused_radar_cycle_wall_s": kept["wall_s"],
+           "fused_radar_cycle_seconds": kept["seconds"], **numbers,
+           "sections_s": dict(fc.timer.records),
+           "section_counts": dict(fc.timer.counts),
+           "member_batch": driver.batch, "batches": batches,
+           "block_batches": batches * mesh.n_blocks,
+           "share_chunks": series["chunk"], "peak_mem_gb": peak,
+           "fused_radar_cycle_peak_mem_gb": kept["peak_mem_gb"],
+           "kernel_launches": launches, "expected_launches": expected,
+           "sync_calls": sum(syncs.values()), "sync_sites": dict(syncs),
+           "fused_radar_cycle_sync_sites": kept["sync_sites"],
+           "distance_to_fused_radar_cycle": distance,
+           "numbers_equal": numbers == want, "finite": finite}
+    emit(row)
+    if not finite:
+        raise AssertionError("the grid's fused radar cycle is not finite")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{expected}")
+    if any(d != 0 for d in distance.values()) or numbers != want:
+        raise AssertionError("the grid's fused radar cycle is not the "
+                             f"undecomposed one: {distance}, {numbers}, "
+                             f"{want}")
+    counts = row["section_counts"]
+    if not (counts.get("forecast/halo") and counts.get("obsope/gather")
+            and counts.get("das_letkf/transpose")):
+        raise AssertionError(f"grid sections missing: {counts}")
     return row
 
 
@@ -3337,7 +3500,11 @@ def main() -> int:
     nested_rows = phase_nested_real(operands)
     del operands
     torch.cuda.empty_cache()
-    fr = phase_fused_radar_cycle(device, rd["wall_s"])
+    kept = {}
+    fr = phase_fused_radar_cycle(device, rd["wall_s"], keep=kept)
+    torch.cuda.empty_cache()
+    mf = phase_mesh_fused_radar_cycle(device, kept)
+    del kept
     torch.cuda.empty_cache()
     phase_nested_small(device)
     # the kernels line: launches of the grid's cycle (mesh_cycle), this
@@ -3370,6 +3537,7 @@ def main() -> int:
             "radar_cycle": rd["kernel_launches"][name],
             "nested_cycle": nc["kernel_launches"][name],
             "fused_radar_cycle": fr["kernel_launches"][name],
+            "mesh_fused_radar_cycle": mf["kernel_launches"][name],
             "mesh_cycle": mc["kernel_launches"][name],
             "mesh_radar_forecast": mr["kernel_launches"].get(name, 0)}
         dc_rows[name] = mesh_rows[name]

@@ -35,8 +35,10 @@ with the options before the verb,
 spread over N processes of B blocks each (torch.distributed: NCCL with
 --device cuda, gloo with --device cpu). Each process reads its own members'
 restart files (and their part of a resumed skin temperature); the outputs
-are gathered and process 0 writes them. Kessler (use_physics) and a
-[physics] section run on every grid; `cycle --streamed` and [nest] do not.
+are gathered and process 0 writes them. Kessler (use_physics), a [physics]
+section, terrain under either core and a [nest] section run on every grid
+(the child on a grid of the same shape, each process reading its own
+members of --nest-init); `cycle --streamed` does not.
 """
 
 from __future__ import annotations
@@ -178,9 +180,10 @@ def _resume_tsfc(driver, tsfc, device: torch.device):
 
 def make_nested(cfg, grid, dycfg, dom, device: torch.device):
     """[nest] section → (child driver on `device`, NestGeometry,
-    NestedCycleDriver). The child inherits the parent's DA config; its
-    domain is the [nest] geometry on uniform levels, its core the explicit
-    one (reference: NUM_DOMAIN telescoping nests, common_nml.f90:56)."""
+    NestedCycleDriver). The child inherits the parent's DA config and its
+    [process] grid; its domain is the [nest] geometry on uniform levels,
+    its core the explicit one (reference: NUM_DOMAIN telescoping nests,
+    common_nml.f90:56)."""
     from scale_letkf_torch.model.nesting import NestGeometry
     from scale_letkf_torch.nested import NestedCycleDriver
     n = dom["nest"]
@@ -530,7 +533,9 @@ def _cycle_nested(args, cfg, grid, dycfg, dom, driver, device, ens, aux):
     """cycle with a [nest] section: the parent and the one-way nested
     child (nested.py) each cycle, the child over the same window at its
     own dt, its inflation threaded; the child saved under OUT/nest. ens:
-    the parent's initial ensemble in a one-slot list, handed over."""
+    the parent's initial ensemble in a one-slot list, handed over. On a
+    grid each process reads its own child members, and process 0 writes
+    both gathered ensembles."""
     import os
 
     from scale_letkf_torch.io.checkpoint import save_ensemble
@@ -538,7 +543,7 @@ def _cycle_nested(args, cfg, grid, dycfg, dom, driver, device, ens, aux):
     nested = nested_driver(driver, child, geom)
     steps_child = int(round(args.steps_per_cycle * dycfg.dt
                             / child.dycfg.dt))
-    c_ens, _, c_aux, _ = _load_ens(args.nest_init, device)
+    c_ens, _, c_aux, _ = _load_ens(args.nest_init, device, child.mesh)
     infl, c_infl = aux.get("infl"), c_aux.get("infl")
     # one-slot lists: pop() hands each ensemble to the cycle
     c_ens = [c_ens]
@@ -564,13 +569,15 @@ def _cycle_nested(args, cfg, grid, dycfg, dom, driver, device, ens, aux):
         del ninfo, info, c_info
     aux_out = {"infl": infl} if infl is not None else {}
     if driver.tsfc is not None:
-        aux_out["tsfc"] = driver.tsfc
-    save_ensemble(args.out, ens.pop(), basename="anal.@@@@", aux=aux_out,
-                  meta={"cycles": args.cycles})
-    save_ensemble(os.path.join(args.out, "nest"), c_ens.pop(),
-                  basename="anal.@@@@",
-                  aux={"infl": c_infl} if c_infl is not None else {},
-                  meta={"cycles": args.cycles, "nest": True})
+        aux_out["tsfc"] = _global(driver, driver.tsfc)
+    ens, c_ens = _global(driver, ens.pop()), _global(child, c_ens.pop())
+    if _writer():
+        save_ensemble(args.out, ens, basename="anal.@@@@", aux=aux_out,
+                      meta={"cycles": args.cycles})
+        save_ensemble(os.path.join(args.out, "nest"), c_ens,
+                      basename="anal.@@@@",
+                      aux={"infl": c_infl} if c_infl is not None else {},
+                      meta={"cycles": args.cycles, "nest": True})
     print(driver.timer.report())
 
 
@@ -578,9 +585,8 @@ def cmd_cycle(args):
     from scale_letkf_torch.da.obsope import assign_slots
     from scale_letkf_torch.io.checkpoint import save_ensemble
     cfg, grid, dycfg, dom, driver, device = _setup(args)
-    if driver.mesh is not None and (args.streamed or "nest" in dom):
-        sys.exit("error: --streamed and [nest] do not run on a [process] "
-                 "grid")
+    if driver.mesh is not None and args.streamed:
+        sys.exit("error: --streamed does not run on a [process] grid")
     if args.streamed:
         return _cycle_streamed(args, cfg, dom, driver)
     # DET_RUN_CYCLED: a deterministic member in the initial checkpoint is
@@ -600,8 +606,7 @@ def cmd_cycle(args):
             sys.exit("error: nested cycling does not combine with DET_RUN, "
                      "4-D slots, or additive inflation yet")
         if "tsfc" in aux:
-            driver.tsfc = torch.as_tensor(aux["tsfc"], dtype=torch.float32,
-                                          device=device)
+            driver.tsfc = _resume_tsfc(driver, aux["tsfc"], device)
         return _cycle_nested(args, cfg, grid, dycfg, dom, driver, device,
                              ens, aux)
     rng = np.random.default_rng(0)

@@ -44,9 +44,9 @@ column, and the suite's slab skin temperature sharded like the ensemble
 (parallel/halo.py physics_step_blocks). The analysis gathers each member
 slab over the domain for H(x) (with its skin temperature), builds the
 same obs context on every process, and runs analyze(mesh=), the ensemble
-transpose. The reference's refusal of the explicit halo over terrain
-under the explicit core stands; it also refuses physics there, which the
-port runs.
+transpose. The explicit core over terrain runs on every grid too, each
+block with its halo-extended metrics; the reference refuses it, and
+physics, under its explicit halo.
 """
 
 from __future__ import annotations
@@ -173,8 +173,10 @@ class CycleDriver:
     mesh: a ProcessGrid (parallel/mesh.py). `forecast` and `analysis` then
     take a Sharded of this process's blocks, or a global ensemble, which
     they shard, and return a Sharded (`mesh.gather_ensemble` makes it
-    global); boundary data, the deterministic member, the inflation field
-    and the additive-inflation source stay global."""
+    global); boundary data is global, or per member sharded like the
+    ensemble (a nested child's bracket, nested.py); the deterministic
+    member, the inflation field and the additive-inflation source stay
+    global."""
 
     def __init__(self, grid: Grid, cfg: Config, dycfg: DycoreConfig,
                  rho_ref: torch.Tensor, p_ref: torch.Tensor,
@@ -264,24 +266,19 @@ class CycleDriver:
             if self.exchange else None)
 
     def _check_grid(self, mesh):
-        """The reference's refusal of the explicit halo that still stands
-        (scale_letkf_tpu/cycle.py:235-238), which a decomposing grid runs
-        whatever dycfg.halo says: the explicit core over terrain. Physics
-        runs on every grid (parallel/halo.py physics_step_blocks), where the
-        reference refuses it under its explicit halo."""
-        self.exchange = dycfg_halo = self.dycfg.halo != "gspmd"
+        """Whether the forecast exchanges halos: under halo='explicit*', or
+        on a grid that decomposes the domain whatever dycfg.halo says. The
+        reference's refusals of its explicit halo
+        (scale_letkf_tpu/cycle.py:235-246) do not stand here: the explicit
+        core over terrain takes each block's extended metrics
+        (parallel/halo.py rk3_step_blocks), and physics runs on every grid
+        (physics_step_blocks)."""
+        self.exchange = self.dycfg.halo != "gspmd"
+        if self.exchange and mesh is None:
+            raise ValueError(f"halo={self.dycfg.halo!r} requires a process "
+                             f"grid (mesh)")
         if mesh is not None and mesh.spatial:
             self.exchange = True
-        if self.exchange:
-            why = (f"halo={self.dycfg.halo!r}" if dycfg_halo else
-                   "a grid that decomposes the domain (its halo exchange is "
-                   "explicit)")
-            if self.core == "explicit" and self.metrics is not None:
-                raise NotImplementedError(
-                    f"{why} with terrain requires core='si' "
-                    f"(tendencies_terrain rides the SI halo step)")
-            if mesh is None:
-                raise ValueError(f"{why} requires a process grid (mesh)")
 
     def _step(self, s: DycoreState, t, bdy):
         """One dynamics step, then the Davies relaxation toward `bdy` at the
@@ -362,10 +359,10 @@ class CycleDriver:
                             lambda s, i, dt_phys:
                             kessler_step(s, dt_phys, self.dz_col))
 
-    def _bdy_batch(self, b0: int, B: int) -> BoundaryData | None:
-        """The boundary data of members b0..b0+B: per-member targets (a
-        leading member axis) sliced, a shared one whole."""
-        bdy = self.bdy
+    def _bdy_batch(self, bdy: BoundaryData | None, b0: int, B: int
+                   ) -> BoundaryData | None:
+        """The boundary data of members b0..b0+B of `bdy`: per-member
+        targets (a leading member axis) sliced, a shared one whole."""
         if bdy is None or self._bdy_w2d is None:
             return None
         if bdy.state0.rho.dim() == 3:
@@ -385,7 +382,8 @@ class CycleDriver:
         return halo.rk3_step_blocks(
             self.mesh, blocks, self.dycfg, self.rho_ref, self.p_ref,
             self.z_centers, self.vg,
-            overlap=self.dycfg.halo == "explicit_overlap", timer=self.timer)
+            overlap=self.dycfg.halo == "explicit_overlap",
+            metrics=self._metrics_ext, timer=self.timer)
 
     def _grid_batch(self, sh: Sharded) -> int:
         """Members per batch of every block, from the free memory at the
@@ -436,9 +434,10 @@ class CycleDriver:
         if not self.exchange:
             out = {}
             for b, s in sh.blocks.items():
+                bdy = (None if self.bdy is None else
+                       self._bdy_block(b, sh, 0, s.rho.shape[0]))
                 out[b], t_out[b] = self._forecast_members(
-                    s, nsteps, t0, grid.members(b, sh.K).start,
-                    tsfc.blocks[b] if phys else None)
+                    s, nsteps, t0, bdy, tsfc.blocks[b] if phys else None)
             if phys:
                 self.tsfc = tsfc._replace(blocks=t_out)
             return sh._replace(blocks=out)
@@ -516,8 +515,13 @@ class CycleDriver:
                    ) -> BoundaryData:
         """Block b's boundary data for its members b0..b0+B: per-member
         targets sliced by global member, a shared one whole, each over the
-        block's columns."""
+        block's columns; a bracket sharded like the ensemble (a Sharded of
+        per-member targets, nested.py) from block b's own."""
         grid, bdy = self.mesh, self.bdy
+        if isinstance(bdy.state0, Sharded):
+            return bdy._replace(**{k: DycoreState(*(
+                f[b0:b0 + B] for f in getattr(bdy, k).blocks[b]))
+                for k in ("state0", "state1")})
         ys, xs = grid.rows(b, sh.ny), grid.cols(b, sh.nx)
         m0 = grid.members(b, sh.K).start + b0
         per_member = bdy.state0.rho.dim() != 3
@@ -553,18 +557,18 @@ class CycleDriver:
             if self.mesh is not None:
                 return self._forecast_grid(ens, nsteps, np.float32(t0))
             out, tsfc = self._forecast_members(ens, nsteps, np.float32(t0),
-                                               0, self.tsfc)
+                                               self.bdy, self.tsfc)
             if tsfc is not None:
                 self.tsfc = tsfc
             return out
 
-    def _forecast_members(self, ens: DycoreState, nsteps: int, t0,
-                          m0: int, tsfc=None):
-        """The undecomposed forecast of members m0.. of the ensemble
-        (boundary data per member sliced from m0) in member batches; with
-        the physics suite from these members' skin temperature `tsfc`
-        (cold-started when None). Returns (ensemble, skin temperature after,
-        None without the suite)."""
+    def _forecast_members(self, ens: DycoreState, nsteps: int, t0, bdy,
+                          tsfc=None):
+        """The undecomposed forecast of the members `ens` in member batches,
+        toward `bdy` (these members' boundary data, or shared; None
+        without); with the physics suite from these members' skin
+        temperature `tsfc` (cold-started when None). Returns (ensemble,
+        skin temperature after, None without the suite)."""
         K = ens.rho.shape[0]
         field_bytes = ens.rho[0].numel() * ens.rho.element_size()
         self.batch = B = member_batch(K, field_bytes, self.device,
@@ -577,11 +581,11 @@ class CycleDriver:
             tsfc_out = torch.empty_like(tsfc)
 
         def run(b0, batch):
-            bdy = self._bdy_batch(m0 + b0, B)
+            bdy_b = self._bdy_batch(bdy, b0, B)
             if not phys:
-                return {0: self._fcst_one(batch[0], nsteps, t0, bdy)}
+                return {0: self._fcst_one(batch[0], nsteps, t0, bdy_b)}
             res, tsfc_out[b0:b0 + B] = self._fcst_phys(
-                batch[0], nsteps, t0, tsfc[b0:b0 + B], bdy)
+                batch[0], nsteps, t0, tsfc[b0:b0 + B], bdy_b)
             return {0: res}
 
         out = self._in_batches({0: ens}, B, run)[0]

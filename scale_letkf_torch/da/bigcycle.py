@@ -218,7 +218,7 @@ class StreamedCycle:
             if has_phys and not cold:
                 arrays["tsfc"] = self.tsfc_host[i0:i0 + b]
             up, slot = stager.upload(arrays)
-            return up, slot, d._bdy_batch(i0, b)
+            return up, slot, d._bdy_batch(d.bdy, i0, b)
 
         def fcst_hx(up, slot, bdy):
             """The batch's segmented forecast with slot-matched H(x):

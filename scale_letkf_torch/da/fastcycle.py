@@ -23,6 +23,19 @@ launches (the forecast's member batches, the analysis's per-level chunks,
 each gathering its own candidates) whose timers are switched off. Obs noise
 in run_osse comes from a torch.Generator on the device.
 
+On a process grid (CycleDriver.mesh, parallel/mesh.py) the ensemble flows
+as a Sharded, as in CycleDriver(mesh=): the forecast steps the blocks with
+their halo exchanges; each member slab is gathered over the domain for
+H(x) and every slab's values go to every process, so the worst QC, the
+mean of H(x), its departures and the radar min-member count are taken over
+all K members in member order, the undecomposed arithmetic; the analysis
+runs through the ensemble transpose, each share with the whole obs-indexed
+good mask and departures; the back-transform runs per block. Every mean
+over the members is state.ensemble_mean (a member-order sum), so a grid's
+cycle has the undecomposed cycle's bits. The point indices of the shares
+are made once, so on one process a grid step moves nothing from the host
+either.
+
 Restrictions vs the host pipeline (cycle.py), as the reference's: the obs
 template (positions, types, errors) is fixed per FusedCycle; radar
 reflectivity must arrive preprocessed (dBZ with the ref-zero relabelling:
@@ -41,6 +54,7 @@ import numpy as np
 import torch
 
 from scale_letkf_torch.config import Config
+from scale_letkf_torch.cycle import _contiguous_rho
 from scale_letkf_torch.da.letkf import (
     _make_plan, analyze_points, gridpoint_coords,
 )
@@ -53,8 +67,10 @@ from scale_letkf_torch.obs.types import (
     ID_H08IR, ID_RADAR_REF, ID_RADAR_REF_ZERO, ID_RADAR_VR, ID_RAIN, QC_GOOD,
     Observations,
 )
+from scale_letkf_torch.parallel import halo
+from scale_letkf_torch.parallel.mesh import Sharded
 from scale_letkf_torch.state import (
-    NV3D, state_to_history, state_trans, state_trans_inv,
+    NV3D, ensemble_mean, state_to_history, state_trans, state_trans_inv,
 )
 from scale_letkf_torch.utils.device import full_fp32
 from scale_letkf_torch.utils.timing import Timer
@@ -63,11 +79,18 @@ from scale_letkf_torch.utils.timing import Timer
 class FusedCycle:
     """The DA cycle of a fixed obs network, on the device.
 
-    driver: cycle.CycleDriver (the composed forecast, grid, config).
-    template: the fixed network — elem/typ/lon/lat/lev/err fixed, `dat`
-    values the input of each cycle. Radar obs preprocessed (dBZ + ref-zero
-    relabelling); H08 refused.
-    nsteps: forecast steps per cycle."""
+    driver: cycle.CycleDriver (the composed forecast, grid, config, and
+    its process grid, when it has one). template: the fixed network —
+    elem/typ/lon/lat/lev/err fixed, `dat` values the input of each cycle.
+    Radar obs preprocessed (dBZ + ref-zero relabelling); H08 refused.
+    nsteps: forecast steps per cycle.
+
+    timer: the sections of step, assimilate and run_osse (CycleDriver's
+    forecast sections while they run, nature, state_trans, obsope,
+    das_letkf, state_trans_inv, monitor; on a grid `gather` and
+    `transpose` inside); switched off by default, as sections
+    synchronise. A caller may set Timer(device, clock='device'), which
+    times them without waiting."""
 
     def __init__(self, driver, template: Observations, nsteps: int):
         if np.any(template.elem == ID_H08IR):
@@ -81,6 +104,7 @@ class FusedCycle:
                 "fused cycling needs radar reflectivity pre-converted to "
                 "dBZ (preprocess_radar_obs) — template dat looks linear-Z")
         self.driver = driver
+        self.mesh = driver.mesh
         self.nsteps = int(nsteps)
         cfg: Config = driver.cfg
         grid = driver.grid
@@ -135,12 +159,19 @@ class FusedCycle:
         self._gp_x, self._gp_y, self._dist_bdy = gridpoint_coords(
             grid, device, dtype)
         self._z_zb = driver.z_full.to(dtype).reshape(nz, ny * nx)
-        self._untimed = Timer(device, enabled=False)
+        # every block's share of the gridpoints (the ensemble transpose's),
+        # an index tensor on the device
+        self._points = None if self.mesh is None else {
+            b: torch.as_tensor(self.mesh.share_points(b, ny, nx),
+                               device=device)
+            for b in range(self.mesh.n_blocks)}
+        self.timer = Timer(device, enabled=False)
 
     @contextmanager
-    def _no_timer(self):
-        """The driver's timer switched off (its sections synchronise)."""
-        timer, self.driver.timer = self.driver.timer, self._untimed
+    def _timed(self):
+        """CycleDriver's forecast sections go to self.timer (off by
+        default: CycleDriver's own synchronise)."""
+        timer, self.driver.timer = self.driver.timer, self.timer
         try:
             yield
         finally:
@@ -154,10 +185,68 @@ class FusedCycle:
         return hx_of_geometry(state_to_history(anal, d.z_full, d.topo),
                               self._geom, self.cfg, d.z_full)
 
-    def _hx_ens(self, gues: torch.Tensor):
-        """Ensemble H(x) (K, nobs) and the worst QC over the members."""
-        y, qc = self._hx(gues)
-        return y, qc.amax(dim=0)
+    def _hx_ens(self, gues):
+        """Ensemble H(x) (K, nobs) and the worst QC over the members. On a
+        grid (gues a Sharded) each member slab's blocks are gathered over
+        the domain on the process of its first block, which takes the
+        slab's H(x); every slab's values and QC then go to every process
+        and join in member order (section `gather` for the moves)."""
+        if not isinstance(gues, Sharded):
+            y, qc = self._hx(gues)
+            return y, qc.amax(dim=0)
+        mesh, nobs = self.mesh, self.template.nobs
+        shapes = [(gues.K // mesh.n_member, nobs)] * 2
+        per_slab = []
+        for m in range(mesh.n_member):
+            leader = mesh.owner(mesh.index(m, 0, 0))
+            with self.timer.section("gather"):
+                slab = mesh.gather_slab(gues, m, leader)
+            payload = None
+            if slab is not None:
+                y, qc = self._hx(slab)
+                del slab
+                payload = [y, qc.to(y.dtype)]
+            with self.timer.section("gather"):
+                got = mesh.route([(leader, dst, payload, shapes)
+                                  for dst in range(mesh.world)],
+                                 self._err.dtype, self._err.device)
+            per_slab.append(got[mesh.rank])
+            del payload
+        y, qc = (torch.cat(p, dim=0) for p in zip(*per_slab))
+        return y, qc.to(torch.int32).amax(dim=0)
+
+    def _guess(self, ens):
+        """The guess in analysis variables: a tensor (K, nv, nz, ny, nx), or
+        on a grid a Sharded of each block's (with the momenta's one-cell
+        halo)."""
+        if self.mesh is None:
+            return state_trans(to_collocated(ens))
+        if not isinstance(ens, Sharded):
+            ens = self.mesh.shard_ensemble(ens)
+        g = halo.to_collocated_blocks(self.mesh, ens, self.timer)
+        del ens
+        return g._replace(blocks={b: state_trans(v)
+                                  for b, v in g.blocks.items()})
+
+    def _gather(self, shares: dict, lead: tuple) -> torch.Tensor:
+        """Per-gridpoint share results as one (*lead, ny, nx) tensor."""
+        g = self.grid
+        return self.mesh.gather_points(shares, g.ny, g.nx,
+                                       self._points).reshape(
+            *lead, g.ny, g.nx)
+
+    def _mean(self, ens) -> torch.Tensor:
+        """The ensemble mean (nv, nz, ny, nx) of a forecast-variable
+        ensemble in analysis variables, in member order (on a grid through
+        the ensemble transpose: each share holds all K members)."""
+        gues = self._guess(ens)
+        if self.mesh is None:
+            return ensemble_mean(gues)
+        nv, nz = next(iter(gues.blocks.values())).shape[1:3]
+        shares = self.mesh.to_points(gues)
+        del gues
+        return self._gather({b: ensemble_mean(s) for b, s in shares.items()},
+                            (nv, nz))
 
     def _qc_mask(self, y, qc_worst, dep):
         """QC as the good mask: operator QC, gross error, radar min-member
@@ -172,65 +261,126 @@ class FusedCycle:
     @full_fp32()
     def assimilate(self, ens_f, obs_dat: torch.Tensor,
                    infl0_zb: torch.Tensor):
-        """Forecast ensemble (a DycoreState, K leading) + obs values (nobs,)
-        on the device + inflation (nz, ny·nx) → (analysis ensemble,
-        inflation, diag). diag holds device tensors: 'nobs_used',
-        'omb_rmse', 'oma_rmse' over the good obs, the same per monitor
-        group of the template ('omb_by_group', 'oma_by_group': U, T, REF,
-        VR, ...), 'nobs_per_level'; and 'chunk', the analysis's gridpoints
-        per chunk. The caller may hand ens_f over: it is dropped once the
-        guess exists."""
-        cfg, grid = self.cfg, self.grid
-        nz, ny, nx = grid.nz, grid.ny, grid.nx
-        gues = state_trans(to_collocated(ens_f))
+        """Forecast ensemble (a DycoreState, K leading; on a grid a Sharded
+        of this process's blocks, or the global ensemble) + obs values
+        (nobs,) on the device + inflation (nz, ny·nx) → (analysis ensemble,
+        its Sharded on a grid, inflation, diag). diag holds device tensors:
+        'nobs_used', 'omb_rmse', 'oma_rmse' over the good obs, the same per
+        monitor group of the template ('omb_by_group', 'oma_by_group': U,
+        T, REF, VR, ...), 'nobs_per_level', the guess and analysis ensemble
+        means 'gues_mean', 'anal_mean' (nv, nz, ny, nx); and 'chunk', the
+        analysis's gridpoints per chunk (on a grid the (points, chunk) of
+        each of this process's shares). The caller may hand ens_f over: it
+        is dropped once the guess exists."""
+        cfg, timer = self.cfg, self.timer
+        with timer.section("state_trans"):
+            gues = self._guess(ens_f)
         del ens_f
-        K, nv = gues.shape[:2]
-        y, qc_worst = self._hx_ens(gues)
-        mean_y = y.mean(dim=0)
-        obs_dat = obs_dat.to(gues.dtype)
+        with timer.section("obsope"):
+            y, qc_worst = self._hx_ens(gues)
+        mean_y = ensemble_mean(y)
+        obs_dat = obs_dat.to(y.dtype)
         dep = obs_dat - mean_y
         good = self._qc_mask(y, qc_worst, dep)
         dctx = dataclasses.replace(self._dctx, dep=dep,
                                    hdxb=(y - mean_y).T.contiguous(),
                                    good=good)
         del y
-        res = analyze_points(self._plan, dctx, gues.reshape(K, nv, nz, -1),
-                             None, infl0_zb, self._gp_x, self._gp_y,
-                             self._dist_bdy, self._z_zb)
+        with timer.section("das_letkf"):
+            anal, infl, nobs, gues_mean, anal_mean, chunk = self._analyze(
+                gues, dctx, infl0_zb)
         del gues, dctx
-        anal = res.anal.reshape(K, nv, nz, ny, nx)
-        anal_mean = anal.mean(dim=0)
-        restart = state_trans_inv(
-            anal, positive_definite_q=cfg.letkf.positive_definite_q,
-            positive_definite_qhyd=cfg.letkf.positive_definite_qhyd)
+        with timer.section("state_trans_inv"):
+            ens_out = self._restart(anal)
         del anal
-        # ρ and ρθ would be views pinning the whole restart stack
-        ens_out = from_collocated(restart)
-        ens_out = ens_out._replace(rho=ens_out.rho.clone(),
-                                   rhot=ens_out.rhot.clone())
-        del restart
 
         def rmse(d, m):
             return torch.sqrt(torch.where(m, d ** 2, 0.0).sum()
                               / m.sum().clamp(min=1))
         # O−A in obs space from the analysis mean's H(x)
-        oma = obs_dat - self._hx(anal_mean)[0]
+        with timer.section("monitor"):
+            oma = obs_dat - self._hx(anal_mean)[0]
         diag = {"nobs_used": good.sum(), "omb_rmse": rmse(dep, good),
                 "oma_rmse": rmse(oma, good),
                 "omb_by_group": {n: rmse(dep, good & m)
                                  for n, m in self._groups.items()},
                 "oma_by_group": {n: rmse(oma, good & m)
                                  for n, m in self._groups.items()},
-                "nobs_per_level": res.nobs.float().mean(dim=1),
-                "chunk": res.chunk}
-        return ens_out, (res.infl if res.infl is not None else infl0_zb), diag
+                "nobs_per_level": nobs.float().mean(dim=1),
+                "gues_mean": gues_mean, "anal_mean": anal_mean,
+                "chunk": chunk}
+        return ens_out, (infl if infl is not None else infl0_zb), diag
+
+    def _analyze(self, gues, dctx, infl0_zb):
+        """analyze_points over the whole domain, or on a grid over each of
+        this process's shares of the ensemble transpose (section
+        `transpose`) with the share's coordinates, heights and inflation.
+        Returns (analysis — a tensor, or a Sharded of analysis-variable
+        blocks —, inflation (nz, ny·nx) or None, local obs counts (nz,
+        ny·nx), guess and analysis means (nv, nz, ny, nx), chunk)."""
+        nz, ny, nx = self.grid.nz, self.grid.ny, self.grid.nx
+        args = (self._gp_x, self._gp_y, self._dist_bdy, self._z_zb)
+        if self.mesh is None:
+            K, nv = gues.shape[:2]
+            res = analyze_points(self._plan, dctx, gues.reshape(K, nv, nz, -1),
+                                 None, infl0_zb, *args)
+            gues_mean = ensemble_mean(gues)
+            anal = res.anal.reshape(K, nv, nz, ny, nx)
+            return (anal, res.infl, res.nobs, gues_mean, ensemble_mean(anal),
+                    res.chunk)
+        mesh, K = self.mesh, gues.K
+        nv = next(iter(gues.blocks.values())).shape[1]
+        with self.timer.section("transpose"):
+            shares = mesh.to_points(gues)
+            gues.blocks.clear()
+        outs = {k: {} for k in ("infl", "nobs", "gues_mean", "anal_mean")}
+        chunks = []
+        for b in list(shares):
+            pts = self._points[b]
+            g = shares.pop(b)
+            outs["gues_mean"][b] = ensemble_mean(g)
+            res = analyze_points(self._plan, dctx, g, None, infl0_zb[:, pts],
+                                 *(a[..., pts] for a in args))
+            del g
+            shares[b] = res.anal
+            outs["anal_mean"][b] = ensemble_mean(res.anal)
+            outs["nobs"][b] = res.nobs
+            if res.infl is not None:
+                outs["infl"][b] = res.infl
+            chunks.append((res.anal.shape[-1], res.chunk))
+            del res
+        with self.timer.section("transpose"):
+            anal = mesh.from_points(shares, K, ny, nx)
+            shares.clear()
+        infl = (mesh.gather_points(outs["infl"], ny, nx, self._points)
+                if outs["infl"] else None)
+        return (anal, infl,
+                mesh.gather_points(outs["nobs"], ny, nx, self._points),
+                self._gather(outs["gues_mean"], (nv, nz)),
+                self._gather(outs["anal_mean"], (nv, nz)), chunks)
+
+    def _restart(self, anal):
+        """Analysis variables → the forecast's ensemble (per block on a
+        grid, the momenta's one-cell halo exchanged)."""
+        cfg = self.cfg
+        pd = dict(positive_definite_q=cfg.letkf.positive_definite_q,
+                  positive_definite_qhyd=cfg.letkf.positive_definite_qhyd)
+        if self.mesh is None:
+            return _contiguous_rho(from_collocated(state_trans_inv(anal,
+                                                                   **pd)))
+        restart = anal._replace(blocks={b: state_trans_inv(v, **pd)
+                                        for b, v in anal.blocks.items()})
+        del anal
+        out = halo.from_collocated_blocks(self.mesh, restart, self.timer)
+        return out._replace(blocks={b: _contiguous_rho(s)
+                                    for b, s in out.blocks.items()})
 
     def step(self, ens, obs_dat: torch.Tensor, infl0_zb: torch.Tensor,
              t0: float = 0.0):
         """One cycle: the ensemble forecast of nsteps from t0, then
         `assimilate`. A caller that hands `ens` over has it freed once the
         forecast exists."""
-        with self._no_timer():
+        with self._timed():
             ens = [ens]
             ens.append(self.driver.forecast(ens.pop(), self.nsteps, t0=t0))
             return self.assimilate(ens.pop(), obs_dat, infl0_zb)
@@ -246,14 +396,17 @@ class FusedCycle:
         """Twin experiment: each cycle the nature run's H(x) plus noise
         (err · N(0,1) from a torch.Generator seeded `seed` on the device,
         one draw of nobs a cycle) are the obs, and the ensemble is forecast
-        and assimilates them. Returns (truth, ens, series): series holds
-        per-cycle device tensors 'rmse_gues', 'rmse_anal' (u, v, w, T
-        against the nature run), 'omb', 'oma', 'nobs_used', 'omb_by_group'
-        and 'oma_by_group' (a tensor per monitor group), and 'seconds'
-        (host floats, each cycle's time on the device's clock, read once
-        the run ends), 'chunk' (the last analysis's gridpoints a chunk). A
-        caller that hands ens0 over has it freed once the first forecast
-        exists."""
+        and assimilates them. The nature run is global and undecomposed on
+        a grid too (every process draws the same obs). Returns (truth, ens,
+        series): series holds per-cycle device tensors 'rmse_gues',
+        'rmse_anal' (u, v, w, T of the guess mean and of the analysed
+        ensemble's mean against the nature run), 'omb', 'oma',
+        'nobs_used', 'omb_by_group' and 'oma_by_group' (a tensor per
+        monitor group), 'infl' (the inflation after the last cycle), and
+        'seconds' (host floats, each cycle's time on the device's clock,
+        read once the run ends), 'chunk' (the last analysis's, as
+        assimilate gives it). A caller that hands ens0 over has it freed
+        once the first forecast exists."""
         d = self.driver
         device = d.device
         gen = torch.Generator(device=device)
@@ -266,24 +419,25 @@ class FusedCycle:
         by_group = {k: {n: [] for n in self._groups}
                     for k in ("omb_by_group", "oma_by_group")}
         marks = [self._mark()]
-        with self._no_timer():
+        with self._timed():
             for _ in range(n_cycles):
-                truth = d.forecast_one(truth, self.nsteps)
-                truth_anal = state_trans(to_collocated(truth))
-                y_nat, _ = self._hx(truth_anal)
-                obs_dat = y_nat + self._err * torch.randn(
-                    self._err.shape, generator=gen, device=device)
+                with self.timer.section("nature"):
+                    truth = d.forecast_one(truth, self.nsteps)
+                    truth_anal = state_trans(to_collocated(truth))
+                    y_nat, _ = self._hx(truth_anal)
+                    obs_dat = y_nat + self._err * torch.randn(
+                        self._err.shape, generator=gen, device=device)
                 ens.append(d.forecast(ens.pop(), self.nsteps))
-                gm = state_trans(to_collocated(ens[0])).mean(dim=0)
-                rmse_g = torch.sqrt(torch.mean((gm[:4] - truth_anal[:4]) ** 2))
-                del gm
                 ens_a, infl, diag = self.assimilate(ens.pop(), obs_dat, infl)
                 ens.append(ens_a)
                 del ens_a
-                am = state_trans(to_collocated(ens[0])).mean(dim=0)
-                series["rmse_gues"].append(rmse_g)
-                series["rmse_anal"].append(torch.sqrt(torch.mean(
-                    (am[:4] - truth_anal[:4]) ** 2)))
+
+                def rmse(mean):   # u, v, w, T against the nature run
+                    return torch.sqrt(torch.mean(
+                        (mean[:4] - truth_anal[:4]) ** 2))
+                series["rmse_gues"].append(rmse(diag["gues_mean"]))
+                with self.timer.section("monitor"):
+                    series["rmse_anal"].append(rmse(self._mean(ens[0])))
                 series["omb"].append(diag["omb_rmse"])
                 series["oma"].append(diag["oma_rmse"])
                 series["nobs_used"].append(diag["nobs_used"])
@@ -291,11 +445,12 @@ class FusedCycle:
                     for n in v:
                         v[n].append(diag[k][n])
                 chunk = diag["chunk"]
-                del am, truth_anal, diag
+                del truth_anal, diag
                 marks.append(self._mark())
         out = {k: torch.stack(v) for k, v in series.items()}
         out.update({k: {n: torch.stack(x) for n, x in v.items()}
                     for k, v in by_group.items()})
+        out["infl"] = infl
         out["seconds"] = self._seconds(marks)
         out["chunk"] = chunk if n_cycles else None
         return truth, ens.pop(), out

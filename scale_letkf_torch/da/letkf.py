@@ -44,8 +44,8 @@ from scale_letkf_torch.grid import Grid
 from scale_letkf_torch.io.convert import DeviceObsContext, obs_context_to_device
 from scale_letkf_torch.obs.types import ID_RADAR_REF
 from scale_letkf_torch.ops.letkf_core import (
-    letkf_core, weight_rtpp, weight_rtps, weight_update, total_weight,
-    relax_beta,
+    letkf_core, rtps_factor, rtps_update, weight_rtpp, weight_update,
+    total_weight, relax_beta,
 )
 from scale_letkf_torch.ops.obs_select import (
     candidate_width, gather_candidates, local_weights, limit_obs_topk,
@@ -365,11 +365,10 @@ def analyze_points(plan: _Plan, dctx: DeviceObsContext,
                     pert_g = pert[vi]                             # (nvg,Bc,K)
                     if use_rtps:
                         # RTPS is per variable (xb = that variable's perts)
-                        trans_v, m_g = weight_rtps(
-                            res.trans, res.pao, pert_g, parm,
-                            plan.relax_alpha_spread)
-                        w_tot = total_weight(trans_v, res.transm, beta)
-                        upd = torch.einsum("vbk,vbkm->vbm", pert_g, w_tot)
+                        m_g = rtps_factor(res.pao, pert_g, parm,
+                                          plan.relax_alpha_spread)
+                        upd = rtps_update(pert_g, res.trans, res.transm,
+                                          beta, m_g)
                         if rtps_out is not None:
                             for j, v in enumerate(vidx):
                                 rtps_out[v, lev, sl] = m_g[j]

@@ -167,7 +167,7 @@ class ResidentCycle:
                           and d.bdy.state0.rho.dim() == 4)
         for i0 in range(0, K, b):
             tt = time.perf_counter()
-            bdy = d._bdy_batch(i0, b)
+            bdy = d._bdy_batch(d.bdy, i0, b)
             if per_member_bdy and d.bdy.state0.rho.device != self.device:
                 t["h2d_bytes"] += sum(f.numel() * f.element_size()
                                       for s in (bdy.state0, bdy.state1)

@@ -70,6 +70,15 @@ hold against the reference package.
   coarsened cycle (osse_vs_cpu's inputs) undecomposed and on GRID on the
   card, which must agree exactly — final ensemble, nature run, means,
   spreads and O−B / O−A.
+- The executors on a process grid: fused_grid_on_device runs one
+  FusedCycle step of fused_vs_cpu's inputs undecomposed and on GRID on the
+  card (bit-equal, launches per block and share);
+  nested_grid_cycle_on_device the coarsened cycle's parent with a 24 × 24
+  open child at ratio 3 on GRID against its open-mode composition (the
+  undecomposed child stepping with the halo step of the whole ensemble,
+  halo_dynamics), bit-equal; terrain_grid_step_on_device one explicit-core
+  step over hills() on make_mesh(1, 2, 2) against rk3_step_terrain,
+  bit-equal (its overlap variant within TOL_TENDENCY).
 """
 
 from __future__ import annotations
@@ -464,10 +473,14 @@ def batch_invariance(device: torch.device, seed: int = 0) -> dict:
     in mismatching elements. 'gram' (HδXᵀ·HδX), 'dep_block' (Pa·(HδXᵀ·
     the DEP_COLUMNS-wide departure block), letkf_core's form) and 'apply'
     (letkf_core.weight_update, analyze_points' weight application: each
-    point's K×K weights on the variables' perturbations) must be 0; the
-    forms they replaced are reported beside them: 'matvec' (Pa·(HδXᵀ·d) as
-    matrix-vector products) and 'apply_einsum'."""
-    from scale_letkf_torch.ops.letkf_core import DEP_COLUMNS, weight_update
+    point's K×K weights on the variables' perturbations) and 'rtps' (the
+    RTPS path's per-variable factor and weight application, rtps_factor
+    and rtps_update) must be 0; the forms they replaced are reported beside
+    them: 'matvec' (Pa·(HδXᵀ·d) as matrix-vector products),
+    'apply_einsum' and 'rtps_einsum' (per-variable weights through an
+    einsum over (v, b, k), the factor's sums as reductions)."""
+    from scale_letkf_torch.ops.letkf_core import (
+        DEP_COLUMNS, rtps_factor, rtps_update, total_weight, weight_update)
     gen = torch.Generator(device=device).manual_seed(seed)
     out = {}
     for K, L, B in BATCH_CASES:
@@ -481,7 +494,26 @@ def batch_invariance(device: torch.device, seed: int = 0) -> dict:
             return (p[s] @ (a[s].transpose(-1, -2) @ cols))[..., 0]
 
         x = torch.randn(NV3D, B, K, device=device, generator=gen)
+        infl = torch.rand(B, device=device, generator=gen) + 1.0
+
+        def rtps(s, einsum=False):
+            pao = p[s] @ p[s].transpose(-1, -2)
+            beta, transm = infl[s] - 1.0, d[s, :K]
+            if einsum:
+                var_g = torch.sum(x[:, s] * x[:, s], dim=-1)
+                pa_xb = (pao @ x[:, s][..., None])[..., 0]
+                m = torch.sqrt(var_g * infl[s] / torch.sum(x[:, s] * pa_xb,
+                                                           dim=-1))
+                w = total_weight(p[s] * m[..., None, None], transm, beta)
+                return torch.einsum("vbk,vbkm->vbm", x[:, s],
+                                    w).transpose(0, 1)
+            m = rtps_factor(pao, x[:, s], infl[s], 0.9)
+            return rtps_update(x[:, s], p[s], transm, beta,
+                               m).transpose(0, 1)
+
         prods = {
+            "rtps": rtps,
+            "rtps_einsum": lambda s: rtps(s, einsum=True),
             "gram": lambda s: a[s].transpose(-1, -2) @ a[s],
             "apply": lambda s: weight_update(x[:, s], p[s]).transpose(0, 1),
             "apply_einsum": lambda s: torch.einsum(
@@ -502,7 +534,7 @@ def batch_invariance(device: torch.device, seed: int = 0) -> dict:
 
 def batch_invariance_passes(res: dict) -> bool:
     return all(v == 0 for row in res.values()
-               for name in ("gram", "dep_block", "apply")
+               for name in ("gram", "dep_block", "apply", "rtps")
                for v in row[name].values())
 
 
@@ -2418,3 +2450,245 @@ def nesting_fused_check_passes(res: dict) -> bool:
             and not any(fu_l["cpu"].values())
             and fu["nobs_used"]["device"] == fu["nobs_used"]["cpu"] > 0
             and fu["oma"]["device"] < fu["omb"]["device"])
+
+
+# --- the executors on the process grid --------------------------------------
+NEST_GRID = {"nx": 24, "ny": 24, "ratio": 3, "i0": 12.0, "j0": 8.0,
+             "dt": 10.0, "n_small": 10, "bdy_width": 4, "bdy_tau": 120.0}
+NEST_GRID_STEPS = 2      # parent steps; the child's 6 cover the same window
+
+
+def _fused_inputs(device: torch.device, config: str, seed: int):
+    """fused_vs_cpu's inputs on `device`: the radar configuration at
+    COARSE_RADAR with K = MEMBERS_CYCLE (its cfg, grid, dycfg, dom), the
+    ensemble with rain blobs, the nature member, and the radar template's
+    gates valued from the nature run at the window's end (dbz_template)."""
+    from scale_letkf_torch.cli.main import make_driver
+    cfg, grid, dycfg, dom = load_config_and_grid(config, COARSE_RADAR)
+    cfg.ensemble.member = MEMBERS_CYCLE
+    kw = {"u0": 5.0, "qr_blob": RADAR_QR_BLOB}
+    ens0, _, _ = synthetic_ens_dycore_device(seed, MEMBERS_CYCLE, grid, dom,
+                                             device, **kw)
+    nat, _, _ = synthetic_ens_dycore_device(seed + 1, 1, grid, dom, device,
+                                            **kw)
+    truth0 = type(nat)(*(f[0] for f in nat))
+    driver = make_driver(cfg, grid, dycfg, dom, device)
+    truth = driver.forecast_one(truth0, RADAR_STEPS)
+    template = dbz_template(
+        state_to_history(state_trans(dycore.to_collocated(truth)),
+                         driver.z_full, driver.topo),
+        radar_template(grid, dom, seed), grid, cfg, driver.z_full,
+        np.random.default_rng(seed))
+    return (cfg, grid, dycfg, dom), ens0, truth0, template
+
+
+def fused_grid_on_device(device: torch.device, config: str,
+                         seed: int = 0) -> dict:
+    """One FusedCycle step (RADAR_STEPS forecast steps + the assimilation)
+    of fused_vs_cpu's inputs on `device`, undecomposed and on the GRID
+    process grid: whether the grid's analysis ensemble, inflation, obs
+    counts, O−B / O−A (by group too) and guess and analysis means equal the
+    undecomposed step's bit for bit, the largest difference, and the grid
+    step's launches against 3 stages × steps × batches × blocks for #2 and
+    #3 and levels × chunks × var-local groups over its shares for #1."""
+    from scale_letkf_torch.cli.main import make_driver
+    from scale_letkf_torch.da.fastcycle import FusedCycle
+    (cfg, grid, dycfg, dom), ens0, _, template = _fused_inputs(
+        device, config, seed)
+    runs = {}
+    for key, c in (("undecomposed", cfg), ("grid", _on_grid(cfg))):
+        driver = make_driver(c, grid, dycfg, dom, device)
+        fc = FusedCycle(driver, template, RADAR_STEPS)
+        before = dict(kernels.LAUNCHES)
+        ens, infl, diag = fc.step(ens0, torch.as_tensor(
+            fc.template.dat, dtype=torch.float32, device=device),
+            fc.initial_inflation())
+        arrays = {**{f"ens.{n}": f for n, f in zip(
+            ens0._fields, _global(driver, ens))}, "infl": infl,
+            **{k: diag[k] for k in ("nobs_used", "omb_rmse", "oma_rmse",
+                                    "nobs_per_level", "gues_mean",
+                                    "anal_mean")},
+            **{f"{k}.{n}": diag[k][n] for k in ("omb_by_group",
+                                                "oma_by_group")
+               for n in sorted(diag[k])}}
+        runs[key] = {
+            "arrays": {k: v.cpu() for k, v in arrays.items()},
+            "launches": _launches(before),
+            "expected": None if key == "undecomposed" else {
+                **expected_launches(cfg, grid, RADAR_STEPS, 0, 0,
+                                    shares=diag["chunk"]),
+                **{k: 3 * RADAR_STEPS * int(np.prod(GRID))
+                   * -(-(MEMBERS_CYCLE // GRID[0]) // driver.batch)
+                   for k in ("dyn_tendency", "adv_ud3")}},
+            "nobs_used": int(diag["nobs_used"])}
+    a, b = runs["grid"]["arrays"], runs["undecomposed"]["arrays"]
+    diff = {k: float((a[k].double() - b[k].double()).abs().max()) for k in a}
+    return {"grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members":
+            MEMBERS_CYCLE, "mesh": list(GRID), "steps": RADAR_STEPS,
+            "template_obs": int(template.nobs),
+            "nobs_used": runs["grid"]["nobs_used"],
+            "bit_equal": all(torch.equal(a[k], b[k]) for k in a),
+            "max_abs_diff": {k: v for k, v in diff.items() if v},
+            "kernel_launches": runs["grid"]["launches"],
+            "expected_launches": runs["grid"]["expected"]}
+
+
+def _nest_grid_child(cfg, grid, dycfg, dom, device: torch.device):
+    """The nested grid cycle's child driver (NEST_GRID): a ratio-3 open
+    child on the parent's levels with the SI core, as chip_smoke.py's
+    nested cycle composes its child, on the parent's [process] grid."""
+    from scale_letkf_torch.cli.main import make_driver
+    from scale_letkf_torch.grid import Grid
+    n = NEST_GRID
+    cgrid = Grid(nx=n["nx"], ny=n["ny"], nz=grid.nz, dx=grid.dx / n["ratio"],
+                 dy=grid.dy / n["ratio"], cz=grid.cz, fz=grid.fz,
+                 proj=grid.proj)
+    cdycfg = dataclasses.replace(dycfg, dx=cgrid.dx, dy=cgrid.dy, dt=n["dt"],
+                                 lateral="open")
+    cdom = {**dom, "core": "si", "n_small": n["n_small"],
+            "bdy_width": n["bdy_width"], "bdy_tau": n["bdy_tau"]}
+    return make_driver(cfg, cgrid, cdycfg, cdom, device)
+
+
+def halo_dynamics(driver, mesh) -> None:
+    """Replace an undecomposed CycleDriver's dynamics step by the halo
+    step of the whole ensemble on `mesh` (the grid's dynamics; physics,
+    boundary forcing and schedule stay the undecomposed ones): what a grid that
+    decomposes the domain is held to exactly in the open lateral mode,
+    whose halo step is the reference's own, not the global open step."""
+    from scale_letkf_torch.model.dycore_si import SplitConfig
+    from scale_letkf_torch.parallel import halo
+    dc = driver.dycfg
+    if driver.core == "si":
+        def step(s):
+            return halo.rk3_step_si_halo_ens(
+                s, dc, SplitConfig(dtau=dc.dt / driver.n_small),
+                driver.rho_ref, driver.p_ref, driver.z_centers, mesh,
+                driver.n_small, driver.vg)
+    else:
+        def step(s):
+            return halo.rk3_step_halo_ens(s, dc, driver.rho_ref, driver.p_ref,
+                                          driver.z_centers, mesh, driver.vg)
+    driver._dyn_step = step
+
+
+def nested_grid_cycle_on_device(device: torch.device, config: str,
+                                seed: int = 0) -> dict:
+    """grid_cycle_on_device's parent (its coarsened sizes, K =
+    MEMBERS_CYCLE, its seeded ensemble) and the NEST_GRID child (open,
+    24 × 24, ratio 3, the parent's ensemble interpolated) through
+    NestedCycleDriver, one cycle of NEST_GRID_STEPS parent steps, on
+    `device` on the GRID process grid and undecomposed with the child's
+    dynamics the halo step of the whole ensemble on GRID (halo_dynamics:
+    the open mode's composition). Obs: obsmake of the nature run at the
+    window's end in each domain. Whether both analyses and the O−B / O−A
+    tables are equal, and the largest difference."""
+    from scale_letkf_torch.cli.main import make_driver
+    from scale_letkf_torch.da.obsmake import obsmake
+    from scale_letkf_torch.model.nesting import NestGeometry, parent_to_child
+    from scale_letkf_torch.nested import NestedCycleDriver
+    from scale_letkf_torch.parallel.mesh import make_mesh
+    cfg, grid, dycfg, dom = load_config_and_grid(config, COARSE_FCST)
+    cfg.ensemble.member = K = MEMBERS_CYCLE
+    ens0, _, _ = synthetic_ens_dycore_device(seed, K, grid, dom, device,
+                                             u0=10.0)
+    nat, _, _ = synthetic_ens_dycore_device(seed + 1, 1, grid, dom, device,
+                                            u0=10.0)
+    geom = NestGeometry(i0=NEST_GRID["i0"], j0=NEST_GRID["j0"],
+                        ratio=NEST_GRID["ratio"])
+    parent = make_driver(cfg, grid, dycfg, dom, device)
+    child = _nest_grid_child(cfg, grid, dycfg, dom, device)
+    cshape = (child.grid.nz, child.grid.ny, child.grid.nx)
+    c_ens0 = parent_to_child(ens0, geom, cshape, grid.cz, child.grid.cz)
+    truth = parent.forecast_one(type(nat)(*(f[0] for f in nat)),
+                                NEST_GRID_STEPS)
+    rng = np.random.default_rng(seed)
+    obs = []
+    for d, t in ((parent, truth), (child, parent_to_child(
+            truth, geom, cshape, grid.cz, child.grid.cz))):
+        obs.append(obsmake(
+            state_to_history(state_trans(dycore.to_collocated(t)), d.z_full,
+                             d.topo),
+            synthetic_conv_network(cfg, d.grid, rng, n_sonde=20, n_ps=40),
+            d.grid, cfg, d.z_full, rng))
+    steps_child = NEST_GRID_STEPS * int(round(dycfg.dt / NEST_GRID["dt"]))
+    runs = {}
+    for key, c in (("undecomposed", cfg), ("grid", _on_grid(cfg))):
+        parent = make_driver(c, grid, dycfg, dom, device)
+        child = _nest_grid_child(c, grid, dycfg, dom, device)
+        if key == "undecomposed":
+            halo_dynamics(child, make_mesh(*GRID))
+        p_a, c_a, info = NestedCycleDriver(parent, child, geom).cycle(
+            ens0, c_ens0, obs[0], obs[1], NEST_GRID_STEPS, steps_child)
+        runs[key] = {
+            "arrays": [f.cpu() for f in (*_global(parent, p_a),
+                                         *_global(child, c_a))],
+            "stats": [(st.nobs, st.rmse, st.bias) for dom_ in ("parent",
+                                                               "child")
+                      for st in (info[dom_]["stats_gues"],
+                                 info[dom_]["stats_anal"])],
+            "bracket_sections": parent.timer.counts.get("nest_bracket")}
+    a, b = runs["grid"]["arrays"], runs["undecomposed"]["arrays"]
+    return {"parent": "{nx}x{ny}x{nz}".format(**COARSE_FCST),
+            "child": f"{NEST_GRID['nx']}x{NEST_GRID['ny']}, ratio "
+                     f"{NEST_GRID['ratio']}, open", "members": K,
+            "mesh": list(GRID), "parent_steps": NEST_GRID_STEPS,
+            "child_steps": steps_child,
+            "nobs": [int(o.nobs) for o in obs],
+            "bit_equal": all(torch.equal(x, y) for x, y in zip(a, b)),
+            "stats_equal": runs["grid"]["stats"] == runs["undecomposed"][
+                "stats"],
+            "max_abs_diff": max(float((x - y).abs().max())
+                                for x, y in zip(a, b)),
+            "bracket_sections": runs["grid"]["bracket_sections"]}
+
+
+def terrain_grid_step_on_device(device: torch.device, config: str,
+                                seed: int = 0) -> dict:
+    """One explicit-core step (dt 1 s) of terrain_state's MEMBERS_TERRAIN
+    members over hills() on the configuration's levels at COARSE_TERRAIN,
+    on `device`: model/terrain.py rk3_step_terrain of the whole domain, and
+    parallel/halo.py rk3_step_blocks on make_mesh(1, 2, 2) with each
+    block's extended metrics, halo 'explicit' and 'explicit_overlap'.
+    Whether the explicit grid step equals the undecomposed one bit for
+    bit, the largest differences, and the overlap variant's largest
+    difference over TOL_TENDENCY of each field's largest increment."""
+    from scale_letkf_torch.model.terrain import make_metrics, rk3_step_terrain
+    from scale_letkf_torch.parallel import halo
+    from scale_letkf_torch.parallel.mesh import make_mesh
+    _, grid, dycfg, _ = load_config_and_grid(config, COARSE_TERRAIN)
+    topo = hills(grid.ny, grid.nx)
+    fields, rr, pr = terrain_state(seed, MEMBERS_TERRAIN, grid.cz, grid.fz,
+                                   topo, grid.dx, grid.dy)
+    s = dycore.DycoreState(*(torch.as_tensor(f, device=device)
+                             for f in fields))
+    rr, pr = (torch.as_tensor(a, device=device) for a in (rr, pr))
+    cfg1 = dataclasses.replace(dycfg, dt=1.0)
+    vg = dycore.make_vgrid(grid.cz, grid.fz, device)
+    zc = torch.as_tensor(np.asarray(grid.cz), dtype=torch.float32,
+                         device=device)
+    m = make_metrics(torch.as_tensor(topo, device=device), grid.cz, grid.fz,
+                     grid.dx, grid.dy)
+    want = rk3_step_terrain(s, cfg1, rr, pr, zc, m, vg)
+    mesh = make_mesh(1, 2, 2)
+    sh = mesh.shard_ensemble(s)
+    m_ext = halo.extended_metrics(mesh, m, True)
+    got = {}
+    for h in ("explicit", "explicit_overlap"):
+        out = halo.rk3_step_blocks(mesh, sh.blocks, cfg1, rr, pr, zc, vg,
+                                   overlap=h == "explicit_overlap",
+                                   metrics=m_ext)
+        got[h] = mesh.gather_ensemble(sh._replace(blocks=out))
+    names = dycore.DycoreState._fields
+    over = {n: float((o - w).abs().max())
+            / max(TOL_TENDENCY * float((w - f).abs().max()), 1e-30)
+            for n, o, w, f in zip(names, got["explicit_overlap"], want, s)}
+    return {"grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members":
+            MEMBERS_TERRAIN, "mesh": [1, 2, 2], "dt": 1.0,
+            "bit_equal": all(torch.equal(x, y)
+                             for x, y in zip(got["explicit"], want)),
+            "max_abs_diff": {n: float((x - y).abs().max())
+                             for n, x, y in zip(names, got["explicit"],
+                                                want)},
+            "overlap_over_tol": over,
+            "rhow_moved": float((want.rhow - s.rhow).abs().max())}

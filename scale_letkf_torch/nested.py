@@ -20,6 +20,14 @@ Driven from TOML by a [nest] section of the experiment config (cli/main.py
   bdy_width = 4
   bdy_tau = 120.0
 
+On a process grid (parent and child each a CycleDriver(mesh=) of the same
+grid shape) the ensembles flow as Shardeds and the bracket is sharded like
+the child's ensemble: each parent member slab is gathered over the parent
+domain on the process of its first block, interpolated there by
+parent_to_child, and cut into the child's blocks of that slab (ProcessGrid
+route), so no process holds the whole parent ensemble. The child's
+forecast reads its blocks' bracket per member (CycleDriver._bdy_block).
+
 Each ensemble is handed over and freed as in CycleDriver.run_osse: the
 child's start bracket is interpolated from the parent's start ensemble
 before the parent forecast consumes it, and both brackets are dropped once
@@ -34,6 +42,7 @@ import numpy as np
 from scale_letkf_torch.model.boundary import BoundaryData
 from scale_letkf_torch.model.nesting import NestGeometry, parent_to_child
 from scale_letkf_torch.obs.types import Observations
+from scale_letkf_torch.parallel.mesh import Sharded
 
 
 class NestedCycleDriver:
@@ -47,14 +56,56 @@ class NestedCycleDriver:
             raise ValueError(
                 "child driver needs bdy_width > 0: the nest boundary is "
                 "forced by the parent (Davies relaxation buffer)")
+        shapes = [None if d.mesh is None else d.mesh.shape
+                  for d in (parent, child)]
+        if shapes[0] != shapes[1]:
+            raise ValueError(f"parent and child need the same process grid "
+                             f"(have {shapes[0]} and {shapes[1]})")
         self._zp = np.asarray(parent.grid.cz)
         self._zc = np.asarray(child.grid.cz)
         self._shape = (child.grid.nz, child.grid.ny, child.grid.nx)
 
     def p2c(self, ens):
-        """A parent state or ensemble interpolated to the child grid."""
+        """A parent state or ensemble interpolated to the child grid; a
+        parent Sharded to a Sharded of the child's blocks (_p2c_blocks)."""
+        if isinstance(ens, Sharded):
+            return self._p2c_blocks(ens)
         return parent_to_child(ens, self.geom, self._shape, self._zp,
                                self._zc)
+
+    def _p2c_blocks(self, sh: Sharded) -> Sharded:
+        """The child's blocks of parent_to_child of the parent's blocks
+        `sh`: each member slab gathered over the parent domain on the
+        process of its first block (gather_slab), interpolated there, and
+        its child blocks routed to their processes (a view inside a
+        process)."""
+        grid = self.child.mesh
+        nz, ny, nx = self._shape
+        proto = next(iter(sh.blocks.values()))
+        nz_p = proto.rho.shape[-3]
+        # each field's child block shape: the parent's leading axes, its
+        # levels moved by the child's level count (ρw keeps its extra face)
+        shapes = [f.shape[:-3] + (f.shape[-3] - nz_p + nz, ny // grid.n_dy,
+                                  nx // grid.n_dx) for f in proto]
+        out = {}
+        for m in range(grid.n_member):
+            leader = grid.owner(grid.index(m, 0, 0))
+            slab = grid.gather_slab(sh, m, leader)
+            child = None if slab is None else self.p2c(slab)
+            del slab
+            dests = [grid.index(m, j, i) for j in range(grid.n_dy)
+                     for i in range(grid.n_dx)]
+            got = grid.route([(leader, grid.owner(b), None if child is None
+                               else [f[..., grid.rows(b, ny),
+                                       grid.cols(b, nx)].contiguous()
+                                     for f in child], shapes)
+                              for b in dests], proto.rho.dtype,
+                             proto.rho.device)
+            del child
+            for b, parts in zip(dests, got):
+                if parts is not None:
+                    out[b] = type(proto)(*parts)
+        return Sharded(out, sh.K, ny, nx)
 
     def child_boundary(self, p_start, p_end, t0: float, t1: float):
         """Per-member child boundary bracket from parent ensemble states."""
@@ -76,6 +127,8 @@ class NestedCycleDriver:
         `nest_bracket`."""
         p, c = self.parent, self.child
         window = steps_parent * p.dycfg.dt
+        if p.mesh is not None and not isinstance(p_ens, Sharded):
+            p_ens = p.mesh.shard_ensemble(p_ens)
         # one-slot lists hand each ensemble to the step that consumes it
         p_ens, c_ens = [p_ens], [c_ens]
         with p.timer.section("nest_bracket"):

@@ -157,16 +157,17 @@ def extend_state(grid: ProcessGrid, blocks: dict, h: int = HALO_W,
     return {b: DycoreState(*v) for b, v in ext.items()}
 
 
-def crop_state(s: DycoreState, h: int = HALO_W) -> DycoreState:
-    return DycoreState(*(a[..., h:-h, h:-h] for a in s))
+def crop_state(s, h: int = HALO_W):
+    """The interior of an extended DycoreState (or TerrainMetrics)."""
+    return type(s)(*(a[..., h:-h, h:-h] for a in s))
 
 
-def _strip(s: DycoreState, axis_from_end: int, start: int,
-           stop: int) -> DycoreState:
-    """Every field sliced along y (axis_from_end=2) or x (=1), as contiguous
-    fields (the kernels take no views)."""
-    return DycoreState(*(a.narrow(a.dim() - axis_from_end, start,
-                                  stop - start).contiguous() for a in s))
+def _strip(s, axis_from_end: int, start: int, stop: int):
+    """Every field of a DycoreState (or TerrainMetrics) sliced along y
+    (axis_from_end=2) or x (=1), as contiguous fields (the kernels take no
+    views)."""
+    return type(s)(*(a.narrow(a.dim() - axis_from_end, start,
+                              stop - start).contiguous() for a in s))
 
 
 def _tend_on(block: DycoreState, cfg: DycoreConfig, rho_ref, p_ref,
@@ -188,7 +189,10 @@ def _local_tend(grid: ProcessGrid, blocks: dict, cfg: DycoreConfig, rho_ref,
     no message, then the edge bands from strips of the extended block
     (height 3·RADIUS: the RADIUS target rows and RADIUS margin each side;
     the x strips span the extended y, so corners are covered) — the
-    reference's first step of compute/communication overlap."""
+    reference's first step of compute/communication overlap. metrics:
+    each block's HALO_W-extended terrain metrics (extended_metrics), cut
+    like the state: the interior's from the block's own columns, each
+    strip's from the strip's rows and columns."""
     h, r = HALO_W, RADIUS
     periodic = cfg.lateral == "periodic"
     ext = extend_state(grid, blocks, h, periodic, timer)
@@ -202,12 +206,15 @@ def _local_tend(grid: ProcessGrid, blocks: dict, cfg: DycoreConfig, rho_ref,
                 continue
             ny, nx = s_loc.rho.shape[-2:]
             t = DycoreState(*(f.clone() for f in _tend_on(
-                s_loc, cfg, rho_ref, p_ref, vg, None)))
+                s_loc, cfg, rho_ref, p_ref, vg,
+                None if m is None else crop_state(m, h))))
             e = ext[b]
             for axis, at, start in ((2, 0, h - r), (2, ny - r, ny + h - 2 * r),
                                     (1, 0, h - r), (1, nx - r, nx + h - 2 * r)):
                 st = _tend_on(_strip(e, axis, start, start + 3 * r), cfg,
-                              rho_ref, p_ref, vg, None)
+                              rho_ref, p_ref, vg,
+                              None if m is None
+                              else _strip(m, axis, start, start + 3 * r))
                 for dst, src in zip(t, st):
                     if axis == 2:
                         dst[..., at:at + r, :] = src[..., r:2 * r, h:h + nx]
@@ -219,16 +226,18 @@ def _local_tend(grid: ProcessGrid, blocks: dict, cfg: DycoreConfig, rho_ref,
 
 def rk3_step_blocks(grid: ProcessGrid, blocks: dict, cfg: DycoreConfig,
                     rho_ref, p_ref, z_center, vg: VGrid | None = None,
-                    overlap: bool = False, timer: Timer | None = None
-                    ) -> dict:
+                    overlap: bool = False, metrics: dict | None = None,
+                    timer: Timer | None = None) -> dict:
     """One RK3 step of the explicit core on this process's blocks (index →
     DycoreState, any leading member axes), one halo exchange per stage,
-    then the Rayleigh sponge (section `sponge`)."""
+    then the Rayleigh sponge (section `sponge`). With terrain, `metrics`:
+    each block's extended metrics (extended_metrics), the slow tendencies
+    model/terrain.py's rk3_step_terrain takes."""
     dt = cfg.dt
 
     def f(d):
         return _local_tend(grid, d, cfg, rho_ref, p_ref, vg, overlap,
-                           timer=timer)
+                           metrics, timer)
 
     f1 = f(blocks)
     s1 = {b: _axpy(s, f1[b], 1.0 / 3.0, dt) for b, s in blocks.items()}

@@ -270,25 +270,27 @@ class ProcessGrid:
             out.append(g)
         return _like(proto, out)
 
-    def gather_slab(self, sh: Sharded, m: int, dst: int
-                    ) -> torch.Tensor | None:
-        """Member slab m of a tensor ensemble over the whole domain, on
-        process `dst` (None on the others): its blocks gathered along
-        (dy, dx)."""
+    def gather_slab(self, sh: Sharded, m: int, dst: int):
+        """Member slab m of an ensemble (a tensor or a DycoreState per
+        block) over the whole domain, on process `dst` (None on the
+        others): its blocks gathered along (dy, dx), one message a block."""
         proto = next(iter(sh.blocks.values()))
+        fields = _fields(proto)
         slab = [self.index(m, j, i) for j in range(self.n_dy)
                 for i in range(self.n_dx)]
         got = self.route(
-            [(self.owner(b), dst, [sh.blocks[b]] if self.owner(b) == self.rank
-              else None, [proto.shape]) for b in slab],
-            proto.dtype, proto.device)
+            [(self.owner(b), dst, _fields(sh.blocks[b])
+              if self.owner(b) == self.rank else None,
+              [f.shape for f in fields]) for b in slab],
+            fields[0].dtype, fields[0].device)
         if dst != self.rank:
             return None
-        out = torch.empty(proto.shape[:-2] + (sh.ny, sh.nx),
-                          dtype=proto.dtype, device=proto.device)
+        out = [torch.empty(f.shape[:-2] + (sh.ny, sh.nx), dtype=f.dtype,
+                           device=f.device) for f in fields]
         for b, parts in zip(slab, got):
-            out[..., self.rows(b, sh.ny), self.cols(b, sh.nx)] = parts[0]
-        return out
+            for o, part in zip(out, parts):
+                o[..., self.rows(b, sh.ny), self.cols(b, sh.nx)] = part
+        return _like(proto, out)
 
     def share_points(self, b: int, ny: int, nx: int) -> np.ndarray:
         """Global flat indices of the gridpoints block b analyses: its share
@@ -354,26 +356,29 @@ class ProcessGrid:
             K, ny, nx)
 
     def gather_points(self, shares: dict[int, torch.Tensor], ny: int,
-                      nx: int) -> torch.Tensor:
+                      nx: int, points: dict | None = None) -> torch.Tensor:
         """Per-gridpoint results of every share (each (*lead, B_p)) as one
-        (*lead, ny·nx) tensor on every process."""
+        (*lead, ny·nx) tensor on every process. points: every block's
+        share_points as an index tensor on the shares' device, made once by
+        a caller that gathers every cycle (else copied from the host)."""
         proto = next(iter(shares.values()))
         lead = proto.shape[:-1]
         nb = (ny // self.n_dy) * (nx // self.n_dx)
-        msgs, idx = [], []
+        msgs = []
         for b in range(self.n_blocks):
             sl = self.share(b, nb)
             for dst in range(self.world):
                 msgs.append((self.owner(b), dst,
                              [shares[b]] if self.owner(b) == self.rank
                              else None, [(*lead, sl.stop - sl.start)]))
-            idx.append(self.share_points(b, ny, nx))
         got = self.route(msgs, proto.dtype, proto.device)
         out = torch.empty((*lead, ny * nx), dtype=proto.dtype,
                           device=proto.device)
-        for n, pts in enumerate(idx):
-            out[..., torch.as_tensor(pts, device=proto.device)] = \
-                got[n * self.world + self.rank][0]
+        for b in range(self.n_blocks):
+            pts = (torch.as_tensor(self.share_points(b, ny, nx),
+                                   device=proto.device)
+                   if points is None else points[b])
+            out[..., pts] = got[b * self.world + self.rank][0]
         return out
 
 

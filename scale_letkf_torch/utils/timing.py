@@ -4,7 +4,11 @@ On a CUDA device each section synchronises at its start and end, so the
 device work a section enqueues is charged to that section and not to the
 next one that waits (the USE_MPI_BARRIER analogue). A Timer with enabled
 False neither synchronises nor records: the untimed path of a caller that
-must not wait for the device (da/fastcycle.py)."""
+must not wait for the device (da/fastcycle.py). A Timer on the device's
+clock (clock='device') does not wait either: on a CUDA device each section
+records a CUDA event at its start and end, and `settle` (called by
+`report`) waits for the last one and adds the sections' device times to
+`records`; elsewhere it reads the host clock without synchronising."""
 
 from __future__ import annotations
 
@@ -19,13 +23,27 @@ import torch
 class Timer:
     device: torch.device
     enabled: bool = True
+    clock: str = "host"
     records: dict[str, float] = field(default_factory=dict)
     counts: dict[str, int] = field(default_factory=dict)
     _stack: list[str] = field(default_factory=list)
+    _pending: list = field(default_factory=list)
+
+    def __post_init__(self):
+        if self.clock not in ("host", "device"):
+            raise ValueError(f"unknown clock {self.clock!r} (valid: 'host', "
+                             f"'device')")
 
     def _sync(self):
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.clock == "host":
             torch.cuda.synchronize(self.device)
+
+    def _mark(self):
+        if self.device.type == "cuda" and self.clock == "device":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
 
     @contextmanager
     def section(self, name: str):
@@ -35,18 +53,33 @@ class Timer:
         full = "/".join(self._stack + [name])
         self._stack.append(name)
         self._sync()
-        t0 = time.perf_counter()
+        t0 = self._mark()
         try:
             yield
         finally:
             self._sync()
-            dt = time.perf_counter() - t0
-            self.records[full] = self.records.get(full, 0.0) + dt
+            t1 = self._mark()
+            if isinstance(t0, float):
+                self.records[full] = self.records.get(full, 0.0) + t1 - t0
+            else:
+                self._pending.append((full, t0, t1))
             self.counts[full] = self.counts.get(full, 0) + 1
             self._stack.pop()
 
+    def settle(self) -> None:
+        """Adds the device-clock sections' times to records, waiting for
+        the last section's end event."""
+        if not self._pending:
+            return
+        self._pending[-1][2].synchronize()
+        for full, a, b in self._pending:
+            self.records[full] = (self.records.get(full, 0.0)
+                                  + a.elapsed_time(b) / 1e3)
+        self._pending.clear()
+
     def report(self) -> str:
         """Sections as an indented table: seconds and calls."""
+        self.settle()
         lines = ["== timing =="]
         for k in sorted(self.records):
             depth = k.count("/")

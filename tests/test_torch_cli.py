@@ -259,15 +259,16 @@ def _streamed_close(got, got2, init, ref):
     assert_increments(got, init, ref, extra=floor)
 
 
-def _cycle_nested_agrees(tmp_path, refused: bool):
+def _cycle_nested_agrees(tmp_path, refused: bool, process: str = ""):
     """cycle with a [nest] section at tests/test_cli_nested.py's CONFIG
-    and inputs (16×16×6 parent, ratio-2 child, K = 4, 4 parent steps): the
-    parent's and the child's analyses (OUT and OUT/nest) to the restart
-    increments bound plus twice the port's own rounding floor, measured
-    from both inits rounded once; without --nest-obs-pattern both verbs
-    refuse the section."""
+    and inputs (16×16×6 parent, ratio-2 child, K = 4, 4 parent steps), with
+    the TOML `process` appended (a [process] table): the parent's and the
+    child's analyses (OUT and OUT/nest) to the restart increments bound plus
+    twice the port's own rounding floor, measured from both inits rounded
+    once; without --nest-obs-pattern both verbs refuse the section."""
     from test_cli_nested import _write_inputs
     cfg_path = _write_inputs(tmp_path)
+    cfg_path.write_text(cfg_path.read_text() + process)
     args = ["cycle", "--config", str(cfg_path), "--cycles", "1",
             "--steps-per-cycle", "4", "--obs-pattern",
             str(tmp_path / "obs{cycle}.dat")]
@@ -304,6 +305,54 @@ def _cycle_nested_agrees(tmp_path, refused: bool):
                  for n, a, b in zip(DycoreState._fields, got, got2)}
         assert_increments(got, ens0, ref, extra=floor)
         assert np.abs(got.rhot - ens0.rhot).max() > 0
+
+
+PROCESS = """
+[process]
+mesh_member = 2
+mesh_y = 2
+mesh_x = 2
+"""
+
+
+def test_nested_cycle_verb_on_a_process_grid(tmp_path):
+    """cycle with [nest] and a [process] (2, 2, 2) table, which the port
+    refused until the child ran on the grid: both packages' verbs on the
+    same TOML (the reference's drivers on its mesh) agree as without the
+    table, and the port's parent and child analyses equal its verb's
+    without [process] exactly (the child periodic)."""
+    _cycle_nested_agrees(tmp_path, False, PROCESS)
+    flat = tmp_path / "flat"
+    flat.mkdir()
+    for name in ("init", "cinit", "obs0.dat", "cobs0.dat"):
+        src = tmp_path / name
+        (shutil.copytree if src.is_dir() else shutil.copy)(src, flat / name)
+    (flat / "exp.toml").write_text(
+        (tmp_path / "exp.toml").read_text().replace(PROCESS, ""))
+    out = run(main, "cycle", "--config", str(flat / "exp.toml"), "--init",
+              str(flat / "init"), "--cycles", "1", "--steps-per-cycle", "4",
+              "--obs-pattern", str(flat / "obs{cycle}.dat"), "--nest-init",
+              str(flat / "cinit"), "--nest-obs-pattern",
+              str(flat / "cobs{cycle}.dat"), "--out", str(flat / "port"),
+              "--device", "cpu")
+    assert "transpose" not in out
+    for sub in ("", "nest"):
+        got, _, _ = checkpoint.load_ensemble(tmp_path / "port" / sub)
+        want, _, _ = checkpoint.load_ensemble(flat / "port" / sub)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_streamed_cycle_is_refused_on_a_process_grid(tmp_path):
+    """cycle --streamed with a [process] table still exits with its
+    message (the streamed executor on a grid is not ported)."""
+    (tmp_path / "exp.toml").write_text(CONFIG + PROCESS)
+    with pytest.raises(SystemExit,
+                       match=r"--streamed does not run on a \[process\] grid"):
+        main(["cycle", "--config", str(tmp_path / "exp.toml"), "--init",
+              str(tmp_path / "init"), "--cycles", "1", "--steps-per-cycle",
+              "1", "--obs-pattern", str(tmp_path / "obs.dat"), "--out",
+              str(tmp_path / "out"), "--streamed", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("case,item", [

@@ -13,8 +13,9 @@ deterministic member and additive inflation, the letkf and cycle verbs
 with them, the Jacobi eigensolver, EFSO, the full-size executors
 (coarsened: the tiled, streamed and resident cycles and cycle --streamed),
 the cycle verb with a nested child in the open lateral mode and the fused
-cycle on the card against the same runs on the CPU (which the parity tests hold against the reference
-package).
+cycle on the card against the same runs on the CPU (which the parity tests
+hold against the reference package); the grid's SI halo step and its fused
+cycle against the undecomposed runs on the card.
 Stencil bounds per field, relative to max|plain|: 2e-5 for the whole
 tendency, 1e-5 for the tracers (the reference's bounds for its Pallas
 kernels).
@@ -545,3 +546,18 @@ def test_cuda_grid_si_halo_step_matches_undecomposed(cuda_device):
         assert bool(torch.isfinite(a).all())
         torch.testing.assert_close(a, b, rtol=3e-5,
                                    atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_grid_fused_cycle_is_undecomposed(cuda_device):
+    """One FusedCycle step of the radar configuration coarsened to 24 × 24
+    columns (K = 20, 15 steps, 400 REF/VR gates; gpu_check.
+    fused_grid_on_device) on a (2, 2, 2) grid in this process equals the
+    undecomposed step on the card bit for bit — the analysis ensemble, the
+    inflation, the obs counts, O−B and O−A by group and the guess and
+    analysis means — with every kernel launched as expected on the grid:
+    #2 and #3 on every block's batch, #1 on every share's level chunks."""
+    res = gpu_check.fused_grid_on_device(cuda_device, RADAR_CONFIG)
+    assert res["bit_equal"], res
+    assert res["kernel_launches"] == res["expected_launches"], res
+    assert res["nobs_used"] > 0

@@ -65,9 +65,10 @@ def _obs(o):
         "elem", "lon", "lat", "lev", "dat", "err", "typ", "dif", "meta")})
 
 
-def _port_driver(driver_r, cfg):
+def _port_driver(driver_r, cfg, mesh=None):
     """The port's CycleDriver of the reference driver's grid, dycore and
-    reference columns, with the port's copy of its config."""
+    reference columns, with the port's copy of its config (on the process
+    grid `mesh` when given)."""
     g = driver_r.grid
     grid = Grid(nx=g.nx, ny=g.ny, nz=g.nz, dx=g.dx, dy=g.dy, cz=g.cz, fz=g.fz,
                 proj=Projection(kind=g.proj.kind))
@@ -78,7 +79,7 @@ def _port_driver(driver_r, cfg):
     def col(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.float32)
     return CycleDriver(grid, cfg, dycfg, col(driver_r.rho_ref),
-                       col(driver_r.p_ref))
+                       col(driver_r.p_ref), mesh=mesh)
 
 
 def _conv_cfg():
@@ -115,9 +116,11 @@ def conv():
             "dat": np.asarray(obs.dat)}
 
 
-def _radar_case():
+def _radar_case(NY=12, NX=12):
     """tests/test_fastcycle.py's radar template and forecast ensemble,
-    with the port's config and driver beside the reference's."""
+    with the port's config and driver beside the reference's, on NY × NX
+    columns; the initial ensemble and nature member under 'ens' and
+    'truth0'."""
     from scale_letkf_tpu.config import (
         Config, EnsembleConfig, LetkfConfig, RadarConfig)
     from scale_letkf_tpu.cycle import CycleDriver as RefDriver
@@ -134,7 +137,7 @@ def _radar_case():
     from scale_letkf_tpu.state import state_to_history
     from test_radar_osse import seed_rain
 
-    NZ, NY, NX, DZ, DX, K = 12, 12, 12, 500.0, 2000.0, 8
+    NZ, DZ, DX, K = 12, 500.0, 2000.0, 8
     grid = RefGrid.uniform(nx=NX, ny=NY, nz=NZ, dx=DX, dy=DX, dz=DZ,
                            proj=RefProjection(kind="LC"))
     vl = tuple([0.2] + [-1.0] * 20 + [1500.0, -1.0, -1.0])
@@ -192,17 +195,18 @@ def _radar_case():
     template_r = preprocess_radar_obs(obs, cfg)
     assert (template_r.elem == ID_RADAR_REF_ZERO).any()
     assert (template_r.elem == ID_RADAR_REF).any()
-    return (driver_r, _port_driver(driver_r, cfg_p), (cfg, cfg_p),
-            template_r, _np(ens_f))
+    return {"driver_r": driver_r, "driver": _port_driver(driver_r, cfg_p),
+            "cfg_r": cfg, "cfg": cfg_p, "template_r": template_r,
+            "ens_f": _np(ens_f), "ens": _np(ens), "truth0": _np(truth0)}
 
 
 @pytest.fixture(scope="module")
 def radar():
-    driver_r, driver, (cfg_r, cfg), template_r, ens_f = _radar_case()
-    return {"driver_r": driver_r, "driver": driver, "cfg_r": cfg_r,
-            "cfg": cfg, "template_r": template_r, "ens_f": ens_f,
-            "fc_r": RefFused(driver_r, template_r, nsteps=5),
-            "fc": FusedCycle(driver, _obs(template_r), nsteps=5)}
+    case = _radar_case()
+    return {**case,
+            "fc_r": RefFused(case["driver_r"], case["template_r"], nsteps=5),
+            "fc": FusedCycle(case["driver"], _obs(case["template_r"]),
+                             nsteps=5)}
 
 
 def test_structural_context_matches_reference(radar):

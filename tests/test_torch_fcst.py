@@ -219,8 +219,10 @@ def test_terrain_and_mesh_raise(runs, tmp_path):
     """A topo_file, which raised NotImplementedError until model/terrain.py
     was ported, now builds a driver with terrain metrics and z_full on the
     topography; a [process] grid, which raised until parallel/ was ported,
-    builds a driver on the grid, and terrain under the explicit core on a
-    grid that decomposes the domain raises the reference's refusal."""
+    builds a driver on the grid; and terrain under the explicit core on a
+    grid that decomposes the domain, which raised the reference's refusal
+    of its explicit halo until the explicit halo step took metrics, builds
+    a driver on the grid with each block's halo-extended metrics."""
     tmp, _, _ = runs
     cfg, grid, dycfg, dom = load_config_and_grid(str(tmp / "exp.toml"))
     np.savez(tmp_path / "topo.npz", topo=np.full((12, 12), 100.0))
@@ -232,9 +234,14 @@ def test_terrain_and_mesh_raise(runs, tmp_path):
     cfg.process.mesh_member = 2
     assert make_driver(cfg, grid, dycfg, dom, CPU).mesh.shape == (2, 1, 1)
     cfg.process.mesh_y = 2
-    with pytest.raises(NotImplementedError, match="terrain requires core"):
-        make_driver(cfg, grid, dycfg,
-                    {**dom, "topo_file": str(tmp_path / "topo.npz")}, CPU)
+    driver = make_driver(cfg, grid, dycfg,
+                         {**dom, "topo_file": str(tmp_path / "topo.npz")},
+                         CPU)
+    assert driver.core == "explicit" and driver.mesh.shape == (2, 2, 1)
+    assert driver.exchange and driver.metrics is not None
+    assert sorted(driver._metrics_ext) == list(driver.mesh.local)
+    for b, m in driver._metrics_ext.items():
+        assert m.gx.shape[-2:] == (12 // 2 + 8, 12 + 8)
 
 
 def test_synthetic_ensemble_matches_reference_construction():

@@ -47,12 +47,11 @@ from scale_letkf_tpu.cli.main import load_config_and_grid as ref_load
 from scale_letkf_tpu.cli.main import make_driver as ref_make_driver
 from scale_letkf_tpu.model.dycore import lateral_bc
 from scale_letkf_torch import cycle as cycle_mod
+from scale_letkf_torch import gpu_check
 from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
 from scale_letkf_torch.io.convert import (
     dycore_state_to_numpy, dycore_state_to_torch,
 )
-from scale_letkf_torch.model.dycore_si import SplitConfig
-from scale_letkf_torch.parallel import halo
 from scale_letkf_torch.parallel.mesh import Sharded, make_mesh
 from scale_letkf_torch.state import ensemble_mean
 from test_torch_cycle import (
@@ -111,16 +110,6 @@ def _global(driver, x):
     return driver.mesh.gather_ensemble(x) if isinstance(x, Sharded) else x
 
 
-def _halo_dynamics(driver, mesh):
-    """The driver's dynamics step replaced by the SI halo step of the whole
-    ensemble on `mesh` (the grid's dynamics, the undecomposed physics and
-    schedule)."""
-    dc = driver.dycfg
-    driver._dyn_step = lambda s: halo.rk3_step_si_halo_ens(
-        s, dc, SplitConfig(dtau=dc.dt / driver.n_small), driver.rho_ref,
-        driver.p_ref, driver.z_centers, mesh, driver.n_small, driver.vg)
-
-
 def _two_calls(driver, ens):
     """5 steps, then 3 more continuing the first call's skin temperature:
     (state and tsfc after the first, state and tsfc after the second), all
@@ -146,7 +135,7 @@ def test_grid_physics_forecast_is_undecomposed(kind, lateral, bdy_file):
         mesh = make_mesh(*shape)
         ref = _port(kind, lateral, bdy_file)[0]
         if lateral == "open" and mesh.spatial:
-            _halo_dynamics(ref, mesh)
+            gpu_check.halo_dynamics(ref, mesh)
         want = _two_calls(ref, ens)
         d = _port(kind, lateral, bdy_file, shape)[0]
         assert d.mesh == mesh

@@ -248,3 +248,40 @@ def test_cycle_verb_over_four_processes(tmp_path):
     init, _, _ = checkpoint.load_ensemble(tmp_path / "init")
     assert_increments(one_grid, init, one)
     shutil.rmtree(tmp_path / "init")
+
+
+def test_fused_cycle_over_four_gloo_processes(tmp_path):
+    """The fused radar cycle (tests/test_torch_fastcycle.py's radar case at
+    16 × 16 columns, K = 8, 2 cycles of 5 steps through FusedCycle.run_osse)
+    on a (2, 2, 2) grid over 4 gloo processes × 2 blocks, each process
+    holding its own members' blocks (tests/torch_mp_worker.py run_fused),
+    equals the same grid in one process exactly: the final ensemble, the
+    nature run, the errors against it, the obs counts and the O−B / O−A
+    by group. Here alone the fused cycle's cross-process reductions run:
+    every slab's H(x) and QC routed to every process for the worst QC,
+    the mean of H(x) and the radar min-member count, and the ensemble
+    transpose between processes."""
+    import torch_mp_worker as w
+    from test_torch_fastcycle import _radar_case
+    case = _radar_case(16, 16)
+    d, t = case["driver_r"], case["template_r"]
+    np.savez(tmp_path / "inputs.npz", **_fields("ens", case["ens"]),
+             **_fields("nat", case["truth0"]),
+             **{f"t_{k}": np.asarray(getattr(t, k)) for k in (
+                 "elem", "lon", "lat", "lev", "dat", "err", "typ", "dif",
+                 "meta")},
+             g_cz=np.asarray(d.grid.cz), g_fz=np.asarray(d.grid.fz),
+             g_dx=d.grid.dx, g_dz=d.dycfg.dz,
+             rho_ref=np.asarray(d.rho_ref, np.float32),
+             p_ref=np.asarray(d.p_ref, np.float32))
+    port = _free_port()
+    worker = str(ROOT / "tests" / "torch_mp_worker.py")
+    outs = _spawn(lambda r: [sys.executable, worker, str(r), str(WORLD),
+                             str(port), str(tmp_path), "fused"], ROOT)
+    assert all(f"OK {r}" in o for r, o in enumerate(outs))
+    got = np.load(tmp_path / "fused_out.npz")
+    one = w.run_fused(np.load(tmp_path / "inputs.npz"), make_mesh(2, 2, 2))
+    assert sorted(got.files) == sorted(one)
+    for k, v in one.items():
+        np.testing.assert_array_equal(got[k], v, k)
+    assert (one["nobs_used"] > 0).all() and "omb_by_group_REF" in one

@@ -115,15 +115,16 @@ def test_parent_to_child_matches_reference(i0, j0, ratio):
         assert torch.equal(a, b)
 
 
-def _nest_case(lateral):
-    """Both packages' parent and child drivers for CONFIG with the child's
-    lateral mode, the parent ensemble and nature run (numpy), the child
-    ensemble (the reference's parent_to_child of the parent's), and one
-    cycle's obs in both domains (from the nature run advanced 4 steps)."""
+def _nest_case(lateral, config=CONFIG, extra=""):
+    """Both packages' parent and child drivers for `config` (CONFIG) with
+    the child's lateral mode and the TOML `extra` appended (a [process]
+    table), the parent ensemble and nature run (numpy), the child ensemble
+    (the reference's parent_to_child of the parent's), and one cycle's obs
+    in both domains (from the nature run advanced 4 steps)."""
     import tempfile
     from pathlib import Path
-    text = CONFIG.replace("bdy_tau = 60.0",
-                          f"bdy_tau = 60.0\nlateral = \"{lateral}\"")
+    text = config.replace("bdy_tau = 60.0",
+                          f"bdy_tau = 60.0\nlateral = \"{lateral}\"") + extra
     path = Path(tempfile.mkdtemp()) / "exp.toml"
     path.write_text(text)
     cfg_r, grid_r, dycfg_r, dom_r = ref_load(str(path))

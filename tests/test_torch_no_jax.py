@@ -159,3 +159,71 @@ def test_grid_physics_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+def test_grid_executors_run_without_jax():
+    """This slice's grid paths import and run with jax and the JAX package
+    unimportable: the explicit core over terrain on (1, 2, 2)
+    (gpu_check.terrain_grid_step_on_device) bit-equal to the undecomposed
+    step; a FusedCycle step of the radar configuration (16 × 16 columns,
+    12 levels, K = 4, a dBZ template from a member) on (2, 2, 2) equal to
+    the undecomposed step; and the nested bracket of a parent Sharded
+    (NestedCycleDriver.p2c on two (2, 2, 2) drivers) equal to the global
+    bracket."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['scale_letkf_tpu'] = None\n"
+        "import numpy as np, torch\n"
+        "from scale_letkf_torch import gpu_check\n"
+        "from scale_letkf_torch.cli.main import (load_config_and_grid,\n"
+        "    make_driver)\n"
+        "from scale_letkf_torch.da.fastcycle import FusedCycle\n"
+        "from scale_letkf_torch.model.dycore import to_collocated\n"
+        "from scale_letkf_torch.model.nesting import NestGeometry\n"
+        "from scale_letkf_torch.nested import NestedCycleDriver\n"
+        "from scale_letkf_torch.state import state_to_history, state_trans\n"
+        "from scale_letkf_torch.synthetic import synthetic_ens_dycore_device\n"
+        "cpu = torch.device('cpu')\n"
+        "r = gpu_check.terrain_grid_step_on_device(cpu,\n"
+        "    'configs/18km_japan.toml')\n"
+        "assert r['bit_equal'] and r['rhow_moved'] > 0\n"
+        "cfg, g, dc, dom = load_config_and_grid(\n"
+        "    'configs/bda_1km_radar.toml', {'nx': 16, 'ny': 16, 'nz': 12})\n"
+        "cfg.ensemble.member = 4\n"
+        "ens = synthetic_ens_dycore_device(0, 4, g, dom, cpu, u0=5.0,\n"
+        "                                  qr_blob=2e-3)[0]\n"
+        "d0 = make_driver(cfg, g, dc, dom, cpu)\n"
+        "m0 = type(ens)(*(x[0] for x in ens))\n"
+        "tmpl = gpu_check.dbz_template(state_to_history(state_trans(\n"
+        "    to_collocated(m0)), d0.z_full, d0.topo),\n"
+        "    gpu_check.radar_template(g, dom, 0, 96), g, cfg, d0.z_full,\n"
+        "    np.random.default_rng(0))\n"
+        "outs = []\n"
+        "for shape in ((1, 1, 1), (2, 2, 2)):\n"
+        "    (cfg.process.mesh_member, cfg.process.mesh_y,\n"
+        "     cfg.process.mesh_x) = shape\n"
+        "    d = make_driver(cfg, g, dc, dom, cpu)\n"
+        "    fc = FusedCycle(d, tmpl, 2)\n"
+        "    e, infl, diag = fc.step(ens, torch.as_tensor(fc.template.dat,\n"
+        "        dtype=torch.float32), fc.initial_inflation())\n"
+        "    e = d.mesh.gather_ensemble(e) if d.mesh else e\n"
+        "    outs.append([*e, infl, diag['anal_mean'], diag['omb_rmse']])\n"
+        "assert all(torch.equal(a, b) for a, b in zip(*outs))\n"
+        "cfg, g, dc, dom = load_config_and_grid('configs/18km_japan.toml',\n"
+        "    {'nx': 32, 'ny': 24, 'nz': 6})\n"
+        "cfg.ensemble.member = 4\n"
+        "cfg.process.mesh_member = cfg.process.mesh_y = 2\n"
+        "cfg.process.mesh_x = 2\n"
+        "p = make_driver(cfg, g, dc, dom, cpu)\n"
+        "c = gpu_check._nest_grid_child(cfg, g, dc, dom, cpu)\n"
+        "n = NestedCycleDriver(p, c, NestGeometry(12.0, 8.0, 3))\n"
+        "e = synthetic_ens_dycore_device(1, 4, g, dom, cpu, u0=10.0)[0]\n"
+        "got = c.mesh.gather_ensemble(n.p2c(p.mesh.shard_ensemble(e)))\n"
+        "assert all(torch.equal(a, b) for a, b in zip(got, n.p2c(e)))\n"
+        "assert sys.modules['jax'] is None\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")

@@ -1,10 +1,11 @@
 """One process of tests/test_torch_multiprocess.py: the port on a (2, 2, 2)
 process grid over 4 gloo processes of 2 blocks each. It imports no jax.
 
-    python tests/torch_mp_worker.py RANK WORLD PORT DIR
+    python tests/torch_mp_worker.py RANK WORLD PORT DIR [fused]
 
 Reads DIR/inputs.npz (written by the test), then on the grid of
-global_device_mesh(2, 2, 2):
+global_device_mesh(2, 2, 2) — with `fused`, run_fused's fused radar cycle
+alone (DIR/fused_out.npz), else:
 1. two split-explicit halo steps with terrain (rk3_step_si_halo_ens) of the
    4-member ensemble `si_*`, gathered onto every process;
 2. one run_osse cycle of 2 steps of tests/test_torch_cycle.py's coarsened
@@ -48,6 +49,54 @@ def state(z, prefix):
                                   for k in DycoreState._fields], CPU)
 
 
+def run_fused(z, mesh) -> dict:
+    """tests/test_torch_fastcycle.py's radar case (its template `t_*`, its
+    8-member ensemble `ens_*` and nature member `nat_*` on the grid `g_*`,
+    its radar configuration) through FusedCycle on a driver on `mesh`, each
+    process holding its own members' blocks: run_osse of 2 cycles of 5
+    steps (seed 4). Returns the global final ensemble, nature run and
+    series (numpy)."""
+    from scale_letkf_torch import config as pcfg
+    from scale_letkf_torch.cycle import CycleDriver
+    from scale_letkf_torch.da.fastcycle import FusedCycle
+    from scale_letkf_torch.grid import Grid, Projection
+    from scale_letkf_torch.obs.types import Observations
+    K = 8
+    cfg = pcfg.Config(ensemble=pcfg.EnsembleConfig(member=K),
+                      letkf=pcfg.LetkfConfig(infl_mul=1.05),
+                      radar=pcfg.RadarConfig(method_ref_calc=3,
+                                             min_radar_ref_member=1,
+                                             radar_ref_thres_dbz=10.0))
+    cfg.letkf_obs.hori_local = tuple([4.0e3] + [-1.0] * 23)
+    cfg.letkf_obs.vert_local = tuple([0.2] + [-1.0] * 20
+                                     + [1500.0, -1.0, -1.0])
+    ny, nx = z["ens_rho"].shape[-2:]
+    dx, dz = float(z["g_dx"]), float(z["g_dz"])
+    grid = Grid(nx=nx, ny=ny, nz=len(z["g_cz"]), dx=dx, dy=dx, cz=z["g_cz"],
+                fz=z["g_fz"], proj=Projection(kind="LC"))
+    driver = CycleDriver(grid, cfg, DycoreConfig(dx=dx, dy=dx, dz=dz, dt=1.0,
+                                                 ztop=float(z["g_fz"][-1])),
+                         torch.from_numpy(z["rho_ref"]),
+                         torch.from_numpy(z["p_ref"]), mesh=mesh)
+    template = Observations(**{k: z[f"t_{k}"] for k in (
+        "elem", "lon", "lat", "lev", "dat", "err", "typ", "dif", "meta")})
+    fc = FusedCycle(driver, template, 5)
+    ens = state(z, "ens")
+    local = ensemble_from_process_local(
+        mesh, DycoreState(*(f[mesh.local_members(K)] for f in ens)))
+    truth, ens_a, series = fc.run_osse(state(z, "nat"), local, n_cycles=2,
+                                       seed=4)
+    ens_a = mesh.gather_ensemble(ens_a)
+    out = {f"ens_{k}": f.numpy() for k, f in zip(DycoreState._fields, ens_a)}
+    out.update({f"nat_{k}": f.numpy()
+                for k, f in zip(DycoreState._fields, truth)})
+    for k in ("rmse_gues", "rmse_anal", "omb", "oma", "nobs_used"):
+        out[k] = series[k].numpy()
+    for k in ("omb_by_group", "oma_by_group"):
+        out.update({f"{k}_{n}": v.numpy() for n, v in series[k].items()})
+    return out
+
+
 def main():
     rank, world, port, out_dir = (int(sys.argv[1]), int(sys.argv[2]),
                                   int(sys.argv[3]), Path(sys.argv[4]))
@@ -57,6 +106,14 @@ def main():
                      backend="gloo")
     mesh = global_device_mesh(2, 2, 2)
     assert mesh.world == world and len(mesh.local) == 2
+    if sys.argv[5:] == ["fused"]:
+        out = run_fused(z, mesh)
+        if rank == 0:
+            np.savez(out_dir / "fused_out.npz", **out)
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        print(f"OK {rank}")
+        return
 
     # 1. the SI halo step with terrain
     cfg = DycoreConfig(**{k: float(z[f"cfg_{k}"]) for k in (
