@@ -235,6 +235,10 @@ executors, the nested and the fused cycles:
                       calls by site, peak, and launches against
                       gpu_check.expected_launches for 8 blocks and 8
                       shares with the nature run's batch of one
+ 46. mesh_fused_real — every kernel vs plain on phase 45's own operands:
+                      #1 on the first share's first level chunk of Grams
+                      (4,608 of them), #2 and #3 on the final nature state
+                      as a batch of one at 192 × 192
  38. nested_small   — the cycle verb with a [nest] section (the child
                       open) at tests/test_cli_nested.py's size on the card
                       against the CPU
@@ -290,7 +294,7 @@ executors, the nested and the fused cycles:
                       phase 43 at its member batch
 
 The phases run in the order 1–16, 40–42, 17, 18, 43, 44, 19–37, 45,
-38, 39. Each
+46, 38, 39. Each
 phase prints one JSON line; any failed check raises, so the script
 exits non-zero. Every kernel-vs-plain check runs the kernel twice and holds
 both runs to the bound (invsqrt_ns, which has no atomics, must also give
@@ -309,7 +313,8 @@ the kernel's time in the cycle, each size under `shapes`; the physics
 cycle's times under `physics_cycle`, the radar grid's under `radar_grid`,
 #1 on the production cycle's Grams under `production_grams`, each kernel
 on the nested child's operands under `child_grid` — #2 and #3 in the open
-mode, with both modes' times), and its bound:
+mode, with both modes' times —, each kernel on the fused grid cycle's
+operands under `fused_grid`, phase 46), and its bound:
 the larger of the bytes it must move over 3.35 TB/s and its operations
 over the rate of the units that do them, computed from those operands —
 67 TFLOP/s FP32 for the stencils, and for invsqrt_ns's 3xTF32 tensor-core
@@ -3323,13 +3328,17 @@ def phase_mesh_fused_radar_cycle(device, kept: dict):
     events), the wall time, sections on the device's clock (no waits:
     forecast/halo, obsope/gather, das_letkf/transpose), the synchronising
     calls by site, the peak and the launches against expected_launches
-    for the blocks and shares (the nature run's batch of one included)."""
+    for the blocks and shares (the nature run's batch of one included).
+    Returns the row and the path's own operands for phase mesh_fused_real:
+    kernel #1's first Grams (the first share's first level chunk) and the
+    final nature state as a batch of one (#2 and #3 at 192 × 192), with
+    the driver's reference column and metric."""
     from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
     from scale_letkf_torch.da.fastcycle import FusedCycle
     from scale_letkf_torch.gpu_check import RADAR_STEPS, expected_launches
+    from scale_letkf_torch.ops import invsqrt as invsqrt_mod
     from scale_letkf_torch.parallel import halo
     from scale_letkf_torch.utils import kernels
-    from scale_letkf_torch.utils.timing import Timer
     cfg, grid, dycfg, dom = load_config_and_grid(str(RADAR_CONFIG))
     (cfg.process.mesh_member, cfg.process.mesh_y,
      cfg.process.mesh_x) = MESH
@@ -3338,16 +3347,26 @@ def phase_mesh_fused_radar_cycle(device, kept: dict):
     states = list(fused_radar_inputs(device, grid, dom, K))
     driver = make_driver(cfg, grid, dycfg, dom, device)
     mesh = driver.mesh
-    fc = FusedCycle(driver, kept["template"], RADAR_STEPS)
-    fc.timer = Timer(device, clock="device")
+    fc = FusedCycle(driver, kept["template"], RADAR_STEPS, timed=True)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    launch, grams = invsqrt_mod.invsqrt_ns_kernel, {}
+
+    def recording(a, areg, *args):
+        if not grams:
+            grams["a"], grams["areg"] = a.clone(), areg.clone()
+        return launch(a, areg, *args)
+
+    invsqrt_mod.invsqrt_ns_kernel = recording
     torch.cuda.reset_peak_memory_stats(device)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    (truth, ens, series), syncs = sync_sites(lambda: fc.run_osse(
-        states.pop(0), states.pop(0), FUSED_CYCLES, seed=SEED))
-    torch.cuda.synchronize()
+    try:
+        (truth, ens, series), syncs = sync_sites(lambda: fc.run_osse(
+            states.pop(0), states.pop(0), FUSED_CYCLES, seed=SEED))
+        torch.cuda.synchronize()
+    finally:
+        invsqrt_mod.invsqrt_ns_kernel = launch
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
     fc.timer.settle()
@@ -3366,6 +3385,7 @@ def phase_mesh_fused_radar_cycle(device, kept: dict):
                      for n, a, b in zip(names, truth, kept["truth"])})
     distance["infl"] = float((series["infl"].cpu() - kept["infl"]).abs().max())
     finite = all(bool(torch.isfinite(f).all()) for f in (*full, *truth))
+    nature = type(truth)(*(f[None].clone() for f in truth))
     del full, truth
     want = kept["numbers"]
     row = {"phase": "mesh_fused_radar_cycle", "config": RADAR_CONFIG.name,
@@ -3403,7 +3423,21 @@ def phase_mesh_fused_radar_cycle(device, kept: dict):
     if not (counts.get("forecast/halo") and counts.get("obsope/gather")
             and counts.get("das_letkf/transpose")):
         raise AssertionError(f"grid sections missing: {counts}")
-    return row
+    return row, {"grams": (grams["a"], grams["areg"]),
+                 "nature": (nature, driver.rho_ref, driver.p_ref, driver.vg,
+                            dycfg)}
+
+
+def phase_mesh_fused_real(operands) -> dict:
+    """Every kernel of the fused grid cycle against its plain version on
+    that run's own operands (phase mesh_fused_radar_cycle): #1 on the
+    first share's first level chunk of Grams, #2 and #3 on the nature
+    run's batch of one at 192 × 192 (the blocks' extended 104 × 104 batch
+    is phase mesh_radar_real's)."""
+    rows = {"invsqrt_ns": check_invsqrt(*operands["grams"],
+                                        "mesh_fused_real")}
+    rows.update(phase_radar_real(operands["nature"], "mesh_fused_real"))
+    return rows
 
 
 def main() -> int:
@@ -3503,8 +3537,10 @@ def main() -> int:
     kept = {}
     fr = phase_fused_radar_cycle(device, rd["wall_s"], keep=kept)
     torch.cuda.empty_cache()
-    mf = phase_mesh_fused_radar_cycle(device, kept)
+    mf, operands = phase_mesh_fused_radar_cycle(device, kept)
     del kept
+    fused_rows = phase_mesh_fused_real(operands)
+    del operands
     torch.cuda.empty_cache()
     phase_nested_small(device)
     # the kernels line: launches of the grid's cycle (mesh_cycle), this
@@ -3518,7 +3554,10 @@ def main() -> int:
     # the production cycle's Grams (phase production_real); radar_grid: the
     # stencil kernels on the radar forecast's operands (phase radar_real);
     # child_grid: each kernel on one launch's operands of the nested
-    # cycle's child — #2 and #3 in the open mode (phase nested_real)
+    # cycle's child — #2 and #3 in the open mode (phase nested_real);
+    # fused_grid: each kernel on the fused grid cycle's own operands — #1
+    # on a share's Grams, #2 and #3 on its nature run (phase
+    # mesh_fused_real)
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "bound_share")
     for name in KERNELS:
@@ -3546,6 +3585,10 @@ def main() -> int:
                 ("open_ms", "periodic_ms") if name != "invsqrt_ns" else ())}
         dc_rows[name]["physics_cycle"] = {k: pc_rows[name][k]
                                           for k in timing}
+        dc_rows[name]["fused_grid"] = {
+            **({"B": fused_rows[name]["B"]} if name == "invsqrt_ns" else
+               {"batch": 1, "grid": mf["grid"]}),
+            **{k: fused_rows[name][k] for k in timing}}
         dc_rows[name]["radar_grid"] = (
             {k: radar_rows[name][k] for k in timing}
             if name in radar_rows else None)
@@ -3568,7 +3611,7 @@ def main() -> int:
             "bound_ms", "bound_fp32_ms", "bound_by", "bound_share",
             "gb_per_s", "tflops", "shapes", "det_cycle", "physics_cycle",
             "radar_grid", "radar_block", "production_grams", "streamed_tile",
-            "child_grid")
+            "child_grid", "fused_grid")
     emit({"kernels": [{"name": name, "route": "cuda",
                        "source": f"scale_letkf_torch/csrc/{name}.cu",
                        "replaces": REPLACES[name],

@@ -33,8 +33,8 @@ runs through the ensemble transpose, each share with the whole obs-indexed
 good mask and departures; the back-transform runs per block. Every mean
 over the members is state.ensemble_mean (a member-order sum), so a grid's
 cycle has the undecomposed cycle's bits. The point indices of the shares
-are made once, so on one process a grid step moves nothing from the host
-either.
+are made once (ProcessGrid.share_index, filled when the cycle is built),
+so on one process a grid step moves nothing from the host either.
 
 Restrictions vs the host pipeline (cycle.py), as the reference's: the obs
 template (positions, types, errors) is fixed per FusedCycle; radar
@@ -73,7 +73,7 @@ from scale_letkf_torch.state import (
     NV3D, ensemble_mean, state_to_history, state_trans, state_trans_inv,
 )
 from scale_letkf_torch.utils.device import full_fp32
-from scale_letkf_torch.utils.timing import Timer
+from scale_letkf_torch.utils.timing import EventTimer, Timer
 
 
 class FusedCycle:
@@ -83,16 +83,14 @@ class FusedCycle:
     its process grid, when it has one). template: the fixed network —
     elem/typ/lon/lat/lev/err fixed, `dat` values the input of each cycle.
     Radar obs preprocessed (dBZ + ref-zero relabelling); H08 refused.
-    nsteps: forecast steps per cycle.
+    nsteps: forecast steps per cycle. timed: time the sections of step,
+    assimilate and run_osse in self.timer (CycleDriver's forecast
+    sections while they run, nature, state_trans, obsope, das_letkf,
+    state_trans_inv, monitor; on a grid `gather` and `transpose` inside)
+    on the device's clock (an EventTimer: no waits); off by default."""
 
-    timer: the sections of step, assimilate and run_osse (CycleDriver's
-    forecast sections while they run, nature, state_trans, obsope,
-    das_letkf, state_trans_inv, monitor; on a grid `gather` and
-    `transpose` inside); switched off by default, as sections
-    synchronise. A caller may set Timer(device, clock='device'), which
-    times them without waiting."""
-
-    def __init__(self, driver, template: Observations, nsteps: int):
+    def __init__(self, driver, template: Observations, nsteps: int,
+                 timed: bool = False):
         if np.any(template.elem == ID_H08IR):
             raise NotImplementedError(
                 "fused cycling does not support H08 obs (per-member cloud "
@@ -159,13 +157,14 @@ class FusedCycle:
         self._gp_x, self._gp_y, self._dist_bdy = gridpoint_coords(
             grid, device, dtype)
         self._z_zb = driver.z_full.to(dtype).reshape(nz, ny * nx)
-        # every block's share of the gridpoints (the ensemble transpose's),
-        # an index tensor on the device
-        self._points = None if self.mesh is None else {
-            b: torch.as_tensor(self.mesh.share_points(b, ny, nx),
-                               device=device)
-            for b in range(self.mesh.n_blocks)}
-        self.timer = Timer(device, enabled=False)
+        if self.mesh is not None:
+            # every block's share of the gridpoints (the ensemble
+            # transpose's) as an index tensor on the device, made here so
+            # a step copies nothing from the host
+            for b in range(self.mesh.n_blocks):
+                self.mesh.share_index(b, ny, nx, self._err.device)
+        self.timer = (EventTimer(device) if timed
+                      else Timer(device, enabled=False))
 
     @contextmanager
     def _timed(self):
@@ -231,8 +230,7 @@ class FusedCycle:
     def _gather(self, shares: dict, lead: tuple) -> torch.Tensor:
         """Per-gridpoint share results as one (*lead, ny, nx) tensor."""
         g = self.grid
-        return self.mesh.gather_points(shares, g.ny, g.nx,
-                                       self._points).reshape(
+        return self.mesh.gather_points(shares, g.ny, g.nx).reshape(
             *lead, g.ny, g.nx)
 
     def _mean(self, ens) -> torch.Tensor:
@@ -336,8 +334,8 @@ class FusedCycle:
         outs = {k: {} for k in ("infl", "nobs", "gues_mean", "anal_mean")}
         chunks = []
         for b in list(shares):
-            pts = self._points[b]
             g = shares.pop(b)
+            pts = mesh.share_index(b, ny, nx, g.device)
             outs["gues_mean"][b] = ensemble_mean(g)
             res = analyze_points(self._plan, dctx, g, None, infl0_zb[:, pts],
                                  *(a[..., pts] for a in args))
@@ -352,10 +350,9 @@ class FusedCycle:
         with self.timer.section("transpose"):
             anal = mesh.from_points(shares, K, ny, nx)
             shares.clear()
-        infl = (mesh.gather_points(outs["infl"], ny, nx, self._points)
+        infl = (mesh.gather_points(outs["infl"], ny, nx)
                 if outs["infl"] else None)
-        return (anal, infl,
-                mesh.gather_points(outs["nobs"], ny, nx, self._points),
+        return (anal, infl, mesh.gather_points(outs["nobs"], ny, nx),
                 self._gather(outs["gues_mean"], (nv, nz)),
                 self._gather(outs["anal_mean"], (nv, nz)), chunks)
 

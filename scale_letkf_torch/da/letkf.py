@@ -467,8 +467,8 @@ def analyze(
         with maybe_section(timer, "transpose"):
             shares = mesh.to_points(gues)
             gues.blocks.clear()
-        points = {b: torch.as_tensor(mesh.share_points(b, ny, nx),
-                                     device=device) for b in shares}
+        points = {b: mesh.share_index(b, ny, nx, shares[b].device)
+                  for b in shares}
     else:
         shares, points = {0: gues.reshape(K, nv, nz, B)}, {0: slice(None)}
     stats = ("gues_mean", "gues_sprd", "anal_mean", "anal_sprd")

@@ -34,6 +34,7 @@ import torch
 
 from scale_letkf_torch.ops.eigh_jacobi import eigh_jacobi
 from scale_letkf_torch.ops.invsqrt import invsqrt_newton_schulz, invsqrt_ns
+from scale_letkf_torch.state import member_sum
 from scale_letkf_torch.utils.device import full_fp32
 from scale_letkf_torch.utils.timing import Timer, maybe_section
 
@@ -231,19 +232,6 @@ def weight_rtpp(trans: torch.Tensor, infl: torch.Tensor,
             + diag[..., None, None] * _eye_like(K, trans))
 
 
-def member_sum(terms: torch.Tensor) -> torch.Tensor:
-    """Σ_k over the last (member) axis of terms (..., K), added in member
-    order by elementwise launches: each point's sum has the same bits in
-    any batch or layout, where a reduction or a batched matrix-vector
-    kernel sums in an order its shape chooses (the RTPS factors and
-    weights of a grid share parted from the undecomposed analysis's by an
-    ulp on the card)."""
-    acc = terms[..., 0].clone()
-    for k in range(1, terms.shape[-1]):
-        acc += terms[..., k]
-    return acc
-
-
 def rtps_factor(pao: torch.Tensor, xb: torch.Tensor, infl: torch.Tensor,
                 alpha: float) -> torch.Tensor:
     """The RTPS factor m = α·sqrt(var_g·infl / (var_a·(K-1))) − α + 1 of
@@ -256,21 +244,11 @@ def rtps_factor(pao: torch.Tensor, xb: torch.Tensor, infl: torch.Tensor,
     pa_xb = weight_update(xb.reshape(-1, *xb.shape[-2:]),
                           pao.transpose(-1, -2).contiguous()).reshape(
         xb.shape)
-    var_g = member_sum(xb * xb)
-    var_a = member_sum(xb * pa_xb)
+    var_g = member_sum(xb * xb, -1)
+    var_a = member_sum(xb * pa_xb, -1)
     safe = (var_g > 0) & (var_a > 0)
     ratio = var_g * infl / (torch.where(safe, var_a, 1.0) * (K - 1))
     return torch.where(safe, alpha * torch.sqrt(ratio) - alpha + 1.0, 1.0)
-
-
-def weight_rtps(trans: torch.Tensor, pao: torch.Tensor, xb: torch.Tensor,
-                infl: torch.Tensor, alpha: float):
-    """Relaxation to prior spread, Whitaker & Hamill 2012
-    (letkf_tools.f90:1971-2004): W ← W·m, m = rtps_factor. xb (..., B, K)
-    is one variable's forecast perturbations (or several, a leading
-    axis); trans and pao (B, K, K). Returns (W_scaled, m)."""
-    m = rtps_factor(pao, xb, infl, alpha)
-    return trans * m[..., None, None], m
 
 
 def rtps_update(pert: torch.Tensor, trans: torch.Tensor,
@@ -285,7 +263,7 @@ def rtps_update(pert: torch.Tensor, trans: torch.Tensor,
     on an NVIDIA H100 80GB HBM3 at 700.00 W)."""
     b = beta[:, None]
     return (weight_update(pert, trans) * (m[..., None] * b)
-            + (member_sum(pert * transm) * beta)[..., None]
+            + (member_sum(pert * transm, -1) * beta)[..., None]
             + (1.0 - b) * pert)
 
 

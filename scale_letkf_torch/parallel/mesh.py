@@ -35,7 +35,7 @@ reference's shard_map specs ask the same).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -91,6 +91,8 @@ class ProcessGrid:
     n_dx: int = 1
     rank: int = 0
     world: int = 1
+    _index: dict = field(default_factory=dict, init=False, repr=False,
+                         compare=False)
 
     def __post_init__(self):
         if min(self.n_member, self.n_dy, self.n_dx) < 1:
@@ -298,6 +300,18 @@ class ProcessGrid:
         pts = self.points(b, ny, nx)
         return pts[self.share(b, pts.size)]
 
+    def share_index(self, b: int, ny: int, nx: int,
+                    device: torch.device) -> torch.Tensor:
+        """share_points as an index tensor on `device`, made once for each
+        (block, ny, nx, device): a caller that gathers every cycle copies
+        nothing from the host (a copy that waits for the device) after the
+        first."""
+        key = (b, ny, nx, device)
+        if key not in self._index:
+            self._index[key] = torch.as_tensor(self.share_points(b, ny, nx),
+                                               device=device)
+        return self._index[key]
+
     def to_points(self, sh: Sharded) -> dict[int, torch.Tensor]:
         """The 'ensemble transpose' (the reference's
         scatter_grd_mpi_alltoall, common_mpi_scale.f90:1279): from blocks
@@ -356,11 +370,9 @@ class ProcessGrid:
             K, ny, nx)
 
     def gather_points(self, shares: dict[int, torch.Tensor], ny: int,
-                      nx: int, points: dict | None = None) -> torch.Tensor:
+                      nx: int) -> torch.Tensor:
         """Per-gridpoint results of every share (each (*lead, B_p)) as one
-        (*lead, ny·nx) tensor on every process. points: every block's
-        share_points as an index tensor on the shares' device, made once by
-        a caller that gathers every cycle (else copied from the host)."""
+        (*lead, ny·nx) tensor on every process."""
         proto = next(iter(shares.values()))
         lead = proto.shape[:-1]
         nb = (ny // self.n_dy) * (nx // self.n_dx)
@@ -375,10 +387,8 @@ class ProcessGrid:
         out = torch.empty((*lead, ny * nx), dtype=proto.dtype,
                           device=proto.device)
         for b in range(self.n_blocks):
-            pts = (torch.as_tensor(self.share_points(b, ny, nx),
-                                   device=proto.device)
-                   if points is None else points[b])
-            out[..., pts] = got[b * self.world + self.rank][0]
+            out[..., self.share_index(b, ny, nx, proto.device)] = \
+                got[b * self.world + self.rank][0]
         return out
 
 

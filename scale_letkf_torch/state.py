@@ -159,17 +159,23 @@ def state_to_history(anal: torch.Tensor, z_full: torch.Tensor,
     return f
 
 
-def ensemble_mean(stack: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """Ensemble mean over the member axis (ensmean_grd analogue): the
-    members' sum in member order, over K. Element-wise adds, so every
-    gridpoint's mean has the same bits whatever the layout around it — the
-    whole domain, a level, or a process grid's share of its columns (a
-    reduction kernel's summation order depends on the tensor's shape)."""
+def member_sum(stack: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The sum over the member axis `dim`, added in member order.
+    Element-wise adds, so every point's sum has the same bits whatever the
+    layout around it — the whole domain, a level, a batch of points, or a
+    process grid's share of its columns (a reduction kernel's summation
+    order depends on the tensor's shape)."""
     stack = stack.movedim(dim, 0)
     acc = stack[0].clone()
     for k in range(1, stack.shape[0]):
         acc += stack[k]
-    return acc.div_(stack.shape[0])
+    return acc
+
+
+def ensemble_mean(stack: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Ensemble mean over the member axis (ensmean_grd analogue):
+    member_sum over K, the same bits in any layout."""
+    return member_sum(stack, dim).div_(stack.shape[dim])
 
 
 def ensemble_spread(stack: torch.Tensor, dim: int = 0) -> torch.Tensor:

@@ -4,11 +4,9 @@ On a CUDA device each section synchronises at its start and end, so the
 device work a section enqueues is charged to that section and not to the
 next one that waits (the USE_MPI_BARRIER analogue). A Timer with enabled
 False neither synchronises nor records: the untimed path of a caller that
-must not wait for the device (da/fastcycle.py). A Timer on the device's
-clock (clock='device') does not wait either: on a CUDA device each section
-records a CUDA event at its start and end, and `settle` (called by
-`report`) waits for the last one and adds the sections' device times to
-`records`; elsewhere it reads the host clock without synchronising."""
+must not wait for the device (da/fastcycle.py). An EventTimer, the timed
+path of that caller, does not wait either: it times its sections on the
+device's clock."""
 
 from __future__ import annotations
 
@@ -23,27 +21,13 @@ import torch
 class Timer:
     device: torch.device
     enabled: bool = True
-    clock: str = "host"
     records: dict[str, float] = field(default_factory=dict)
     counts: dict[str, int] = field(default_factory=dict)
     _stack: list[str] = field(default_factory=list)
-    _pending: list = field(default_factory=list)
-
-    def __post_init__(self):
-        if self.clock not in ("host", "device"):
-            raise ValueError(f"unknown clock {self.clock!r} (valid: 'host', "
-                             f"'device')")
 
     def _sync(self):
-        if self.device.type == "cuda" and self.clock == "host":
+        if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-
-    def _mark(self):
-        if self.device.type == "cuda" and self.clock == "device":
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.perf_counter()
 
     @contextmanager
     def section(self, name: str):
@@ -53,21 +37,57 @@ class Timer:
         full = "/".join(self._stack + [name])
         self._stack.append(name)
         self._sync()
-        t0 = self._mark()
+        t0 = time.perf_counter()
         try:
             yield
         finally:
             self._sync()
-            t1 = self._mark()
-            if isinstance(t0, float):
-                self.records[full] = self.records.get(full, 0.0) + t1 - t0
-            else:
-                self._pending.append((full, t0, t1))
+            dt = time.perf_counter() - t0
+            self.records[full] = self.records.get(full, 0.0) + dt
+            self.counts[full] = self.counts.get(full, 0) + 1
+            self._stack.pop()
+
+    def report(self) -> str:
+        """Sections as an indented table: seconds and calls."""
+        lines = ["== timing =="]
+        for k in sorted(self.records):
+            depth = k.count("/")
+            lines.append(f"{'  ' * depth}{k.split('/')[-1]:<32s} "
+                         f"{self.records[k]:10.3f} s  x{self.counts[k]}")
+        return "\n".join(lines)
+
+
+@dataclass
+class EventTimer(Timer):
+    """A Timer on the device's clock, for FusedCycle(timed=True), which
+    must not wait for the device: on a CUDA device each section records a
+    CUDA event at its start and end and never synchronises; `settle`
+    (called by `report`) waits for the last event and adds the sections'
+    device times to `records`. Elsewhere it is a Timer (the host clock,
+    with nothing to wait for)."""
+    _pending: list = field(default_factory=list)
+
+    @contextmanager
+    def section(self, name: str):
+        if self.device.type != "cuda":
+            with super().section(name):
+                yield
+            return
+        full = "/".join(self._stack + [name])
+        self._stack.append(name)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        try:
+            yield
+        finally:
+            t1 = torch.cuda.Event(enable_timing=True)
+            t1.record()
+            self._pending.append((full, t0, t1))
             self.counts[full] = self.counts.get(full, 0) + 1
             self._stack.pop()
 
     def settle(self) -> None:
-        """Adds the device-clock sections' times to records, waiting for
+        """Adds the pending sections' device times to records, waiting for
         the last section's end event."""
         if not self._pending:
             return
@@ -78,14 +98,8 @@ class Timer:
         self._pending.clear()
 
     def report(self) -> str:
-        """Sections as an indented table: seconds and calls."""
         self.settle()
-        lines = ["== timing =="]
-        for k in sorted(self.records):
-            depth = k.count("/")
-            lines.append(f"{'  ' * depth}{k.split('/')[-1]:<32s} "
-                         f"{self.records[k]:10.3f} s  x{self.counts[k]}")
-        return "\n".join(lines)
+        return super().report()
 
 
 @contextmanager

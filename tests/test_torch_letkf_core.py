@@ -12,7 +12,7 @@ from scale_letkf_torch.ops import invsqrt as port_invsqrt
 from scale_letkf_torch.ops import letkf_core as port_core
 from scale_letkf_torch.ops.letkf_core import (
     letkf_core, pick_solver, total_weight, apply_weights, weight_rtpp,
-    weight_rtps, relax_beta,
+    rtps_factor, rtps_update, relax_beta,
 )
 from oracle_letkf import letkf_core_np, rtpp_np, rtps_np, total_weight_np
 from test_letkf_core import make_problem
@@ -127,9 +127,11 @@ def test_rtpp_rtps_total_weight_match_oracle():
     alpha = 0.6
     w_rtpp = weight_rtpp(res.trans, torch.from_numpy(infl), alpha)
     xb = rng.standard_normal((B, K))
-    w_rtps, m = weight_rtps(res.trans, res.pao, torch.from_numpy(xb),
-                            torch.from_numpy(infl), alpha)
+    m = rtps_factor(res.pao, torch.from_numpy(xb), torch.from_numpy(infl),
+                    alpha)
     beta = rng.uniform(0, 1, B)
+    upd = rtps_update(torch.from_numpy(xb)[None], res.trans, res.transm,
+                      torch.from_numpy(beta), m[None])[0]
     w_tot = total_weight(w_rtpp, res.transm, torch.from_numpy(beta))
     for b in range(B):
         np.testing.assert_allclose(
@@ -137,18 +139,25 @@ def test_rtpp_rtps_total_weight_match_oracle():
             atol=1e-10)
         wr, mr = rtps_np(res.trans[b].numpy(), res.pao[b].numpy(), xb[b],
                          infl[b], alpha)
-        np.testing.assert_allclose(w_rtps[b], wr, atol=1e-10)
         np.testing.assert_allclose(m[b], mr, atol=1e-10)
+        # the RTPS update is Xb'·W' with W' = total_weight(W·m, w̄, β)
+        np.testing.assert_allclose(
+            upd[b], xb[b] @ total_weight_np(wr, res.transm[b].numpy(),
+                                            beta[b]), atol=1e-10)
         np.testing.assert_allclose(
             w_tot[b], total_weight_np(w_rtpp[b].numpy(),
                                       res.transm[b].numpy(), beta[b]),
             atol=1e-10)
     # RTPS with zero perturbations leaves W unchanged, m = 1
-    w0, m0 = weight_rtps(res.trans, res.pao,
-                         torch.zeros(B, K, dtype=torch.float64),
-                         torch.from_numpy(infl), alpha)
-    np.testing.assert_array_equal(w0.numpy(), res.trans.numpy())
+    m0 = rtps_factor(res.pao, torch.zeros(B, K, dtype=torch.float64),
+                     torch.from_numpy(infl), alpha)
     np.testing.assert_array_equal(m0.numpy(), np.ones(B))
+    beta_t = torch.from_numpy(beta)
+    np.testing.assert_allclose(
+        rtps_update(torch.from_numpy(xb)[None], res.trans, res.transm,
+                    beta_t, m0[None])[0].numpy(),
+        np.einsum("bk,bkm->bm", xb, total_weight(
+            res.trans, res.transm, beta_t).numpy()), atol=1e-10)
 
 
 def test_weights_match_reference_f32():
@@ -176,9 +185,12 @@ def test_weights_match_reference_f32():
                                atol=1e-5)
     ws_r, m_r = ref.weight_rtps(j["trans"], j["pao"], j["pert"][0],
                                 j["infl"], 0.7)
-    ws, m = weight_rtps(*_t(trans, pao, pert[0], infl), 0.7)
+    upd_r = jnp.einsum("bk,bkm->bm", j["pert"][0],
+                       ref.total_weight(ws_r, j["transm"], j["beta"]))
+    m = rtps_factor(*_t(pao, pert[0], infl), 0.7)
+    upd = rtps_update(*_t(pert[:1], trans, transm, beta), m[None])[0]
     np.testing.assert_allclose(m.numpy(), np.asarray(m_r), rtol=1e-5)
-    np.testing.assert_allclose(ws.numpy(), np.asarray(ws_r), rtol=1e-5,
+    np.testing.assert_allclose(upd.numpy(), np.asarray(upd_r), rtol=1e-5,
                                atol=1e-5)
 
 

@@ -56,7 +56,7 @@ from scale_letkf_torch.io.convert import (
     dycore_state_to_numpy, dycore_state_to_torch,
 )
 from scale_letkf_torch.parallel.mesh import ProcessGrid, Sharded, make_mesh
-from scale_letkf_torch.utils.timing import Timer
+from scale_letkf_torch.utils.timing import EventTimer, Timer
 from test_fastcycle import _setup as ref_setup
 from test_nested_cycle import CONFIG as NEST_CONFIG
 from test_torch_cycle import (
@@ -106,18 +106,17 @@ def cases():
                       "nsteps": 5}}
 
 
-def _fused(case, mesh=None):
+def _fused(case, mesh=None, timed=False):
     d = _port_driver(case["driver_r"], case["cfg"], mesh)
-    return FusedCycle(d, _obs(case["template_r"]), case["nsteps"])
+    return FusedCycle(d, _obs(case["template_r"]), case["nsteps"],
+                      timed=timed)
 
 
-def _fused_run(case, mesh=None, timer=False):
+def _fused_run(case, mesh=None, timed=False):
     """One step from the initial ensemble, then run_osse of 2 cycles from
     the initial states (seed 4): (step's global ensemble, inflation and
     diag; run_osse's global truth, ensemble and series; the cycle)."""
-    fc = _fused(case, mesh)
-    if timer:
-        fc.timer = Timer(CPU, clock="device")
+    fc = _fused(case, mesh, timed=timed)
     ens, infl, diag = fc.step(dycore_state_to_torch(case["ens"], CPU),
                               torch.as_tensor(case["dat"],
                                               dtype=torch.float32),
@@ -162,10 +161,10 @@ def test_grid_fused_cycle_is_undecomposed(cases, undecomposed, name, shape):
     bit — the ensembles, the nature run, the inflation, the obs counts, the
     O−B and O−A (by group too), the guess and analysis means and the errors
     against the truth. Each grid step gathers every member slab once for
-    H(x) and transposes twice; a Timer on the device's clock records the
+    H(x) and transposes twice; the timed cycle's EventTimer records the
     grid's sections."""
     want = undecomposed[name]
-    got = _fused_run(cases[name], make_mesh(*shape), timer=True)
+    got = _fused_run(cases[name], make_mesh(*shape), timed=True)
     (ens, infl, diag), (truth, ens_o, series), fc = got
     (ens0, infl0, diag0), (truth0, ens_o0, series0), _ = want
     _equal([*ens, infl, *_tensors(diag)], [*ens0, infl0, *_tensors(diag0)])
@@ -192,6 +191,40 @@ def test_grid_fused_step_reads_no_host_index(cases, monkeypatch):
     fc.step(dycore_state_to_torch(cases["radar"]["ens"], CPU),
             torch.as_tensor(cases["radar"]["dat"], dtype=torch.float32),
             fc.initial_inflation())
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_share_index_is_made_once(shape):
+    """ProcessGrid.share_index is share_points on the device, one tensor
+    for each (block, ny, nx, device) however often it is asked for, and
+    gather_points puts every share's values at those points."""
+    mesh, ny, nx = make_mesh(*shape), 8, 12
+    rng = np.random.default_rng(3)
+    shares, want = {}, np.zeros((2, ny * nx), np.float32)
+    for b in range(mesh.n_blocks):
+        idx = mesh.share_index(b, ny, nx, CPU)
+        np.testing.assert_array_equal(idx.numpy(),
+                                      mesh.share_points(b, ny, nx))
+        assert mesh.share_index(b, ny, nx, CPU) is idx
+        shares[b] = rng.standard_normal((2, idx.numel())).astype(np.float32)
+        want[:, idx.numpy()] = shares[b]
+    got = mesh.gather_points({b: torch.from_numpy(v)
+                              for b, v in shares.items()}, ny, nx)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_event_timer_on_the_cpu_is_a_timer():
+    """Off the card an EventTimer reads the host clock as a Timer does:
+    nested sections, their counts and the report."""
+    t = EventTimer(CPU)
+    for _ in range(2):
+        with t.section("a"):
+            with t.section("b"):
+                pass
+    assert t.counts == {"a": 2, "a/b": 2}
+    assert set(t.records) == {"a", "a/b"}
+    assert "a" in t.report() and t._pending == []
+    assert not isinstance(Timer(CPU), EventTimer)
 
 
 def _ref_mesh_fused(case):
