@@ -94,7 +94,8 @@ executors, the nested and the fused cycles:
                       Kessler forecast and a radar cycle (obs from the blobs
                       by calc_ref_vr) on the card against the CPU
  20. production_cycle — phase 15 over the reference bench's synthetic
-                      topography (synthetic_topo, default_rng(7): 12 Gaussian
+                      topography, PROD_STEPS steps (synthetic_topo,
+                      default_rng(7): 12 Gaussian
                       hills up to 400 m, tapered over 12 cells) through
                       CycleDriver(topo=), so every forecast, the nature run
                       included, runs the SI core with terrain metrics (the
@@ -184,10 +185,30 @@ executors, the nested and the fused cycles:
                       synthetic PAWR volume (~888k REF and VR obs) with
                       values from the nature run; ≥ 800k obs into the
                       analysis, O−A below O−B for REF
+ 47. mesh_radar_cycle — the main path of this slice, run right after
+                      phase 33 on its inputs (its blob ensemble on the
+                      host, its ~888k-obs volume): StreamedCycle on
+                      CycleDriver(mesh=make_mesh(2, 2, 2)), batches of 10
+                      members (5 a block) sharded over 8 blocks of 96 × 96
+                      columns and forecast on the grid (halo exchanges,
+                      Kessler on every block), gathered for H(x) and the
+                      download, the tiled analysis undecomposed; the
+                      restart ensemble, inflation, obs used, O−A and the
+                      O−B / O−A tables held exactly to phase 33's; wall
+                      time and phase table beside phase 33's, the grid's
+                      sections, peak, and launches against
+                      gpu_check.expected_launches (no nature run)
+ 48. mesh_streamed_real — every kernel vs plain on phase 47's own
+                      operands: #2 and #3 on its first forecast's first
+                      extended block (5 × 48 × 104 × 104), #1 on its first
+                      tile's Grams
  34. executors_small — the coarsened tiled analysis (plain and pipelined),
                       StreamedCycle (terrain, physics, per-member Davies,
                       4-D slots), ResidentCycle and the cycle --streamed
-                      verb on the card against the CPU
+                      verb on the card against the CPU; that StreamedCycle
+                      over two cycles and the verb with a [process] table,
+                      each on make_mesh(2, 2, 2), bit-equal to their
+                      undecomposed runs on the card
  35. nested_cycle   — the main path of the nesting slice: the 18-km
                       configuration as phase 12 composes it (the parent,
                       K = 50) and a 240 × 240 × 36 child of 6-km cells at
@@ -293,8 +314,8 @@ executors, the nested and the fused cycles:
  44. mesh_radar_real — #2 and #3 vs plain on one extended radar block of
                       phase 43 at its member batch
 
-The phases run in the order 1–16, 40–42, 17, 18, 43, 44, 19–37, 45,
-46, 38, 39. Each
+The phases run in the order 1–16, 40–42, 17, 18, 43, 44, 19–33, 47,
+48, 34–37, 45, 46, 38, 39. Each
 phase prints one JSON line; any failed check raises, so the script
 exits non-zero. Every kernel-vs-plain check runs the kernel twice and holds
 both runs to the bound (invsqrt_ns, which has no atomics, must also give
@@ -314,7 +335,8 @@ cycle's times under `physics_cycle`, the radar grid's under `radar_grid`,
 #1 on the production cycle's Grams under `production_grams`, each kernel
 on the nested child's operands under `child_grid` — #2 and #3 in the open
 mode, with both modes' times —, each kernel on the fused grid cycle's
-operands under `fused_grid`, phase 46), and its bound:
+operands under `fused_grid`, phase 46, and on the streamed grid cycle's
+under `streamed_grid`, phase 48), and its bound:
 the larger of the bytes it must move over 3.35 TB/s and its operations
 over the rate of the units that do them, computed from those operands —
 67 TFLOP/s FP32 for the stencils, and for invsqrt_ns's 3xTF32 tensor-core
@@ -367,6 +389,10 @@ CYCLE_SMOOTH_PASSES = 64
 # (after step 5 and after the remainder; 10 steps until the smoke needed
 # the time for the grid's cycle)
 PHYS_STEPS = 6
+# the production cycle's depth, cut from PHYS_STEPS to make room for the
+# streamed radar grid cycle: its checks (launches, finiteness, O−A below
+# O−B, the terrain's part of ρw over the hills) do not rest on depth
+PROD_STEPS = 2
 # the production cycle (PHYS_STEPS too): the H08 network's spacing and
 # margin (cells); the hills and flat ground of the |ρw| check (topography
 # above HILL_M and below FLAT_M metres)
@@ -2406,13 +2432,16 @@ def phase_resident_cycle(device, shared: dict):
     return row
 
 
-def phase_radar_cycle(device):
+def phase_radar_cycle(device, keep: dict | None = None):
     """configs/bda_1km_radar.toml as shipped (192×192×48, K = 50, Kessler,
     RTPS 0.9, the 30-s window of 15 steps) through StreamedCycle, analysis
     tiles of RADAR_ROWS rows: the radar forecast's rain-blob ensemble and a
     nature member made on the card, synthetic_radar_volume at
     RADAR_OBS_TARGET (~888k REF and VR obs) with its values from the
-    nature run (obs_from_truth, dBZ → linear Z, weak echoes relabelled)."""
+    nature run (obs_from_truth, dBZ → linear Z, weak echoes relabelled).
+    keep: a dict that receives the host ensemble and the obs, and the
+    cycle's restart, inflation, report and O−A (what phase
+    mesh_radar_cycle holds its grid run to)."""
     from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
     from scale_letkf_torch.da.bigcycle import StreamedCycle, phase_table
     from scale_letkf_torch.gpu_check import (
@@ -2442,7 +2471,7 @@ def phase_radar_cycle(device):
     torch.cuda.reset_peak_memory_stats(device)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    out, _, rep = sc.cycle(ens_host, obs, RADAR_STEPS)
+    out, infl, rep = sc.cycle(ens_host, obs, RADAR_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: kernels.LAUNCHES[k] for k in KERNELS}
@@ -2482,12 +2511,159 @@ def phase_radar_cycle(device):
         raise AssertionError(f"{row['nobs']} radar obs, expected 800k")
     if not ("REF" in omb and oma["REF"] < omb["REF"]):
         raise AssertionError(f"O-A RMSE above O-B RMSE: {oma} vs {omb}")
+    if keep is not None:
+        keep.update(ens_host=ens_host, obs=obs, out=out, infl=infl, rep=rep,
+                    oma=sc.last_oma, nobs_used=int(sc.last_ctx.nobs),
+                    wall_s=wall, peak_mem_gb=peak,
+                    phase_table=row["phase_table"])
     return row
+
+
+def _tables(rep) -> list:
+    """The O−B and O−A tables of a streamed report, comparable tuples."""
+    return [(st.nobs, st.rmse, st.bias)
+            for st in (rep["stats_gues"], rep["stats_anal"])]
+
+
+def phase_mesh_radar_cycle(device, kept: dict):
+    """The member-streamed radar cycle on a grid: phase radar_cycle's
+    inputs (its seeded blob ensemble on the host and its ~888k-obs volume,
+    kept) through StreamedCycle on CycleDriver(mesh=make_mesh(2, 2, 2)),
+    configs/bda_1km_radar.toml as shipped, batches of RADAR_BATCH members
+    (5 a block) and analysis tiles of RADAR_ROWS rows: each batch is
+    sharded over the 8 blocks (96 × 96 columns, 104 × 104 extended) and
+    forecast on the grid (halo exchanges, Kessler on every block), gathered
+    at the analysis time for H(x) and the download; the tiled analysis, the
+    monitor and the inverse transform run undecomposed. Held exactly to
+    phase radar_cycle (kept): the restart ensemble, the inflation, the obs
+    used, the O−A and the O−B / O−A tables. Its wall time and phase table
+    beside phase radar_cycle's, the grid's sections, the peak, and the
+    launches against expected_launches (#2, #3 on every block of every
+    inner batch, no nature run; #1 as phase radar_cycle's). Returns the row
+    and the operands of phase mesh_streamed_real: the first forecast's
+    first extended block at the block's batch, and kernel #1's first tile
+    of Grams."""
+    from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
+    from scale_letkf_torch.da.bigcycle import StreamedCycle, phase_table
+    from scale_letkf_torch.gpu_check import RADAR_STEPS, expected_launches
+    from scale_letkf_torch.ops import invsqrt as invsqrt_mod
+    from scale_letkf_torch.parallel import halo
+    from scale_letkf_torch.utils import kernels
+
+    cfg, grid, dycfg, dom = load_config_and_grid(str(RADAR_CONFIG))
+    (cfg.process.mesh_member, cfg.process.mesh_y,
+     cfg.process.mesh_x) = MESH
+    K = cfg.ensemble.member
+    driver = make_driver(cfg, grid, dycfg, dom, device)
+    mesh = driver.mesh
+    sc = StreamedCycle(driver, member_batch=RADAR_BATCH, tile_rows=RADAR_ROWS)
+    sample: dict = {}
+    forecast_blocks = driver._forecast_blocks
+
+    def keeping(sh, *args):
+        res = forecast_blocks(sh, *args)
+        if not sample:
+            first = {b: type(s)(*(f[:driver.batch].clone() for f in s))
+                     for b, s in res[0].blocks.items()}
+            sample["s"] = halo.extend_state(
+                mesh, first, halo.HALO_W, dycfg.lateral == "periodic")[0]
+        return res
+
+    driver._forecast_blocks = keeping
+    launch = invsqrt_mod.invsqrt_ns_kernel
+    grams: dict = {}
+
+    def recording(a, areg, *args):
+        if not grams:
+            grams["a"], grams["areg"] = a.clone(), areg.clone()
+        return launch(a, areg, *args)
+
+    invsqrt_mod.invsqrt_ns_kernel = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out, infl, rep = sc.cycle(kept["ens_host"], kept["obs"], RADAR_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        invsqrt_mod.invsqrt_ns_kernel = launch
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    batches = rep["batches"]
+    inner = -(-(K // batches // MESH[0]) // driver.batch)
+    expected = expected_launches(
+        cfg, grid, RADAR_STEPS, batches * inner, 1, blocks=mesh.n_blocks,
+        shares=[(rep["letkf_chunks"], 1)], nature=0)
+    want = kept["out"]
+    dist = {n: float(np.abs(a - b).max())
+            for n, a, b in zip(type(want)._fields, out, want)}
+    infl_equal = (infl is None and kept["infl"] is None) or bool(
+        np.array_equal(np.asarray(infl), np.asarray(kept["infl"])))
+    oma_equal = bool(np.array_equal(sc.last_oma, kept["oma"]))
+    tables_equal = _tables(rep) == _tables(kept["rep"])
+    finite = all(bool(np.isfinite(f).all()) for f in out)
+    omb, oma = rmse_of(rep["stats_gues"]), rmse_of(rep["stats_anal"])
+    row = {"phase": "mesh_radar_cycle", "config": RADAR_CONFIG.name,
+           "mesh": list(MESH), "grid": f"{grid.nx}x{grid.ny}x{grid.nz}",
+           "members": K, "steps": RADAR_STEPS,
+           "block": f"{grid.nx // MESH[2]}x{grid.ny // MESH[1]}",
+           "extended_block": f"{grid.nx // MESH[2] + 2 * halo.HALO_W}x"
+                             f"{grid.ny // MESH[1] + 2 * halo.HALO_W}",
+           "member_batch": RADAR_BATCH, "batches": batches,
+           "block_batch": driver.batch, "inner_batches": inner,
+           "tile_rows": rep["letkf_tile_rows"], "tiles": rep["letkf_tiles"],
+           "chunks": rep["letkf_chunks"], "wall_s": wall,
+           "radar_cycle_wall_s": kept["wall_s"],
+           "phase_table": phase_table(rep).splitlines()[1:],
+           "radar_cycle_phase_table": kept["phase_table"],
+           "timers": {k: v for k, v in rep.items()
+                      if isinstance(v, (int, float))},
+           "sections_s": dict(driver.timer.records),
+           "section_counts": dict(driver.timer.counts),
+           "peak_mem_gb": peak, "radar_cycle_peak_gb": kept["peak_mem_gb"],
+           "host_peak_rss_gb": host_peak_gb(), **transfers(rep),
+           "kernel_launches": launches, "expected_launches": expected,
+           "nobs_used": int(sc.last_ctx.nobs),
+           "radar_cycle_nobs_used": kept["nobs_used"],
+           "distance_to_radar_cycle": dist, "infl_equal": infl_equal,
+           "oma_equal": oma_equal, "tables_equal": tables_equal,
+           "omb_rmse": omb, "oma_rmse": oma, "finite": finite}
+    emit(row)
+    if not finite:
+        raise AssertionError("the streamed radar grid cycle is not finite")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{expected}")
+    if not (all(d == 0 for d in dist.values()) and infl_equal and oma_equal
+            and tables_equal and row["nobs_used"] == kept["nobs_used"]):
+        raise AssertionError(f"the streamed radar grid cycle is not the "
+                             f"undecomposed one: {dist}")
+    if not ("forecast/halo" in row["section_counts"]
+            and "forecast/physics" in row["section_counts"]):
+        raise AssertionError(f"grid sections missing: "
+                             f"{row['section_counts']}")
+    del out
+    return row, ((sample["s"], driver.rho_ref, driver.p_ref, driver.vg,
+                  dycfg), (grams["a"], grams["areg"]))
+
+
+def phase_mesh_streamed_real(operands) -> dict:
+    """Each kernel against its plain version on phase mesh_radar_cycle's
+    own operands: #2 and #3 on one extended block at the block's batch
+    (5 × 48 × 104 × 104), #1 on its first tile's Grams."""
+    sample, (a, areg) = operands
+    rows = phase_radar_real(sample, "mesh_streamed_real")
+    rows["invsqrt_ns"] = check_invsqrt(a, areg, "mesh_streamed_real")
+    return rows
 
 
 def phase_executors_small(device):
     """Coarsened copies of the executors and the cycle --streamed verb on
-    the card against the CPU (scale_letkf_torch/gpu_check.py)."""
+    the card against the CPU, and the streamed cycle and the verb on the
+    grid against their undecomposed runs on the card
+    (scale_letkf_torch/gpu_check.py)."""
     from scale_letkf_torch.gpu_check import (
         executors_check_passes, executors_vs_cpu)
     res = executors_vs_cpu(device, str(CONFIG), SEED)
@@ -3501,7 +3677,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_physics_small(device)
     torch.cuda.empty_cache()
-    pr, operands = phase_cycle(device, "production_cycle", PHYS_STEPS,
+    pr, operands = phase_cycle(device, "production_cycle", PROD_STEPS,
                                production=True)
     prod_real = check_invsqrt(*operands["grams"], "production_real")
     phase_terrain_tendency(operands)
@@ -3526,7 +3702,13 @@ def main() -> int:
     rs = phase_resident_cycle(device, shared)
     del shared
     torch.cuda.empty_cache()
-    rd = phase_radar_cycle(device)
+    kept = {}
+    rd = phase_radar_cycle(device, keep=kept)
+    torch.cuda.empty_cache()
+    ms, operands = phase_mesh_radar_cycle(device, kept)
+    del kept
+    streamed_rows = phase_mesh_streamed_real(operands)
+    del operands
     torch.cuda.empty_cache()
     phase_executors_small(device)
     torch.cuda.empty_cache()
@@ -3578,13 +3760,20 @@ def main() -> int:
             "fused_radar_cycle": fr["kernel_launches"][name],
             "mesh_fused_radar_cycle": mf["kernel_launches"][name],
             "mesh_cycle": mc["kernel_launches"][name],
-            "mesh_radar_forecast": mr["kernel_launches"].get(name, 0)}
+            "mesh_radar_forecast": mr["kernel_launches"].get(name, 0),
+            "mesh_radar_cycle": ms["kernel_launches"][name]}
         dc_rows[name] = mesh_rows[name]
         dc_rows[name]["child_grid"] = {
             k: nested_rows[name][k] for k in timing + (
                 ("open_ms", "periodic_ms") if name != "invsqrt_ns" else ())}
         dc_rows[name]["physics_cycle"] = {k: pc_rows[name][k]
                                           for k in timing}
+        dc_rows[name]["streamed_grid"] = {
+            **({"B": streamed_rows[name]["B"]} if name == "invsqrt_ns" else
+               {"batch": ms["block_batch"],
+                "extended_block": ms["extended_block"]}),
+            "launches": ms["kernel_launches"][name],
+            **{k: streamed_rows[name][k] for k in timing}}
         dc_rows[name]["fused_grid"] = {
             **({"B": fused_rows[name]["B"]} if name == "invsqrt_ns" else
                {"batch": 1, "grid": mf["grid"]}),
@@ -3611,7 +3800,7 @@ def main() -> int:
             "bound_ms", "bound_fp32_ms", "bound_by", "bound_share",
             "gb_per_s", "tflops", "shapes", "det_cycle", "physics_cycle",
             "radar_grid", "radar_block", "production_grams", "streamed_tile",
-            "child_grid", "fused_grid")
+            "child_grid", "fused_grid", "streamed_grid")
     emit({"kernels": [{"name": name, "route": "cuda",
                        "source": f"scale_letkf_torch/csrc/{name}.cu",
                        "replaces": REPLACES[name],

@@ -38,7 +38,9 @@ restart files (and their part of a resumed skin temperature); the outputs
 are gathered and process 0 writes them. Kessler (use_physics), a [physics]
 section, terrain under either core and a [nest] section run on every grid
 (the child on a grid of the same shape, each process reading its own
-members of --nest-init); `cycle --streamed` does not.
+members of --nest-init). `cycle --streamed` forecasts each member batch on
+the grid in one process, and refuses a world of several processes (the
+stream keeps the whole ensemble in one process's host memory).
 """
 
 from __future__ import annotations
@@ -499,7 +501,8 @@ def cmd_fcst(args):
 def _cycle_streamed(args, cfg, dom, driver):
     """cycle --streamed: the member-streamed executor (da/bigcycle.py),
     the ensemble in host memory, the slab skin temperature resumed from
-    and saved to the checkpoint's aux."""
+    and saved to the checkpoint's aux; with a [process] table each member
+    batch forecast on the driver's grid, in this one process."""
     from scale_letkf_torch.da.bigcycle import StreamedCycle, phase_table
     from scale_letkf_torch.io.checkpoint import (
         load_det, load_ensemble, save_ensemble)
@@ -507,6 +510,10 @@ def _cycle_streamed(args, cfg, dom, driver):
             or cfg.letkf.infl_add > 0):
         sys.exit("error: --streamed does not combine with [nest], "
                  "DET_RUN, or additive inflation yet")
+    if driver.mesh is not None and driver.mesh.world > 1:
+        sys.exit(f"error: --streamed runs in one process; the [process] "
+                 f"grid spreads over {driver.mesh.world} (run cycle without "
+                 f"--streamed there, or --streamed without --num-processes)")
     ens_host, aux, _ = load_ensemble(args.init)
     sc = StreamedCycle(driver, member_batch=args.member_batch,
                        tile_rows=args.tile_rows, pipeline=args.pipeline)
@@ -585,8 +592,6 @@ def cmd_cycle(args):
     from scale_letkf_torch.da.obsope import assign_slots
     from scale_letkf_torch.io.checkpoint import save_ensemble
     cfg, grid, dycfg, dom, driver, device = _setup(args)
-    if driver.mesh is not None and args.streamed:
-        sys.exit("error: --streamed does not run on a [process] grid")
     if args.streamed:
         return _cycle_streamed(args, cfg, dom, driver)
     # DET_RUN_CYCLED: a deterministic member in the initial checkpoint is

@@ -417,36 +417,51 @@ class CycleDriver:
                                    for b, s in sh.blocks.items()})
 
     def _forecast_grid(self, ens, nsteps: int, t0) -> Sharded:
-        """forecast on the process grid: each block's member slab in
+        """forecast on the process grid: _forecast_blocks toward self.bdy
+        from self.tsfc (cold-started on each block when unset), whose
+        result it keeps (a Sharded, threaded across calls)."""
+        sh = ens if isinstance(ens, Sharded) else self.mesh.shard_ensemble(ens)
+        del ens
+        tsfc = self._grid_tsfc(sh) if self.phys_cfg is not None else None
+        out, tsfc = self._forecast_blocks(sh, nsteps, t0, self.bdy, tsfc)
+        if tsfc is not None:
+            self.tsfc = tsfc
+        return out
+
+    def _forecast_blocks(self, sh: Sharded, nsteps: int, t0, bdy, tsfc
+                         ) -> tuple[Sharded, Sharded | None]:
+        """nsteps of the composed forecast of the ensemble sh on the grid
+        toward `bdy` (its members' boundary data: per-member targets
+        indexed by sh's own members, or shared, or sharded like sh; None
+        without), from the suite's skin temperature `tsfc` (a Sharded like
+        sh; None without the suite). Each block's member slab runs in
         batches, every block of the process stepping together (their halos
         exchanged each stage), the Davies relaxation per block, and physics
         on every block of the batch on _chunks' schedule — Kessler per
         block, the suite through halo.physics_step_blocks with each block's
-        own slab skin temperature (self.tsfc, a Sharded, threaded across
-        calls); a member-only grid forecasts each slab undecomposed, with
-        its own members' skin temperature."""
+        own slab skin temperature; a member-only grid forecasts each slab
+        undecomposed. Returns (ensemble, skin temperature after, None
+        without the suite); self.tsfc and self.bdy are left as they are
+        (the member-streamed cycle forecasts each batch so)."""
         grid = self.mesh
-        sh = ens if isinstance(ens, Sharded) else grid.shard_ensemble(ens)
-        del ens
         phys = self.phys_cfg is not None
-        tsfc = self._grid_tsfc(sh) if phys else None
         t_out = {}
         if not self.exchange:
             out = {}
             for b, s in sh.blocks.items():
-                bdy = (None if self.bdy is None else
-                       self._bdy_block(b, sh, 0, s.rho.shape[0]))
+                bdy_s = (None if bdy is None else
+                         self._bdy_block(bdy, b, sh, 0, s.rho.shape[0]))
                 out[b], t_out[b] = self._forecast_members(
-                    s, nsteps, t0, bdy, tsfc.blocks[b] if phys else None)
-            if phys:
-                self.tsfc = tsfc._replace(blocks=t_out)
-            return sh._replace(blocks=out)
+                    s, nsteps, t0, bdy_s, tsfc.blocks[b] if phys else None)
+            return (sh._replace(blocks=out),
+                    tsfc._replace(blocks=t_out) if phys else None)
         self.batch = B = self._grid_batch(sh)
-        w2d = bdy = None
-        if self._bdy_w2d is not None and self.bdy is not None:
-            bdy = self.bdy
+        w2d = None
+        if self._bdy_w2d is not None and bdy is not None:
             w2d = {b: self._bdy_w2d[grid.rows(b, sh.ny), grid.cols(b, sh.nx)]
                    for b in sh.blocks}
+        else:
+            bdy = None
         if phys:
             t_out = {b: torch.empty_like(t) for b, t in tsfc.blocks.items()}
         periodic = self.dycfg.lateral == "periodic"
@@ -454,7 +469,7 @@ class CycleDriver:
         def run(b0, batch):
             bdy_b = None
             if bdy is not None:
-                bdy_b = {b: self._bdy_block(b, sh, b0, B) for b in batch}
+                bdy_b = {b: self._bdy_block(bdy, b, sh, b0, B) for b in batch}
 
             def step(batch, t):
                 batch = self._grid_step(batch)
@@ -490,9 +505,8 @@ class CycleDriver:
             return batch
 
         out = self._in_batches(sh.blocks, B, run)
-        if phys:
-            self.tsfc = tsfc._replace(blocks=t_out)
-        return sh._replace(blocks=out)
+        return (sh._replace(blocks=out),
+                tsfc._replace(blocks=t_out) if phys else None)
 
     @staticmethod
     def _in_batches(blocks: dict, B: int, run) -> dict:
@@ -511,13 +525,14 @@ class CycleDriver:
             del res
         return out
 
-    def _bdy_block(self, b: int, sh: Sharded, b0: int, B: int
-                   ) -> BoundaryData:
-        """Block b's boundary data for its members b0..b0+B: per-member
-        targets sliced by global member, a shared one whole, each over the
-        block's columns; a bracket sharded like the ensemble (a Sharded of
-        per-member targets, nested.py) from block b's own."""
-        grid, bdy = self.mesh, self.bdy
+    def _bdy_block(self, bdy: BoundaryData, b: int, sh: Sharded, b0: int,
+                   B: int) -> BoundaryData:
+        """Block b's part of `bdy` for its members b0..b0+B: per-member
+        targets sliced by sh's member index (bdy's first member is sh's
+        first), a shared one whole, each over the block's columns; a
+        bracket sharded like the ensemble (a Sharded of per-member targets,
+        nested.py) from block b's own."""
+        grid = self.mesh
         if isinstance(bdy.state0, Sharded):
             return bdy._replace(**{k: DycoreState(*(
                 f[b0:b0 + B] for f in getattr(bdy, k).blocks[b]))

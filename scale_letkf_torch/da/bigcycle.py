@@ -27,6 +27,19 @@ runs; they are the reference's.
 Per-phase wall-clock follows the reference's mpi_timer phase table
 (letkf.f90:90-255): READ_GUES / ENS_FORECAST / OBS_OPERATOR / PROCESS_OBS /
 DAS_LETKF / WRITE_ANAL (phase_table). Every section synchronises the card.
+
+On a process grid (a driver with a mesh, parallel/mesh.py) only each
+batch's forecast is decomposed, as the reference pins each batch's forecast
+to its mesh (constrain_ensemble): a batch of b members, a multiple of the
+grid's member slabs, is sharded as a b-member ensemble and forecast
+segment by segment through the driver's grid forecast (its blocks kept
+between segments, timer section `forecast`), and gathered on the device at
+each slot point; the slot-matched H(x), the download, the tiled analysis,
+the inverse transform and the monitor run undecomposed as above. The
+stream runs in one process only: it brings each batch's guess to this
+process's host memory and analyses every member of a tile there, which a
+world of several processes (each holding its own members) cannot; there
+the in-core grid cycle holds the ensemble.
 """
 
 from __future__ import annotations
@@ -58,6 +71,18 @@ def batch_of(K: int, requested: int) -> int:
     while K % b:
         b -= 1
     return b
+
+
+def stream_batch(K: int, requested: int, mesh=None) -> int:
+    """Members a streamed batch: batch_of(K, requested), on a grid of
+    n_member slabs the largest such divisor that is a multiple of n_member
+    (n_member · batch_of(K / n_member, requested // n_member))."""
+    if mesh is None:
+        return batch_of(K, requested)
+    n = mesh.n_member
+    if K % n:
+        raise ValueError(f"K = {K} does not divide into {n} member slabs")
+    return n * batch_of(K // n, requested // n)
 
 
 def log(msg: str) -> None:
@@ -112,10 +137,15 @@ def window_parts(obs: Observations, cfg, dt: float, nsteps: int):
     return parts, in_window
 
 
-def segment(driver, state: DycoreState, tsfc, n: int, t0, bdy):
+def segment(driver, state, tsfc, n: int, t0, bdy):
     """n steps of the driver's composed forecast from window time t0,
     threading the slab skin temperature when it runs the physics suite
-    (tsfc None otherwise). Returns (state, tsfc)."""
+    (tsfc None otherwise). On the driver's grid state and tsfc are
+    Sharded (the grid forecast, timer section `forecast`). Returns
+    (state, tsfc)."""
+    if driver.mesh is not None:
+        with driver.timer.section("forecast"):
+            return driver._forecast_blocks(state, n, t0, bdy, tsfc)
     if driver.phys_cfg is not None:
         return driver._fcst_phys(state, n, t0, tsfc, bdy)
     return driver._fcst_one(state, n, t0, bdy), tsfc
@@ -164,10 +194,17 @@ class StreamedCycle:
     divisor of K not above it). tile_rows: the analysis tiles' height.
     pipeline=True overlaps the next batch's or tile's upload with the
     current one's work; the per-phase timers are then approximate (the
-    blocking download absorbs what did not overlap)."""
+    blocking download absorbs what did not overlap). A driver on a process
+    grid forecasts each batch on the grid (stream_batch sizes it); the grid
+    must lie in this one process."""
 
     def __init__(self, driver, member_batch: int = 5, tile_rows: int = 24,
                  pipeline: bool = False, verbose: bool = False):
+        if driver.mesh is not None and driver.mesh.world > 1:
+            raise ValueError(
+                f"the member-streamed cycle runs in one process: its grid "
+                f"spreads over {driver.mesh.world} processes (the in-core "
+                f"grid cycle holds the ensemble there)")
         self.d = driver
         self.member_batch = member_batch
         self.tile_rows = tile_rows
@@ -195,8 +232,9 @@ class StreamedCycle:
         window, timers). H(x) runs inside the forecast (OBS_OPERATOR is
         part of ENS_FORECAST)."""
         d = self.d
+        mesh = d.mesh
         K = ens_host.rho.shape[0]
-        b = batch_of(K, self.member_batch)
+        b = stream_batch(K, self.member_batch, mesh)
         nz, ny, nx = d.grid.nz, d.grid.ny, d.grid.nx
         dt = d.dycfg.dt
         parts, in_window = window_parts(obs, d.cfg, dt, nsteps)
@@ -220,6 +258,11 @@ class StreamedCycle:
             up, slot = stager.upload(arrays)
             return up, slot, d._bdy_batch(d.bdy, i0, b)
 
+        def whole(x):
+            """A batch's state or skin temperature over the domain (gathered
+            on the grid)."""
+            return x if mesh is None or x is None else mesh.gather_ensemble(x)
+
         def fcst_hx(up, slot, bdy):
             """The batch's segmented forecast with slot-matched H(x):
             (guess at nsteps, y, qc worst over the batch, tsfc)."""
@@ -228,6 +271,9 @@ class StreamedCycle:
             tsfc = None
             if has_phys:
                 tsfc = skin_temperature(state) if cold else up["tsfc"]
+            if mesh is not None:
+                state = mesh.shard_ensemble(state)
+                tsfc = None if tsfc is None else mesh.shard_ensemble(tsfc)
             y = torch.zeros((b, obs.nobs), device=self.device)
             qc = torch.zeros((b, obs.nobs), dtype=torch.int32,
                              device=self.device)
@@ -237,15 +283,16 @@ class StreamedCycle:
                     state, tsfc = segment(d, state, tsfc, pt - cur,
                                           t0 + np.float32(cur * dt), bdy)
                     cur = pt
-                snap = state_trans(to_collocated(state))
+                snap = state_trans(to_collocated(whole(state)))
                 if pt == nsteps:
                     gues = snap
                 if obs_s is not None:
                     idx = torch.as_tensor(midx, device=self.device)
-                    y[:, idx], qc[:, idx] = slot_hx(d, snap, tsfc, obs_s)
+                    y[:, idx], qc[:, idx] = slot_hx(d, snap, whole(tsfc),
+                                                    obs_s)
                 del snap
             stager.done(slot)
-            return gues, y, qc.amax(dim=0), tsfc
+            return gues, y, qc.amax(dim=0), whole(tsfc)
 
         def download(i0, gues, y, qc_b, tsfc):
             nonlocal qc_worst

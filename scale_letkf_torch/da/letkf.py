@@ -44,8 +44,8 @@ from scale_letkf_torch.grid import Grid
 from scale_letkf_torch.io.convert import DeviceObsContext, obs_context_to_device
 from scale_letkf_torch.obs.types import ID_RADAR_REF
 from scale_letkf_torch.ops.letkf_core import (
-    letkf_core, rtps_factor, rtps_update, weight_rtpp, weight_update,
-    total_weight, relax_beta,
+    det_increment, letkf_core, relax_beta, rtps_factor, rtps_update,
+    total_weight, weight_rtpp, weight_update,
 )
 from scale_letkf_torch.ops.obs_select import (
     candidate_width, gather_candidates, local_weights, limit_obs_topk,
@@ -380,7 +380,7 @@ def analyze_points(plan: _Plan, dctx: DeviceObsContext,
                     anal_c[vi] = upd.add_(mean_c[vi][..., None])
                     if det is not None:
                         # det + β·Σ_k Xb'_k transmd_k (letkf_tools.f90:489-497)
-                        incr = torch.einsum("vbk,bk->vb", pert_g, res.transmd)
+                        incr = det_increment(pert_g, res.transmd)
                         anal_det[vi, lev, sl] = (det[vi, lev, sl]
                                                  + incr * beta[None])
             with maybe_section(timer, "apply"):

@@ -78,7 +78,11 @@ hold against the reference package.
   undecomposed child stepping with the halo step of the whole ensemble,
   halo_dynamics), bit-equal; terrain_grid_step_on_device one explicit-core
   step over hills() on make_mesh(1, 2, 2) against rk3_step_terrain,
-  bit-equal (its overlap variant within TOL_TENDENCY).
+  bit-equal (its overlap variant within TOL_TENDENCY);
+  streamed_grid_on_device two StreamedCycle cycles of streamed_vs_cpu's
+  composition undecomposed and on GRID on the card, and
+  streamed_verb_vs_cpu the cycle --streamed verb with a [process] table,
+  each bit-equal to its undecomposed run.
 """
 
 from __future__ import annotations
@@ -326,16 +330,17 @@ def var_local_groups(cfg) -> int:
 
 
 def expected_launches(cfg, grid, steps: int, batches: int, chunk: int,
-                      blocks: int = 1, shares=None) -> dict:
+                      blocks: int = 1, shares=None, nature: int = 1) -> dict:
     """Launches of each kernel in one run_osse cycle on the card: 3 RK
     stages × steps × (the ensemble's member batches + the nature run's
-    one) for both stencil kernels; levels × chunks per level × var-local
-    groups for the solver. On a process grid every batch runs on each of
-    `blocks` blocks (the nature run stays undecomposed, a batch of one),
-    and the solver runs per share of the gridpoints: shares, the (points,
-    chunk) of each (AnalysisDiag.share_chunks). Physics — Kessler or the
-    suite, on a grid too — is plain PyTorch and adds no launch."""
-    fcst = 3 * steps * (batches * blocks + 1)
+    `nature` batches, one; none in a streamed cycle) for both stencil
+    kernels; levels × chunks per level × var-local groups for the solver.
+    On a process grid every batch runs on each of `blocks` blocks (the
+    nature run stays undecomposed, a batch of one), and the solver runs per
+    share of the gridpoints: shares, the (points, chunk) of each
+    (AnalysisDiag.share_chunks). Physics — Kessler or the suite, on a grid
+    too — is plain PyTorch and adds no launch."""
+    fcst = 3 * steps * (batches * blocks + nature)
     shares = shares or [(grid.ny * grid.nx, chunk)]
     return {"invsqrt_ns": sum(grid.nz * -(-n // c) for n, c in shares)
             * var_local_groups(cfg),
@@ -461,6 +466,7 @@ def grid_cycle_on_device(device: torch.device, config: str,
 
 BATCH_CASES = ((20, 1000, 768), (50, 1000, 4096))   # (K, L, B)
 SUB_BATCHES = (7, 48, 96, 500)
+EIGH_CASES = ((8, 4096), (16, 4096))                  # (K, B), K ≤ 16
 
 
 def batch_invariance(device: torch.device, seed: int = 0) -> dict:
@@ -478,9 +484,16 @@ def batch_invariance(device: torch.device, seed: int = 0) -> dict:
     and rtps_update) must be 0; the forms they replaced are reported beside
     them: 'matvec' (Pa·(HδXᵀ·d) as matrix-vector products),
     'apply_einsum' and 'rtps_einsum' (per-variable weights through an
-    einsum over (v, b, k), the factor's sums as reductions)."""
+    einsum over (v, b, k), the factor's sums as reductions). Three more:
+    'det' (the deterministic member's increment Σ_k Xb'_k·transmd_k of
+    letkf_core.det_increment), 'apply_1' and 'apply_2' (weight_update of a
+    var-local group of one and of two variables), and, in the EIGH_CASES
+    rows, 'eigh' (the K ≤ 16 solver: letkf_core's eigenpairs, Pa and W of
+    seeded symmetric positive-definite matrices); 'det_einsum' (the
+    increment as an einsum over (v, b, k)) beside them."""
     from scale_letkf_torch.ops.letkf_core import (
-        DEP_COLUMNS, rtps_factor, rtps_update, total_weight, weight_update)
+        DEP_COLUMNS, det_increment, rtps_factor, rtps_update, solve_eigh,
+        total_weight, weight_update)
     gen = torch.Generator(device=device).manual_seed(seed)
     out = {}
     for K, L, B in BATCH_CASES:
@@ -516,25 +529,52 @@ def batch_invariance(device: torch.device, seed: int = 0) -> dict:
             "rtps_einsum": lambda s: rtps(s, einsum=True),
             "gram": lambda s: a[s].transpose(-1, -2) @ a[s],
             "apply": lambda s: weight_update(x[:, s], p[s]).transpose(0, 1),
+            "apply_1": lambda s: weight_update(x[:1, s], p[s]).transpose(
+                0, 1),
+            "apply_2": lambda s: weight_update(x[:2, s], p[s]).transpose(
+                0, 1),
+            "det": lambda s: det_increment(x[:, s], d[s, :K]).transpose(0, 1),
+            "det_einsum": lambda s: torch.einsum(
+                "vbk,bk->vb", x[:, s], d[s, :K]).transpose(0, 1),
             "apply_einsum": lambda s: torch.einsum(
                 "vbk,bkm->vbm", x[:, s], p[s]).transpose(0, 1),
             "dep_block": block,
             "matvec": lambda s: (p[s] @ (a[s].transpose(-1, -2)
                                          @ d[s][..., None]))[..., 0]}
-        subs = {n: slice(n, 2 * n) if 2 * n <= B else slice(B - n, B)
-                for n in SUB_BATCHES}
-        row = {}
-        for name, f in prods.items():
-            full = f(slice(0, B))
-            row[name] = {n: int((f(s) != full[s]).sum())
-                         for n, s in subs.items()}
-        out[f"K{K}_L{L}_B{B}"] = row
+        out[f"K{K}_L{L}_B{B}"] = _sub_batch_mismatches(prods, B)
+    for K, B in EIGH_CASES:
+        q = torch.randn(B, K, K, device=device, generator=gen)
+        gram = q @ q.transpose(-1, -2) + K * torch.eye(K, device=device)
+
+        def eigh(s):
+            eival, eivec, pao, trans = solve_eigh(gram[s], K - 1)
+            return torch.cat([eival[..., None], eivec, pao, trans], dim=-1)
+
+        out[f"K{K}_B{B}"] = _sub_batch_mismatches({"eigh": eigh}, B)
     return out
 
 
+def _sub_batch_mismatches(prods: dict, B: int) -> dict:
+    """Per product f (of a slice of the B matrices): the elements of f(s)
+    unequal to the same rows of f(all B), for each SUB_BATCHES size of s."""
+    subs = {n: slice(n, 2 * n) if 2 * n <= B else slice(B - n, B)
+            for n in SUB_BATCHES}
+    row = {}
+    for name, f in prods.items():
+        full = f(slice(0, B))
+        row[name] = {n: int((f(s) != full[s]).sum()) for n, s in subs.items()}
+    return row
+
+
+BATCH_INVARIANT = ("gram", "dep_block", "apply", "apply_1", "apply_2",
+                   "rtps", "det", "eigh")
+
+
 def batch_invariance_passes(res: dict) -> bool:
+    """Whether every product the analysis uses (BATCH_INVARIANT) gave each
+    matrix the same bits in every sub-batch."""
     return all(v == 0 for row in res.values()
-               for name in ("gram", "dep_block", "apply", "rtps")
+               for name in BATCH_INVARIANT if name in row
                for v in row[name].values())
 
 
@@ -1912,16 +1952,17 @@ def tiled_vs_cpu(device: torch.device, config: str, seed: int = 0) -> dict:
                     pert=pert).items()}}}
 
 
-def _exec_case(config: str, seed: int, topo: bool, slots: bool):
+def _exec_case(config: str, seed: int, topo: bool, slots: bool,
+               over: dict | None = None, K: int = MEMBERS):
     """(cfg, grid, dycfg, dom, ensemble, obs) of the coarsened 18-km
-    executors' runs: COARSE_FCST with K = MEMBERS, the physics suite,
-    Davies forcing (3-cell buffer); a nature member's obsmake of the
+    executors' runs: COARSE_FCST (or `over`) with K members, the physics
+    suite, Davies forcing (3-cell buffer); a nature member's obsmake of the
     synthetic conventional network, spread over EXEC_SLOTS' three slots
     (two steps apart) with `slots`."""
     from scale_letkf_torch.da.obsmake import obsmake
     from scale_letkf_torch.model.dycore import to_collocated
-    cfg, grid, dycfg, dom = load_config_and_grid(config, COARSE_FCST)
-    cfg.ensemble.member = K = MEMBERS
+    cfg, grid, dycfg, dom = load_config_and_grid(config, over or COARSE_FCST)
+    cfg.ensemble.member = K
     dom = {**dom, "physics": PHYS_PROD, "bdy_width": 3}
     if slots:
         for k, v in EXEC_SLOTS.items():
@@ -1950,15 +1991,17 @@ def _exec_case(config: str, seed: int, topo: bool, slots: bool):
     return cfg, grid, dycfg, dom, ens, obs
 
 
-def _exec_driver(cfg, grid, dycfg, dom, device, topo: bool, per_member: bool):
+def _exec_driver(cfg, grid, dycfg, dom, device, topo: bool, per_member: bool,
+                 mesh=None):
     from scale_letkf_torch.cli.main import make_driver
     from scale_letkf_torch.cycle import CycleDriver
     flat = make_driver(cfg, grid, dycfg, dom, device)
     d = CycleDriver(grid, cfg, dycfg, flat.rho_ref, flat.p_ref,
                     topo=hills(grid.ny, grid.nx) if topo else None,
                     phys_cfg=flat.phys_cfg, core=flat.core,
-                    n_small=flat.n_small,
-                    bdy=(per_member_boundary(grid, dom, MEMBERS, device)
+                    n_small=flat.n_small, mesh=mesh,
+                    bdy=(per_member_boundary(grid, dom, cfg.ensemble.member,
+                                             device)
                          if per_member else base_boundary(grid, dom,
                                                           device)),
                     bdy_width=dom["bdy_width"], bdy_tau=dom["bdy_tau"])
@@ -2024,6 +2067,63 @@ def streamed_vs_cpu(device: torch.device, config: str,
             "qc_equal": bool(np.array_equal(dv["qc"], cp["qc"])),
             "finite": bool(np.isfinite(dv["anal"]).all()),
             "max_err_over_tol": err}
+
+
+def streamed_grid_on_device(device: torch.device, config: str,
+                            seed: int = 0, shape=GRID,
+                            member_batch: int = EXEC_BATCH,
+                            pipeline: bool = False, cycles: int = 2,
+                            over: dict | None = None,
+                            members: int = MEMBERS) -> dict:
+    """streamed_vs_cpu's composition (terrain, the physics suite,
+    per-member Davies forcing, the 3-slot window; `over` and `members`
+    replace its sizes) through StreamedCycle on `device`, undecomposed and
+    on make_mesh(*shape) (`pipeline` on the grid), `cycles` cycles of
+    EXEC_STEPS from the same obs, each resuming the last one's skin
+    temperature and inflation: whether the grid run's restart ensembles,
+    skin temperatures, inflation, O−A and O−B / O−A tables equal the
+    undecomposed run's bit for bit, the largest difference per name,
+    whether the driver's own skin temperature and boundary data were left
+    as they were, and both runs' launches."""
+    from scale_letkf_torch.da.bigcycle import StreamedCycle
+    from scale_letkf_torch.parallel.mesh import make_mesh
+    cfg, grid, dycfg, dom, ens, obs = _exec_case(config, seed, True, True,
+                                                 over, members)
+    runs = {}
+    for key, mesh in (("undecomposed", None), ("grid", make_mesh(*shape))):
+        d = _exec_driver(cfg, grid, dycfg, dom, device, True, True, mesh)
+        bdy0 = d.bdy
+        sc = StreamedCycle(d, member_batch=member_batch, tile_rows=EXEC_ROWS,
+                           pipeline=pipeline and mesh is not None)
+        before = dict(kernels.LAUNCHES)
+        arrays, stats, e, infl = {}, [], ens, None
+        for c in range(cycles):
+            e, infl, rep = sc.cycle(e, obs, EXEC_STEPS, infl_field=infl)
+            for n, f in zip(dycore.DycoreState._fields, e):
+                arrays[f"{n}.{c}"] = np.array(f)
+            arrays[f"tsfc.{c}"] = sc.tsfc_host.copy()
+            arrays[f"oma.{c}"] = np.asarray(sc.last_oma)
+            if infl is not None:
+                arrays[f"infl.{c}"] = np.asarray(torch.as_tensor(infl).cpu())
+            stats += [(st.nobs, st.rmse, st.bias) for st in (
+                rep["stats_gues"], rep["stats_anal"])]
+        runs[key] = {"arrays": arrays, "stats": stats,
+                     "launches": _launches(before),
+                     "batches": rep["batches"],
+                     "untouched": d.tsfc is None and d.bdy is bdy0}
+    a, b = runs["grid"]["arrays"], runs["undecomposed"]["arrays"]
+    dist = {n: float(np.abs(a[n] - b[n]).max()) for n in b}
+    return {"grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members": members,
+            "mesh": list(shape), "cycles": cycles, "steps": EXEC_STEPS,
+            "pipeline": pipeline, "batches": runs["grid"]["batches"],
+            "bit_equal": a.keys() == b.keys() and all(
+                np.array_equal(a[n], b[n]) for n in b),
+            "distance": dist,
+            "stats_equal": runs["grid"]["stats"] == runs["undecomposed"][
+                "stats"],
+            "driver_untouched": runs["grid"]["untouched"],
+            "kernel_launches": runs["grid"]["launches"],
+            "expected_launches": runs["undecomposed"]["launches"]}
 
 
 def resident_vs_cpu(device: torch.device, config: str,
@@ -2093,6 +2193,12 @@ def resident_vs_cpu(device: torch.device, config: str,
 
 STREAMED_VERB_CONFIG = DET_VERB_CONFIG.replace(
     "infl_add = 0.1\ninfl_add_shuffle = true\n", "")
+GRID_TABLE = """
+[process]
+mesh_member = {}
+mesh_y = {}
+mesh_x = {}
+""".format(*GRID)
 
 
 def streamed_verb_vs_cpu(device: torch.device, seed: int = 0) -> dict:
@@ -2102,12 +2208,18 @@ def streamed_verb_vs_cpu(device: torch.device, seed: int = 0) -> dict:
     the CPU, and on the CPU from an init perturbed by one rounding: per
     restart field, the worst |Δ| over 1e-4·max|Δ|·(1 + 2·floor) plus one
     bfloat16 spacing (2⁻⁷) of the field's largest member perturbation;
-    the solver's launches."""
+    the solver's launches. The verb runs on `device` a second time with
+    the GRID_TABLE [process] table (each batch forecast on the grid): its
+    fields against the CPU at the same bounds ('grid.' rows), and its
+    largest difference from the undecomposed run on `device`
+    (grid_distance, 0 when bit-equal)."""
     import contextlib
     import io
     import tempfile
     from pathlib import Path
     from scale_letkf_torch.cli.main import main
+    from scale_letkf_torch.da.bigcycle import stream_batch
+    from scale_letkf_torch.parallel.mesh import make_mesh
     from scale_letkf_torch.da.obsmake import make_obs_network
     from scale_letkf_torch.grid import Grid
     from scale_letkf_torch.io import checkpoint
@@ -2121,6 +2233,7 @@ def streamed_verb_vs_cpu(device: torch.device, seed: int = 0) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         t = Path(tmp)
         (t / "exp.toml").write_text(STREAMED_VERB_CONFIG)
+        (t / "grid.toml").write_text(STREAMED_VERB_CONFIG + GRID_TABLE)
         checkpoint.save_ensemble(t / "init", ens0, basename="anal.@@@@")
         checkpoint.save_ensemble(t / "init_rounded", dycore.DycoreState(
             *(_rounded_np(f, gen) for f in ens0)), basename="anal.@@@@")
@@ -2133,12 +2246,15 @@ def streamed_verb_vs_cpu(device: torch.device, seed: int = 0) -> dict:
             main(["obsmake", *cfg, "--nature", str(t / "nature.npz"),
                   "--obs-template", str(t / "template.dat"), "--out",
                   str(t / "obs.dat"), "--seed", "5", "--device", "cpu"])
-        for key, dev, init in (("device", str(device), "init"),
-                               ("cpu", "cpu", "init"),
-                               ("cpu_rounded", "cpu", "init_rounded")):
+        for key, dev, init, toml in (
+                ("device", str(device), "init", "exp.toml"),
+                ("device_grid", str(device), "init", "grid.toml"),
+                ("cpu", "cpu", "init", "exp.toml"),
+                ("cpu_rounded", "cpu", "init_rounded", "exp.toml")):
             before = dict(kernels.LAUNCHES)
             with contextlib.redirect_stdout(io.StringIO()):
-                main(["cycle", *cfg, "--init", str(t / init), "--cycles",
+                main(["cycle", "--config", str(t / toml), "--init",
+                      str(t / init), "--cycles",
                       "1", "--steps-per-cycle", str(DET_VERB_STEPS),
                       "--obs-pattern", str(t / "obs.dat"), "--out",
                       str(t / key), "--streamed", "--member-batch", "5",
@@ -2147,23 +2263,40 @@ def streamed_verb_vs_cpu(device: torch.device, seed: int = 0) -> dict:
             outs[key] = checkpoint.load_ensemble(t / key)
     err = {}
     for i, name in enumerate(dycore.DycoreState._fields):
-        a, b, c, f0 = (outs["device"][0][i], outs["cpu"][0][i],
-                       outs["cpu_rounded"][0][i], ens0[i])
+        b, c, f0 = (outs["cpu"][0][i], outs["cpu_rounded"][0][i], ens0[i])
         tol = (1e-4 * np.abs(b - f0).max() * (1 + 2 * np.abs(c - b).max()
                                               / (1e-4 * np.abs(b - f0).max()))
                + 2.0 ** -7 * np.abs(b - b.mean(axis=0)).max())
-        err[name] = float(np.abs(a - b).max() / tol)
+        for pre, key in (("", "device"), ("grid.", "device_grid")):
+            err[pre + name] = float(np.abs(outs[key][0][i] - b).max() / tol)
+    dev, grd = outs["device"], outs["device_grid"]
+    # the grid verb: the undecomposed run's solver launches, and each
+    # stencil kernel 3 stages × steps on every block of every batch (one
+    # inner batch at this size)
+    fcst = 3 * DET_VERB_STEPS * int(np.prod(GRID)) * (K // stream_batch(
+        K, 5, make_mesh(*GRID)))
     return {"grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members": K,
-            "steps": DET_VERB_STEPS,
-            "kernel_launches": {k: launches[k] for k in ("device", "cpu")},
-            "meta": outs["device"][2], "max_err_over_tol": err}
+            "steps": DET_VERB_STEPS, "mesh": list(GRID),
+            "kernel_launches": {k: launches[k] for k in (
+                "device", "device_grid", "cpu")},
+            "meta": dev[2], "grid_meta": grd[2],
+            "grid_expected_launches": {
+                "invsqrt_ns": launches["device"]["invsqrt_ns"],
+                "dyn_tendency": fcst, "adv_ud3": fcst},
+            "grid_distance": max(float(np.abs(a - b).max())
+                                 for a, b in zip(grd[0], dev[0])),
+            "grid_aux_equal": sorted(grd[1]) == sorted(dev[1]) and all(
+                np.array_equal(grd[1][k], dev[1][k]) for k in dev[1]),
+            "max_err_over_tol": err}
 
 
 def executors_vs_cpu(device: torch.device, config: str,
                      seed: int = 0) -> dict:
-    """The four executor checks above, on `device` against the CPU."""
+    """The executor checks above: four on `device` against the CPU, and
+    the streamed cycle on GRID against its undecomposed run on `device`."""
     return {"tiled": tiled_vs_cpu(device, config, seed),
             "streamed": streamed_vs_cpu(device, config, seed),
+            "streamed_grid": streamed_grid_on_device(device, config, seed),
             "resident": resident_vs_cpu(device, config, seed),
             "verb": streamed_verb_vs_cpu(device, seed)}
 
@@ -2171,9 +2304,15 @@ def executors_vs_cpu(device: torch.device, config: str,
 def executors_check_passes(res: dict) -> bool:
     """Whether executors_vs_cpu passes: every error within its bound, QC
     equal, finite, the pipelined tiles equal to the plain ones, each
-    kernel launched on the card as expected and never on the CPU."""
+    kernel launched on the card as expected and never on the CPU, the
+    streamed cycle on the grid and the verb with [process] at distance 0
+    from their undecomposed runs."""
     ok = all(e <= 1 for r in res.values()
-             for e in r["max_err_over_tol"].values())
+             for e in r.get("max_err_over_tol", {}).values())
+    g = res["streamed_grid"]
+    ok = ok and (g["bit_equal"] and not any(g["distance"].values())
+                 and g["stats_equal"] and g["driver_untouched"]
+                 and g["kernel_launches"] == g["expected_launches"])
     t, s, r, v = (res[k] for k in ("tiled", "streamed", "resident", "verb"))
     ok = ok and t["finite"] and s["finite"] and r["finite"]
     ok = ok and s["qc_equal"] and r["qc_equal"] and t["pipeline_bit_equal"]
@@ -2184,8 +2323,12 @@ def executors_check_passes(res: dict) -> bool:
         ok = ok and x["kernel_launches"]["device"] == x["expected_launches"]
         ok = ok and not any(x["kernel_launches"]["cpu"].values())
     ok = ok and v["kernel_launches"]["device"]["invsqrt_ns"] > 0
+    ok = ok and (v["kernel_launches"]["device_grid"]
+                 == v["grid_expected_launches"])
     ok = ok and not any(v["kernel_launches"]["cpu"].values())
-    return ok and v["meta"] == {"cycles": 1, "streamed": True}
+    ok = ok and v["grid_distance"] == 0 and v["grid_aux_equal"]
+    return ok and v["meta"] == v["grid_meta"] == {"cycles": 1,
+                                                  "streamed": True}
 
 
 # --- one-way nesting and the fused cycle (nested_small, fused_small) -------

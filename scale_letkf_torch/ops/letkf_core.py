@@ -141,13 +141,7 @@ def letkf_core(
             inv_sqrt, pao = invsqrt_newton_schulz(gram)
             trans = inv_sqrt * km1 ** 0.5
         else:
-            eival, eivec = (eigh_jacobi(gram) if solver == "jacobi"
-                            else _eigh(gram))
-            # Pa = V Λ⁻¹ Vᵀ (common_letkf.f90:151-157)
-            pao = (eivec / eival[..., None, :]) @ eivec.transpose(-1, -2)
-            # W = V sqrt((K-1) Λ⁻¹) Vᵀ (common_letkf.f90:199)
-            trans = ((eivec * torch.sqrt(km1 / eival)[..., None, :])
-                     @ eivec.transpose(-1, -2))
+            _, _, pao, trans = solve_eigh(gram, km1, solver == "jacobi")
         del gram
 
     with maybe_section(timer, "weights"):
@@ -189,6 +183,30 @@ def letkf_core(
                        transmd=transmd)
 
 
+def solve_eigh(gram: torch.Tensor, km1: int, jacobi: bool = False):
+    """The eigensolver path of letkf_core: (eigenvalues, eigenvectors, Pa,
+    W) of the Grams (..., K, K) by torch.linalg.eigh, or the Jacobi
+    (ops/eigh_jacobi.py) when `jacobi`; km1 = K − 1."""
+    eival, eivec = eigh_jacobi(gram) if jacobi else _eigh(gram)
+    # Pa = V Λ⁻¹ Vᵀ (common_letkf.f90:151-157)
+    pao = (eivec / eival[..., None, :]) @ eivec.transpose(-1, -2)
+    # W = V sqrt((K-1) Λ⁻¹) Vᵀ (common_letkf.f90:199)
+    trans = ((eivec * torch.sqrt(km1 / eival)[..., None, :])
+             @ eivec.transpose(-1, -2))
+    return eival, eivec, pao, trans
+
+
+def det_increment(pert: torch.Tensor, transmd: torch.Tensor) -> torch.Tensor:
+    """The deterministic member's increment Σ_k Xb'_k·transmd_k
+    (letkf_tools.f90:489-497) of several variables at once: pert (V, B, K),
+    transmd (B, K); returns (V, B). Summed over the members in member
+    order (member_sum), so a point has the same bits in any batch (the
+    einsum over (v, b, k) did not: 784 of the 1,056 elements of 96 points
+    at K = 50 took other bits, gpu_check.batch_invariance's det_einsum on
+    an NVIDIA H100 80GB HBM3 at 700.00 W)."""
+    return member_sum(pert * transmd, -1)
+
+
 def _eye_like(K: int, ref: torch.Tensor) -> torch.Tensor:
     return torch.eye(K, dtype=ref.dtype, device=ref.device)
 
@@ -217,9 +235,17 @@ def weight_update(pert: torch.Tensor, w_total: torch.Tensor) -> torch.Tensor:
     returns (V, B, K). Computed as W'ᵀ·Xb'ᵀ per point, the form cuBLAS
     gives the same bits for a point in any batch (the einsum over (v, b, k)
     took another kernel for 96 of 4,096 points at K = 50:
-    gpu_check.batch_invariance on an NVIDIA H100 80GB HBM3 at 700.00 W)."""
+    gpu_check.batch_invariance on an NVIDIA H100 80GB HBM3 at 700.00 W),
+    with at least DEP_COLUMNS columns: fewer variables (a var-local group
+    of one) are padded with zero ones, since one column made it a batched
+    matrix-vector product, batch-dependent (17,569 of the 25,000 elements
+    of 500 points at K = 50, batch_invariance's apply_1, same card)."""
+    V = pert.shape[0]
+    if V < DEP_COLUMNS:
+        pert = torch.cat([pert, pert.new_zeros(
+            (DEP_COLUMNS - V,) + pert.shape[1:])])
     upd = w_total.transpose(-1, -2) @ pert.permute(1, 2, 0).contiguous()
-    return upd.permute(2, 0, 1)
+    return upd.permute(2, 0, 1)[:V]
 
 
 def weight_rtpp(trans: torch.Tensor, infl: torch.Tensor,

@@ -343,16 +343,53 @@ def test_nested_cycle_verb_on_a_process_grid(tmp_path):
             np.testing.assert_array_equal(a, b)
 
 
-def test_streamed_cycle_is_refused_on_a_process_grid(tmp_path):
-    """cycle --streamed with a [process] table still exits with its
-    message (the streamed executor on a grid is not ported)."""
+def test_streamed_cycle_verb_on_a_process_grid(exp, tmp_path):
+    """cycle --streamed with a [process] (2, 2, 2) table, which the port
+    refused until the stream forecast its batches on the grid: two cycles
+    (the second resuming the first's restart) write the files of the verb
+    without the table, bit for bit, and its meta."""
+    tmp, _, _ = exp
+    outs = {}
+    for name, extra in (("flat", ""), ("grid", PROCESS)):
+        (tmp_path / f"{name}.toml").write_text(CONFIG + extra)
+        run(main, "cycle", "--config", str(tmp_path / f"{name}.toml"),
+            "--init", str(tmp / "init"), "--cycles", "2",
+            "--steps-per-cycle", "1", "--obs-pattern",
+            str(tmp / "ref_obs.dat"), "--out", str(tmp_path / name),
+            "--streamed", "--member-batch", "2", "--tile-rows", "4",
+            "--device", "cpu")
+        outs[name] = checkpoint.load_ensemble(tmp_path / name)
+    (got, aux, meta), (want, aux_w, meta_w) = outs["grid"], outs["flat"]
+    assert meta == meta_w == {"cycles": 2, "streamed": True}
+    assert sorted(aux) == sorted(aux_w)
+    for k in aux_w:
+        np.testing.assert_array_equal(aux[k], aux_w[k])
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert np.abs(got.rhot - checkpoint.load_ensemble(
+        tmp / "init")[0].rhot).max() > 0
+
+
+def test_streamed_cycle_verb_refuses_a_world_of_processes(exp, tmp_path,
+                                                          monkeypatch):
+    """A [process] grid spread over several processes keeps a refusal of
+    its own (the stream holds the ensemble in one process): the grid of a
+    2-process world, made without starting a process group, stops the
+    verb before it reads a member."""
+    from scale_letkf_torch.cli import main as cli_main
+    from scale_letkf_torch.parallel.mesh import ProcessGrid
+    tmp, _, _ = exp
+    monkeypatch.setattr(cli_main, "process_grid",
+                        lambda cfg: ProcessGrid(2, 2, 2, rank=0, world=2))
     (tmp_path / "exp.toml").write_text(CONFIG + PROCESS)
     with pytest.raises(SystemExit,
-                       match=r"--streamed does not run on a \[process\] grid"):
+                       match=r"--streamed runs in one process; the "
+                             r"\[process\] grid spreads over 2"):
         main(["cycle", "--config", str(tmp_path / "exp.toml"), "--init",
-              str(tmp_path / "init"), "--cycles", "1", "--steps-per-cycle",
-              "1", "--obs-pattern", str(tmp_path / "obs.dat"), "--out",
+              str(tmp / "init"), "--cycles", "1", "--steps-per-cycle",
+              "1", "--obs-pattern", str(tmp / "ref_obs.dat"), "--out",
               str(tmp_path / "out"), "--streamed", "--device", "cpu"])
+    assert not (tmp_path / "out").exists()
 
 
 @pytest.mark.parametrize("case,item", [

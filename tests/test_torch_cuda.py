@@ -502,12 +502,16 @@ def test_cuda_cycle_executors_match_cpu(cuda_device, name):
 @pytest.mark.cuda
 def test_cuda_streamed_verb_matches_cpu(cuda_device):
     """cycle --streamed with --device cuda against --device cpu on the
-    same files."""
+    same files; with a [process] table the card's run equals its run
+    without one."""
     res = gpu_check.streamed_verb_vs_cpu(cuda_device)
-    assert res["meta"] == {"cycles": 1, "streamed": True}
+    assert res["meta"] == res["grid_meta"] == {"cycles": 1, "streamed": True}
     assert res["kernel_launches"]["device"]["invsqrt_ns"] > 0, res
+    assert (res["kernel_launches"]["device_grid"]
+            == res["grid_expected_launches"]), res
     assert not any(res["kernel_launches"]["cpu"].values()), res
     assert all(e <= 1 for e in res["max_err_over_tol"].values()), res
+    assert res["grid_distance"] == 0 and res["grid_aux_equal"], res
 
 
 @pytest.mark.cuda

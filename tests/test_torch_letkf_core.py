@@ -253,3 +253,50 @@ def test_products_in_full_fp32_whatever_the_caller_chose(monkeypatch):
     finally:
         matmul.fp32_precision = saved
     assert seen == ["ieee"] * 3
+
+
+def _sub_batches(B):
+    return [slice(0, 1), slice(3, 10), slice(B - 5, B)]
+
+
+@pytest.mark.parametrize("V", [1, 2, 11])
+def test_weight_update_pads_small_groups(V):
+    """weight_update of a group of fewer than DEP_COLUMNS variables is the
+    padded product's rows (one variable made a batched matrix-vector
+    product, batch-dependent on the card), a point's bits do not depend on
+    its batch, and the values are Σ_k Xb'_k W'_km."""
+    rng = np.random.default_rng(V)
+    B, K = 40, 20
+    pert, w = _t(rng.standard_normal((V, B, K)).astype(np.float32),
+                 rng.standard_normal((B, K, K)).astype(np.float32))
+    got = port_core.weight_update(pert, w)
+    assert got.shape == (V, B, K)
+    pad = torch.cat([pert, torch.zeros((max(0, 8 - V), B, K))])
+    assert torch.equal(got, port_core.weight_update(pad, w)[:V])
+    for s in _sub_batches(B):
+        assert torch.equal(port_core.weight_update(pert[:, s], w[s]),
+                           got[:, s])
+    want = np.einsum("vbk,bkm->vbm", pert.double().numpy(), w.double().numpy())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_det_increment_is_member_order():
+    """The deterministic member's increment is the member-order sum of
+    Xb'_k·transmd_k (the einsum over (v, b, k) was batch-dependent on the
+    card): the same bits in any batch, the einsum's values."""
+    rng = np.random.default_rng(3)
+    V, B, K = 11, 40, 50
+    pert, transmd = _t(rng.standard_normal((V, B, K)).astype(np.float32),
+                       rng.standard_normal((B, K)).astype(np.float32))
+    got = port_core.det_increment(pert, transmd)
+    acc = pert[..., 0] * transmd[:, 0]
+    for k in range(1, K):
+        acc = acc + pert[..., k] * transmd[:, k]
+    assert torch.equal(got, acc)
+    for s in _sub_batches(B):
+        assert torch.equal(port_core.det_increment(pert[:, s], transmd[s]),
+                           got[:, s])
+    np.testing.assert_allclose(
+        got.numpy(), np.einsum("vbk,bk->vb", pert.double().numpy(),
+                               transmd.double().numpy()),
+        rtol=1e-5, atol=1e-5)

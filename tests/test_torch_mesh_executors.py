@@ -336,9 +336,9 @@ def test_grid_nested_cycle_is_undecomposed(lateral, monkeypatch):
     from scale_letkf_torch import cycle as cycle_mod
     block = cycle_mod.CycleDriver._bdy_block
 
-    def spy(self, b, sh, b0, B):
-        brackets.append(type(self.bdy.state0))
-        return block(self, b, sh, b0, B)
+    def spy(self, bdy, b, sh, b0, B):
+        brackets.append(type(bdy.state0))
+        return block(self, bdy, b, sh, b0, B)
     monkeypatch.setattr(cycle_mod.CycleDriver, "_bdy_block", spy)
     got = _nested(lateral, PROCESS)
     monkeypatch.undo()

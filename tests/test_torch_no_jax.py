@@ -227,3 +227,28 @@ def test_grid_executors_run_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+def test_grid_stream_runs_without_jax():
+    """The member-streamed cycle on a process grid imports and runs with
+    jax and the JAX package unimportable: one cycle of the production
+    composition (gpu_check.streamed_grid_on_device at 16 × 16, K = 6,
+    batches of 2) on (2, 2, 2) equal to the undecomposed stream."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['scale_letkf_tpu'] = None\n"
+        "import torch\n"
+        "from scale_letkf_torch import gpu_check\n"
+        "torch.set_num_threads(1)\n"
+        "r = gpu_check.streamed_grid_on_device(torch.device('cpu'),\n"
+        "    'configs/18km_japan.toml', 0, shape=(2, 2, 2),\n"
+        "    member_batch=2, cycles=1, members=6, over={'nx': 16,\n"
+        "    'ny': 16, 'nz': 8, 'dz': 1000.0, 'dz_stretch': 1.1})\n"
+        "assert r['bit_equal'] and r['batches'] == 3, r\n"
+        "assert sys.modules['jax'] is None\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
