@@ -17,8 +17,9 @@ bench's synthetic topography, with conventional and Himawari-8 obs); and
 the radar configuration's forecast (configs/bda_1km_radar.toml, unchanged:
 192×192×48, K = 50, Kessler physics) over its 30-s window; the physics
 cycle, the radar forecast and the fused radar cycle on a (2, 2, 2)
-process grid of blocks, each held exactly to its undecomposed run; and the
-executors, the nested and the fused cycles:
+process grid of blocks, each held exactly to its undecomposed run; the
+executors, the nested and the fused cycles; and the OSSE impact experiment
+of the full-size benches (a shallow bench_fullsize.bench_osse_impact):
 
   1. device         — the card, and nvidia-smi's name and power limit
   2. build          — nvcc builds of the three kernels, all started
@@ -150,14 +151,15 @@ executors, the nested and the fused cycles:
                       torch.linalg.eigh on one 18-km level of K = 8 and 16
                       Grams (B = 172,800): times and errors against float64
                       eigh, and the solver 'auto' takes at K ≤ 16
- 29. h08_calibrate  — the H08 band-model fit on the card against the CPU
-                      fit, the misfit after below the misfit before
+ 29. h08_calibrate  — the H08 band-model fit (H08_FIT_STEPS Adam steps) on
+                      the card against the CPU fit, the misfit after below
+                      the misfit before
  30. streamed_cycle — the configuration's 7-slot 4-D window (slot_base 4)
                       through StreamedCycle, its slot interval cut from
                       3600 to 150 s (5 steps: the analysis at step 15, the
                       window's end at 30, against 720 and 1080 as
                       shipped), the physics cycle's composition, member
-                      batches of 10, analysis tiles of 20 rows; the ensemble
+                      batches of 10, analysis tiles of 40 rows; the ensemble
                       made on the card and brought to the host as analysis
                       variables and their restart, the obs the conventional
                       network spread over the 7 slots with values from the
@@ -170,7 +172,7 @@ executors, the nested and the fused cycles:
                       them), spreads, seconds a member-step and the shipped
                       window extrapolated from it
  31. streamed_real  — invsqrt_ns vs plain on phase 30's first tile's Grams
-                      (B = 9,600)
+                      (B = 19,200)
  32. resident_cycle — phase 30's analysis-variable ensemble, obs and driver
                       through ResidentCycle (6.84 GB of bfloat16 deviations
                       on the card): launches, peak, the bytes the cycle
@@ -229,7 +231,10 @@ executors, the nested and the fused cycles:
                       launch's operands (both modes' times), #1 on the
                       child's first Grams
  37. fused_radar_cycle — configs/bda_1km_radar.toml as shipped through
-                      FusedCycle.run_osse, 2 cycles of its 15-step window:
+                      FusedCycle.run_osse, one cycle of its 15-step window
+                      (2 until the OSSE phase took their time; the grid's
+                      second cycle is held at the coarsened size by
+                      gpu_check.fused_grid_on_device):
                       the radar cycle's blob ensemble and nature member,
                       the synthetic PAWR volume (888,000 gates) valued from
                       the nature run and preprocessed to dBZ, every gate in
@@ -242,7 +247,7 @@ executors, the nested and the fused cycles:
                       after phase 37 on its inputs (its seeded blob
                       ensemble and nature member, its dBZ template — kept
                       — and its noise seed): FusedCycle on
-                      CycleDriver(mesh=make_mesh(2, 2, 2)), 2 cycles, 8
+                      CycleDriver(mesh=make_mesh(2, 2, 2)), one cycle, 8
                       blocks of 25 members × 96 × 96 columns; each member
                       slab gathered for H(x), the worst QC, the mean of
                       H(x) and the min-member count over all 50 members in
@@ -260,6 +265,19 @@ executors, the nested and the fused cycles:
                       #1 on the first share's first level chunk of Grams
                       (4,608 of them), #2 and #3 on the final nature state
                       as a batch of one at 192 × 192
+ 49. osse_impact    — bench_fullsize.bench_osse_impact at its own width
+                      (18-km configuration coarsened to 240×180×36 at 36
+                      km, K = 50, the production composition, 400 sondes +
+                      800 PS) with its depth cut (OSSE_*: 2 spin-up
+                      steps, 2 cycles of 2; batches of 50, tiles of 90
+                      rows): the ensemble, the no-DA control and the truth
+                      under its stronger sun on ResidentCycle; the T RMSE
+                      of guess, analysis and control and the guess spread,
+                      finite, the analysis below its guess in each cycle,
+                      the second cycle's guess below the control;
+                      launches (#1 as every analysis's levels × chunks ×
+                      groups, #2 and #3 idle over terrain) and peak
+ 50. osse_real      — invsqrt_ns vs plain on phase 49's first Grams
  38. nested_small   — the cycle verb with a [nest] section (the child
                       open) at tests/test_cli_nested.py's size on the card
                       against the CPU
@@ -315,8 +333,9 @@ executors, the nested and the fused cycles:
                       phase 43 at its member batch
 
 The phases run in the order 1–16, 40–42, 17, 18, 43, 44, 19–33, 47,
-48, 34–37, 45, 46, 38, 39. Each
-phase prints one JSON line; any failed check raises, so the script
+48, 34–37, 45, 46, 38, 39, 49, 50. Each
+phase prints one JSON line, with its seconds since the script's start as
+at_s (the smoke's timeline); any failed check raises, so the script
 exits non-zero. Every kernel-vs-plain check runs the kernel twice and holds
 both runs to the bound (invsqrt_ns, which has no atomics, must also give
 bit-identical runs). Kernel and plain versions are timed with CUDA events,
@@ -336,7 +355,8 @@ cycle's times under `physics_cycle`, the radar grid's under `radar_grid`,
 on the nested child's operands under `child_grid` — #2 and #3 in the open
 mode, with both modes' times —, each kernel on the fused grid cycle's
 operands under `fused_grid`, phase 46, and on the streamed grid cycle's
-under `streamed_grid`, phase 48), and its bound:
+under `streamed_grid`, phase 48, and #1 on the OSSE's Grams under
+`osse_grams`, phase 50), and its bound:
 the larger of the bytes it must move over 3.35 TB/s and its operations
 over the rate of the units that do them, computed from those operands —
 67 TFLOP/s FP32 for the stencils, and for invsqrt_ns's 3xTF32 tensor-core
@@ -408,7 +428,14 @@ REPLACES = {
 }
 
 
+# the script's start on the host clock (main); each phase line carries its
+# seconds since then as at_s, the smoke's timeline
+T_START: list[float] = []
+
+
 def emit(obj) -> None:
+    if T_START and "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START[0]}
     print(json.dumps(obj), flush=True)
 
 
@@ -1687,13 +1714,18 @@ def phase_jacobi(device) -> dict:
     return res
 
 
+# Adam steps of the smoke's H08 fit (the calibration's own run takes 600):
+# cut for the smoke's time; the card and the CPU take the same steps
+H08_FIT_STEPS = 300
+
+
 def phase_h08_calibrate(device):
-    """The H08 band-model calibration's fit (600 Adam steps, 64 profiles,
-    float64) on the card against the CPU fit, timed, and the BT misfit
-    after below the misfit before (gpu_check.h08_fit_vs_cpu)."""
+    """The H08 band-model calibration's fit (H08_FIT_STEPS Adam steps, 64
+    profiles, float64) on the card against the CPU fit, timed, and the BT
+    misfit after below the misfit before (gpu_check.h08_fit_vs_cpu)."""
     from scale_letkf_torch.gpu_check import h08_fit_vs_cpu
     t0 = time.perf_counter()
-    res = h08_fit_vs_cpu(device)
+    res = h08_fit_vs_cpu(device, H08_FIT_STEPS)
     emit({"phase": "h08_calibrate", "seconds": time.perf_counter() - t0,
           **res})
     if not res["passes"]:
@@ -2072,7 +2104,14 @@ def phase_forecast_small(device):
 # HBM3 at 700.00 W.
 STREAMED_SLOT_S = 150.0
 STREAMED_BATCH = 10
-STREAMED_ROWS = 20
+# analysis tiles of 40 rows, 9 a level: a change of the cell's executor
+# setting, not a depth cut (the cell was defined with 20-row tiles; 40
+# since the OSSE phase needed the time). The tiled analysis's selections
+# are launch-bound, so half the tiles take about half the time; the window,
+# the obs and every check are the same, but the analysis times are not
+# those of the 20-row cell
+STREAMED_ROWS = 40
+CELL_ROWS = 20
 RADAR_ROWS = 48
 RADAR_BATCH = 10
 RADAR_OBS_TARGET = 1_000_000
@@ -2290,6 +2329,7 @@ def phase_streamed_cycle(device):
            "slot_base": cfg.obsope.slot_base,
            "reduced": {"slot_tinterval_s": [3600.0, STREAMED_SLOT_S],
                        "window_steps": [SHIPPED_WINDOW_STEPS, window]},
+           "changed": {"tile_rows": [CELL_ROWS, STREAMED_ROWS]},
            "analysis_step": nsteps, "window_steps": window,
            "composition": "physics suite + Davies, flat",
            "member_batch": STREAMED_BATCH, "batches": batches,
@@ -2403,6 +2443,7 @@ def phase_resident_cycle(device, shared: dict):
            "grid": f"{driver.grid.nx}x{driver.grid.ny}x{driver.grid.nz}",
            "members": K, "window_steps": window, "analysis_step": nsteps,
            "max_steps_per_call": rc.max_steps_per_call,
+           "changed": {"tile_rows": [CELL_ROWS, STREAMED_ROWS]},
            "bf16_deviations_gb": dev_gb, "from_host_gues_s": upload_s,
            "wall_s": wall,
            "phase_table": phase_table(rep).splitlines()[1:],
@@ -2697,7 +2738,12 @@ NEST_STEPS = 18
 NEST_BDY_WIDTH = 10
 NEST_BDY_TAU = 120.0
 NEST_SONDES = 700
-FUSED_CYCLES = 2
+# one cycle since the OSSE phase took its time (2 before, a depth cut):
+# each cycle's checks, and the grid's distances, are the same in either; the
+# grid's bit-equality over a second cycle, from an analysed state, is held
+# at the coarsened size (gpu_check.fused_grid_on_device, two cycles, in
+# tests/test_torch_cuda.py)
+FUSED_CYCLES = 1
 
 
 def nest_child(cfg, grid, dycfg, dom, device, bdy_width=NEST_BDY_WIDTH):
@@ -3616,6 +3662,110 @@ def phase_mesh_fused_real(operands) -> dict:
     return rows
 
 
+# --- the OSSE impact experiment (scale_letkf_torch/bench_fullsize.py) -------
+# bench_osse_impact at its own width (240×180×36, K = 50, the production
+# composition, 400 sondes + 800 PS), its depth cut from 60 spin-up steps and
+# 4 cycles of 60 steps to OSSE_SPINUP and OSSE_CYCLES of OSSE_STEPS; member
+# batches of OSSE_BATCH (the bench's 2: launch-bound) and analysis tiles of
+# OSSE_ROWS rows (its 12: 15 launch-bound tiles a level). Two cycles, so
+# that the second cycle's guess, forecast from the first analysis, is held
+# below the no-DA control's. Without a spin-up the first analysis is above
+# its guess (0.5883 against 0.5879 K on an NVIDIA H100 80GB HBM3; the JAX
+# package's too, at 48×36×36 on the CPU): the ensemble's first steps are
+# its adjustment
+OSSE_SPINUP = 2
+OSSE_CYCLES = 2
+OSSE_STEPS = 2
+OSSE_BATCH = 50
+OSSE_ROWS = 90
+OSSE_SHIPPED = {"spinup_steps": 60, "n_cycles": 4, "steps_per_cycle": 60,
+                "member_batch": 2, "tile_rows": 12}
+
+
+def phase_osse_impact(device):
+    """bench_fullsize.bench_osse_impact on the card, shallow (OSSE_*): the
+    ensemble, the no-DA control and the truth under its stronger sun, each
+    on ResidentCycle in the production composition (terrain: #2 and #3
+    idle). Per cycle the T RMSE of the guess, analysis and control means
+    against the truth below 11 km, and the guess spread; launches, peak
+    memory. Checks: every curve value finite, the analysis below the guess
+    every cycle, the guess below the control in every cycle after the first
+    (the first cycle's guess is the control's), #1 launched levels × chunks
+    × var-local groups in every analysis (#2, #3 not at all), peak below 80
+    GB. Returns the row and the first Grams of #1 (phase osse_real)."""
+    from scale_letkf_torch.bench_fullsize import bench_osse_impact
+    from scale_letkf_torch.da import resident as resident_mod
+    from scale_letkf_torch.gpu_check import var_local_groups
+    from scale_letkf_torch.ops import invsqrt as invsqrt_mod
+    from scale_letkf_torch.utils import kernels
+    analyses, grams = [], {}
+    analyze, launch = resident_mod.analyze_resident, invsqrt_mod.invsqrt_ns_kernel
+
+    def counted(ens, ctx, cfg, grid, *args, **kw):
+        stats = analyze(ens, ctx, cfg, grid, *args, **kw)
+        analyses.append({"tiles": stats["tiles"], "chunks": stats["chunks"],
+                         "levels": grid.nz, "groups": var_local_groups(cfg),
+                         "nobs": int(ctx.nobs)})
+        return stats
+
+    def recording(a, areg, *args):
+        if not grams:
+            grams["a"], grams["areg"] = a.clone(), areg.clone()
+        return launch(a, areg, *args)
+
+    resident_mod.analyze_resident = counted
+    invsqrt_mod.invsqrt_ns_kernel = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = bench_osse_impact(
+            config=str(CONFIG), n_cycles=OSSE_CYCLES,
+            steps_per_cycle=OSSE_STEPS, spinup_steps=OSSE_SPINUP,
+            member_batch=OSSE_BATCH, tile_rows=OSSE_ROWS, device=device)
+        torch.cuda.synchronize()
+    finally:
+        resident_mod.analyze_resident = analyze
+        invsqrt_mod.invsqrt_ns_kernel = launch
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    launches = {k: kernels.LAUNCHES[k] for k in KERNELS}
+    expected = {"invsqrt_ns": sum(a["levels"] * a["chunks"] * a["groups"]
+                                  for a in analyses),
+                "dyn_tendency": 0, "adv_ud3": 0}
+    curves = ("rmse_gues", "rmse_anal", "rmse_ctrl", "spread_gues")
+    finite = all(np.isfinite(res[k]).all() and len(res[k]) == OSSE_CYCLES
+                 for k in curves)
+    row = {"phase": "osse_impact", **res, "wall_s": wall,
+           "reduced": {k: [v, {"spinup_steps": OSSE_SPINUP,
+                               "n_cycles": OSSE_CYCLES,
+                               "steps_per_cycle": OSSE_STEPS,
+                               "member_batch": OSSE_BATCH,
+                               "tile_rows": OSSE_ROWS}[k]]
+                       for k, v in OSSE_SHIPPED.items()},
+           "analyses": analyses, "peak_mem_gb": peak,
+           "kernel_launches": launches, "expected_launches": expected,
+           "anal_below_gues": [a < g for a, g in zip(res["rmse_anal"],
+                                                     res["rmse_gues"])],
+           "gues_below_ctrl": [g < c for g, c in zip(res["rmse_gues"],
+                                                     res["rmse_ctrl"])],
+           "finite": finite}
+    emit(row)
+    if not finite:
+        raise AssertionError(f"the OSSE curves are not finite: {res}")
+    if not all(row["anal_below_gues"]):
+        raise AssertionError(f"an analysis above its guess: {res}")
+    if not all(row["gues_below_ctrl"][1:]):
+        raise AssertionError(f"a cycled guess not below the control: {res}")
+    if launches != expected or not analyses:
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{expected}")
+    if not peak < 80:
+        raise AssertionError(f"peak memory {peak:.2f} GiB")
+    return row, (grams["a"], grams["areg"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the GPU smoke run cannot run here",
@@ -3628,6 +3778,7 @@ def main() -> int:
     # phases that compare them see TF32-sized errors
     torch.backends.cuda.matmul.fp32_precision = "tf32"
     t_start = time.perf_counter()
+    T_START.append(t_start)
     phase_device()
     phase_build()
     phase_random(device)
@@ -3725,6 +3876,10 @@ def main() -> int:
     del operands
     torch.cuda.empty_cache()
     phase_nested_small(device)
+    torch.cuda.empty_cache()
+    osse_row, osse_grams = phase_osse_impact(device)
+    osse_real = check_invsqrt(*osse_grams, "osse_real")
+    del osse_grams
     # the kernels line: launches of the grid's cycle (mesh_cycle), this
     # slice's main path, which runs all three, and the times on its own
     # operands (phase mesh_real: #1 on a share's Grams, #2 and #3 on an
@@ -3739,7 +3894,8 @@ def main() -> int:
     # cycle's child — #2 and #3 in the open mode (phase nested_real);
     # fused_grid: each kernel on the fused grid cycle's own operands — #1
     # on a share's Grams, #2 and #3 on its nature run (phase
-    # mesh_fused_real)
+    # mesh_fused_real); osse_grams: kernel #1 on the OSSE's first Grams
+    # (phase osse_real)
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "bound_share")
     for name in KERNELS:
@@ -3761,7 +3917,8 @@ def main() -> int:
             "mesh_fused_radar_cycle": mf["kernel_launches"][name],
             "mesh_cycle": mc["kernel_launches"][name],
             "mesh_radar_forecast": mr["kernel_launches"].get(name, 0),
-            "mesh_radar_cycle": ms["kernel_launches"][name]}
+            "mesh_radar_cycle": ms["kernel_launches"][name],
+            "osse_impact": osse_row["kernel_launches"][name]}
         dc_rows[name] = mesh_rows[name]
         dc_rows[name]["child_grid"] = {
             k: nested_rows[name][k] for k in timing + (
@@ -3789,6 +3946,9 @@ def main() -> int:
         dc_rows[name]["production_grams"] = (
             {"B": prod_real["B"], **{k: prod_real[k] for k in timing}}
             if name == "invsqrt_ns" else None)
+        dc_rows[name]["osse_grams"] = (
+            {"B": osse_real["B"], **{k: osse_real[k] for k in timing}}
+            if name == "invsqrt_ns" else None)
         dc_rows[name]["streamed_tile"] = (
             {"B": streamed_tile["B"], **{k: streamed_tile[k]
                                          for k in timing}}
@@ -3800,7 +3960,7 @@ def main() -> int:
             "bound_ms", "bound_fp32_ms", "bound_by", "bound_share",
             "gb_per_s", "tflops", "shapes", "det_cycle", "physics_cycle",
             "radar_grid", "radar_block", "production_grams", "streamed_tile",
-            "child_grid", "fused_grid", "streamed_grid")
+            "child_grid", "fused_grid", "streamed_grid", "osse_grams")
     emit({"kernels": [{"name": name, "route": "cuda",
                        "source": f"scale_letkf_torch/csrc/{name}.cu",
                        "replaces": REPLACES[name],

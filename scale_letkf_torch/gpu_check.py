@@ -70,9 +70,10 @@ hold against the reference package.
   coarsened cycle (osse_vs_cpu's inputs) undecomposed and on GRID on the
   card, which must agree exactly — final ensemble, nature run, means,
   spreads and O−B / O−A.
-- The executors on a process grid: fused_grid_on_device runs one
-  FusedCycle step of fused_vs_cpu's inputs undecomposed and on GRID on the
-  card (bit-equal, launches per block and share);
+- The executors on a process grid: fused_grid_on_device runs two
+  FusedCycle steps of fused_vs_cpu's inputs, the second from the first's
+  analysis and inflation, undecomposed and on GRID on the card (bit-equal
+  in each cycle, launches per block and share);
   nested_grid_cycle_on_device the coarsened cycle's parent with a 24 × 24
   open child at ratio 3 on GRID against its open-mode composition (the
   undecomposed child stepping with the halo step of the whole ensemble,
@@ -2625,15 +2626,21 @@ def _fused_inputs(device: torch.device, config: str, seed: int):
     return (cfg, grid, dycfg, dom), ens0, truth0, template
 
 
+FUSED_GRID_CYCLES = 2
+
+
 def fused_grid_on_device(device: torch.device, config: str,
-                         seed: int = 0) -> dict:
-    """One FusedCycle step (RADAR_STEPS forecast steps + the assimilation)
-    of fused_vs_cpu's inputs on `device`, undecomposed and on the GRID
-    process grid: whether the grid's analysis ensemble, inflation, obs
-    counts, O−B / O−A (by group too) and guess and analysis means equal the
-    undecomposed step's bit for bit, the largest difference, and the grid
-    step's launches against 3 stages × steps × batches × blocks for #2 and
-    #3 and levels × chunks × var-local groups over its shares for #1."""
+                         seed: int = 0, cycles: int = FUSED_GRID_CYCLES
+                         ) -> dict:
+    """`cycles` FusedCycle steps (RADAR_STEPS forecast steps + the
+    assimilation, each from the last one's analysis and inflation) of
+    fused_vs_cpu's inputs on `device`, undecomposed and on the GRID process
+    grid: whether the grid's analysis ensemble, inflation, obs counts, O−B /
+    O−A (by group too) and guess and analysis means equal the undecomposed
+    steps' bit for bit in every cycle, the largest difference, and the grid
+    steps' launches against 3 stages × steps × batches × blocks for #2 and
+    #3 and levels × chunks × var-local groups over its shares for #1 in
+    each cycle."""
     from scale_letkf_torch.cli.main import make_driver
     from scale_letkf_torch.da.fastcycle import FusedCycle
     (cfg, grid, dycfg, dom), ens0, _, template = _fused_inputs(
@@ -2642,33 +2649,40 @@ def fused_grid_on_device(device: torch.device, config: str,
     for key, c in (("undecomposed", cfg), ("grid", _on_grid(cfg))):
         driver = make_driver(c, grid, dycfg, dom, device)
         fc = FusedCycle(driver, template, RADAR_STEPS)
+        dat = torch.as_tensor(fc.template.dat, dtype=torch.float32,
+                              device=device)
         before = dict(kernels.LAUNCHES)
-        ens, infl, diag = fc.step(ens0, torch.as_tensor(
-            fc.template.dat, dtype=torch.float32, device=device),
-            fc.initial_inflation())
-        arrays = {**{f"ens.{n}": f for n, f in zip(
-            ens0._fields, _global(driver, ens))}, "infl": infl,
-            **{k: diag[k] for k in ("nobs_used", "omb_rmse", "oma_rmse",
-                                    "nobs_per_level", "gues_mean",
-                                    "anal_mean")},
-            **{f"{k}.{n}": diag[k][n] for k in ("omb_by_group",
-                                                "oma_by_group")
-               for n in sorted(diag[k])}}
+        ens, infl, arrays = ens0, fc.initial_inflation(), {}
+        expected = {k: 0 for k in KERNELS}
+        for cyc in range(cycles):
+            ens, infl, diag = fc.step(ens, dat, infl)
+            if key == "grid":
+                expected["invsqrt_ns"] += expected_launches(
+                    cfg, grid, RADAR_STEPS, 0, 0,
+                    shares=diag["chunk"])["invsqrt_ns"]
+                for k in ("dyn_tendency", "adv_ud3"):
+                    expected[k] += (3 * RADAR_STEPS * int(np.prod(GRID))
+                                    * -(-(MEMBERS_CYCLE // GRID[0])
+                                        // driver.batch))
+            arrays.update({f"c{cyc}.{k}": v for k, v in {
+                **{f"ens.{n}": f for n, f in zip(
+                    ens0._fields, _global(driver, ens))}, "infl": infl,
+                **{k: diag[k] for k in ("nobs_used", "omb_rmse", "oma_rmse",
+                                        "nobs_per_level", "gues_mean",
+                                        "anal_mean")},
+                **{f"{k}.{n}": diag[k][n] for k in ("omb_by_group",
+                                                    "oma_by_group")
+                   for n in sorted(diag[k])}}.items()})
         runs[key] = {
             "arrays": {k: v.cpu() for k, v in arrays.items()},
             "launches": _launches(before),
-            "expected": None if key == "undecomposed" else {
-                **expected_launches(cfg, grid, RADAR_STEPS, 0, 0,
-                                    shares=diag["chunk"]),
-                **{k: 3 * RADAR_STEPS * int(np.prod(GRID))
-                   * -(-(MEMBERS_CYCLE // GRID[0]) // driver.batch)
-                   for k in ("dyn_tendency", "adv_ud3")}},
+            "expected": None if key == "undecomposed" else expected,
             "nobs_used": int(diag["nobs_used"])}
     a, b = runs["grid"]["arrays"], runs["undecomposed"]["arrays"]
     diff = {k: float((a[k].double() - b[k].double()).abs().max()) for k in a}
     return {"grid": f"{grid.nx}x{grid.ny}x{grid.nz}", "members":
             MEMBERS_CYCLE, "mesh": list(GRID), "steps": RADAR_STEPS,
-            "template_obs": int(template.nobs),
+            "cycles": cycles, "template_obs": int(template.nobs),
             "nobs_used": runs["grid"]["nobs_used"],
             "bit_equal": all(torch.equal(a[k], b[k]) for k in a),
             "max_abs_diff": {k: v for k, v in diff.items() if v},

@@ -1,15 +1,18 @@
-"""Synthetic ensembles and observation networks for tests and the smoke run.
+"""Synthetic ensembles and observation networks for the benches, the tests
+and the smoke run.
 
 The numpy helpers are copies of the reference's full-size bench generators
 (scale_letkf_tpu/bench_fullsize.py _smooth_noise, _synthetic_gues,
-_synthetic_conv_network, _synthetic_topo), so both packages can be fed the
-same numbers; `synthetic_h08_network` lays out a thinned Himawari-8 network
-in the reference's file layout (one record per profile and band).
+_host_profiles, _synthetic_ens_dycore, _synthetic_conv_network,
+_synthetic_topo), so both packages can be fed the same numbers;
+`synthetic_h08_network` lays out a thinned Himawari-8 network in the
+reference's file layout (one record per profile and band).
 `synthetic_gues_device` and `synthetic_ens_dycore_device` build the same
 kinds of ensemble (analysis variables; the forecast's staggered restart
 state) on a device from a seeded torch.Generator: a full-size ensemble
 (13.7 GB at 18 km, K = 50) never crosses the host link and skips hundreds
-of host smoothing passes.
+of host smoothing passes. `synthetic_resident_gues` builds the reference
+bench's device-resident ensemble (float32 mean, bfloat16 deviations).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from scale_letkf_torch.obs.types import (
 )
 from scale_letkf_torch.model.boundary import BoundaryData
 from scale_letkf_torch.model.dycore import DycoreState, hydrostatic_reference
-from scale_letkf_torch.model.ideal import standard_theta_profile
+from scale_letkf_torch.model.ideal import CPDRY, standard_theta_profile
 from scale_letkf_torch.model.microphysics6 import qsat
 from scale_letkf_torch.state import (
     NQ, NV3D, IA_U, IA_V, IA_W, IA_T, IA_P, IA_Q0,
@@ -98,14 +101,14 @@ def synthetic_gues_device(seed: int, K: int, nz: int, ny: int, nx: int,
     return out
 
 
-def _base_columns(grid, dom: dict, rh_max: float | None = None):
-    """Float32 (θ, ρ, qv) base columns of the grid: the standard θ profile,
-    its hydrostatic density, and the [domain] qv profile (qv_surface,
-    qv_scale_height; zero without qv_surface). rh_max caps qv at that
-    fraction of saturation of the base column (over ice below 0 °C): the
-    exponential profile is supersaturated over ice in the upper troposphere
-    of a deep domain, where the physics suite's first step would deposit
-    it as ice cloud."""
+def base_columns(grid, dom: dict, rh_max: float | None = None):
+    """Float32 (θ, ρ, p, qv) base columns of the grid (the reference bench's
+    _host_profiles): the standard θ profile, its hydrostatic density and
+    pressure, and the [domain] qv profile (qv_surface, qv_scale_height; zero
+    without qv_surface). rh_max caps qv at that fraction of saturation of
+    the base column (over ice below 0 °C): the exponential profile is
+    supersaturated over ice in the upper troposphere of a deep domain,
+    where the physics suite's first step would deposit it as ice cloud."""
     cz = np.asarray(grid.cz)
     dz0 = float(np.asarray(grid.fz)[1] - np.asarray(grid.fz)[0])
     theta = standard_theta_profile(grid.nz, dz0, cz=cz)
@@ -119,7 +122,7 @@ def _base_columns(grid, dom: dict, rh_max: float | None = None):
         sat = torch.where(t < T00, qsat(t, p, True), qsat(t, p, False))
         qv = np.minimum(qv, rh_max * sat.numpy())
     return (theta.astype(np.float32), rho1d.astype(np.float32),
-            qv.astype(np.float32))
+            p1d.astype(np.float32), qv.astype(np.float32))
 
 
 def base_boundary(grid, dom: dict, device: torch.device,
@@ -129,8 +132,8 @@ def base_boundary(grid, dom: dict, device: torch.device,
     [domain] qv profile — the reference bench's stand-in for a parent-model
     boundary file (scale_letkf_tpu/bench_fullsize.py _make_fullsize_driver,
     BoundaryData(base, base, 0, 1e9)). The fields are expanded views of the
-    columns; rh_max caps qv as _base_columns does."""
-    theta, rho1d, qv = _base_columns(grid, dom, rh_max)
+    columns; rh_max caps qv as base_columns does."""
+    theta, rho1d, _, qv = base_columns(grid, dom, rh_max)
     nz, ny, nx = grid.nz, grid.ny, grid.nx
 
     def col(prof):
@@ -177,10 +180,9 @@ def synthetic_ens_dycore_device(seed: int, K: int, grid, dom: dict,
     so the radar operator sees echoes and the microphysics hydrometeors.
 
     rh_max caps the qv profile at that fraction of the base column's
-    saturation (_base_columns)."""
+    saturation (base_columns)."""
     nz, ny, nx = grid.nz, grid.ny, grid.nx
-    theta, rho1d, qv = _base_columns(grid, dom, rh_max)
-    p_ref = PRE00 * (rho1d * theta * RD / PRE00) ** ((RD + CVDRY) / CVDRY)
+    theta, rho1d, _, qv = base_columns(grid, dom, rh_max)
     tx = np.minimum(np.arange(nx), nx - 1 - np.arange(nx))
     ty = np.minimum(np.arange(ny), ny - 1 - np.arange(ny))
     taper = (np.minimum(1.0, tx / 8.0)[None, :]
@@ -229,7 +231,142 @@ def synthetic_ens_dycore_device(seed: int, K: int, grid, dom: dict,
         rhow=torch.zeros((K, nz + 1, ny, nx), dtype=torch.float32,
                          device=device),
         rhot=rhot, rhoq=rhoq)
-    return ens, col(rho1d), col(p_ref)
+    return ens, col(rho1d), torch.as_tensor(reference_pressure(theta, rho1d),
+                                           device=device)
+
+
+def reference_pressure(theta: np.ndarray, rho1d: np.ndarray) -> np.ndarray:
+    """(nz, 1, 1) float32 reference pressure of the base columns: the
+    equation of state of ρθ."""
+    p_ref = PRE00 * (rho1d * theta * RD / PRE00) ** (CPDRY / CVDRY)
+    return p_ref.astype(np.float32).reshape(-1, 1, 1)
+
+
+def synthetic_ens_dycore(rng: np.random.Generator, K: int, grid, dom: dict,
+                         amp_theta: float = 0.5, qr_blob: float = 0.0):
+    """A K-member restart ensemble in host numpy arrays around the balanced
+    base state (the reference bench's _synthetic_ens_dycore, the same
+    numbers from the same generator): ρθ perturbed by amp_theta [K]·(one
+    1-2-1 pass of noise) tapered to zero over 8 cells at the lateral edges
+    (the reference's init_perturb.py recipe), the [domain] qv profile in
+    ρq[0], and with qr_blob > 0 a rain blob (and half as much cloud water)
+    per member for the radar operator. Returns (DycoreState of numpy arrays,
+    K leading; rho_ref, p_ref (nz, 1, 1))."""
+    nz, ny, nx = grid.nz, grid.ny, grid.nx
+    theta, rho1d, _, qv = base_columns(grid, dom)
+    tx = np.minimum(np.arange(nx), nx - 1 - np.arange(nx))
+    ty = np.minimum(np.arange(ny), ny - 1 - np.arange(ny))
+    taper = (np.minimum(1.0, tx / 8.0)[None, :]
+             * np.minimum(1.0, ty / 8.0)[:, None]).astype(np.float32)
+
+    rho = np.broadcast_to(rho1d[:, None, None], (nz, ny, nx))
+    s = DycoreState(
+        rho=np.empty((K, nz, ny, nx), np.float32),
+        rhou=np.zeros((K, nz, ny, nx), np.float32),
+        rhov=np.zeros((K, nz, ny, nx), np.float32),
+        rhow=np.zeros((K, nz + 1, ny, nx), np.float32),
+        rhot=np.empty((K, nz, ny, nx), np.float32),
+        rhoq=np.zeros((K, NQ, nz, ny, nx), np.float32))
+    base_rhot = (rho1d * theta)[:, None, None]
+    qv_rho = (qv * rho1d)[:, None, None]
+    k, j, i = np.mgrid[0:nz, 0:ny, 0:nx]
+    for m in range(K):
+        s.rho[m] = rho
+        dtheta = amp_theta * smooth_noise(rng, (nz, ny, nx), passes=1)
+        s.rhot[m] = base_rhot + rho * dtheta * taper[None]
+        s.rhoq[m, 0] = qv_rho
+        if qr_blob > 0:
+            cx = nx * (0.35 + 0.3 * rng.random())
+            cy = ny * (0.35 + 0.3 * rng.random())
+            blob = np.exp(-(((i - cx) / (0.12 * nx)) ** 2
+                            + ((j - cy) / (0.12 * ny)) ** 2
+                            + ((k - 0.3 * nz) / (0.2 * nz)) ** 2)
+                          ).astype(np.float32)
+            s.rhoq[m, 2] += qr_blob * blob * rho
+            s.rhoq[m, 1] += 0.5 * qr_blob * blob * rho
+    return s, rho1d.reshape(nz, 1, 1), reference_pressure(theta, rho1d)
+
+
+def synthetic_resident_gues(seed: int, K: int, grid, batch: int = 10,
+                            t_offset: float = 0.0, smooth_strides=(1,), *,
+                            device: torch.device, noise=None):
+    """A K-member analysis-variable ensemble made on `device` in the resident
+    layout (da/resident.py ResidentEnsemble: float32 mean, bfloat16
+    deviations from the reference profile), the reference bench's
+    _synthetic_resident_gues: a hydrostatically consistent base (the
+    standard θ profile, its hydrostatic p, T = θ·(p/p00)^(R/cp), T shifted by
+    t_offset), U 5 m/s, qv 1e-3, plus smoothed noise at each variable's
+    amplitude, moisture floored at |q| + 1e-3. The noise of each member
+    batch is 1-2-1 smoothed, two passes along x and y at every stride of
+    smooth_strides; for any other strides than (1,) (synoptic-scale
+    perturbations that a K ~ 50 ensemble can span, for an OSSE) also two
+    vertical passes, then renormalized by its horizontal standard deviation
+    floored at 0.5. Batches of `batch` members (fewer when a batch's float32
+    temporaries would pass ~0.6 GB) are written into the deviation buffer in
+    place; the mean sums the members in member order.
+
+    noise: None draws each batch from a torch.Generator seeded with `seed`
+    (the reference draws from jax.random: other numbers); else a callable
+    (i0, shape) → the float32 noise of the batch starting at member i0, so a
+    caller can feed both packages the same numbers."""
+    from scale_letkf_torch.da.bigcycle import batch_of
+    from scale_letkf_torch.da.resident import ResidentEnsemble
+    nz, ny, nx = grid.nz, grid.ny, grid.nx
+    cz = np.asarray(grid.cz)
+    dz0 = float(np.asarray(grid.fz)[1] - np.asarray(grid.fz)[0])
+    theta_p = np.asarray(standard_theta_profile(nz, dz0, cz=cz), np.float32)
+    _, p_prof = (np.asarray(a, np.float32)
+                 for a in hydrostatic_reference(theta_p, dz0, cz=cz))
+    t_prof = theta_p * (p_prof / 1.0e5) ** (RD / CPDRY)
+    prof = np.zeros((NV3D, nz), np.float32)
+    prof[IA_T] = t_prof + t_offset
+    prof[IA_P] = p_prof
+    prof[IA_U] = 5.0
+    prof[IA_Q0] = 1e-3
+    amp = np.full(NV3D, 0.5, np.float32)
+    amp[[IA_U, IA_V]] = 1.0
+    amp[IA_W] = 0.1
+    amp[IA_T] = 0.5
+    amp[IA_P] = 50.0
+    amp[IA_Q0:] = 1e-4
+    prof_d = torch.as_tensor(prof, device=device)[:, :, None, None]
+    amp_d = torch.as_tensor(amp, device=device)[:, None, None, None]
+
+    field_elems = NV3D * nz * ny * nx
+    b = batch_of(K, max(1, min(batch, int(150e6 // field_elems))))
+    shape = (b, NV3D, nz, ny, nx)
+    gen = None
+    if noise is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+    dev = torch.empty((K, NV3D, nz, ny, nx), dtype=torch.bfloat16,
+                      device=device)
+    accum = torch.zeros((NV3D, nz, ny, nx), dtype=torch.float32,
+                        device=device)
+    for i0 in range(0, K, b):
+        x = (torch.randn(shape, generator=gen, dtype=torch.float32,
+                         device=device) if noise is None else
+             torch.as_tensor(noise(i0, shape), dtype=torch.float32,
+                             device=device))
+        for st in smooth_strides:
+            for dim in (-1, -2):
+                for _ in range(2):
+                    x = 0.5 * x + 0.25 * (torch.roll(x, st, dim)
+                                          + torch.roll(x, -st, dim))
+        if tuple(smooth_strides) != (1,):
+            for _ in range(2):
+                x = 0.5 * x + 0.25 * (torch.roll(x, 1, -3)
+                                      + torch.roll(x, -1, -3))
+            std = torch.std(x, dim=(-1, -2), keepdim=True, correction=0)
+            x = x / torch.clamp(std, min=0.5)
+        members = x.mul_(amp_d).add_(prof_d)
+        members[:, IA_Q0].abs_().add_(1e-3)
+        dev[i0:i0 + b] = (members - prof_d).to(torch.bfloat16)
+        for m in members:
+            accum += m
+        del x, members
+    return ResidentEnsemble(accum.div_(K), dev,
+                            ref=prof_d.expand(NV3D, nz, ny, nx))
 
 
 def synthetic_conv_network(cfg, grid, rng: np.random.Generator,

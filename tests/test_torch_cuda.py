@@ -554,14 +554,93 @@ def test_cuda_grid_si_halo_step_matches_undecomposed(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_grid_fused_cycle_is_undecomposed(cuda_device):
-    """One FusedCycle step of the radar configuration coarsened to 24 × 24
+    """Two FusedCycle steps of the radar configuration coarsened to 24 × 24
     columns (K = 20, 15 steps, 400 REF/VR gates; gpu_check.
-    fused_grid_on_device) on a (2, 2, 2) grid in this process equals the
-    undecomposed step on the card bit for bit — the analysis ensemble, the
+    fused_grid_on_device), the second from the first's analysis and
+    inflation, on a (2, 2, 2) grid in this process equal the undecomposed
+    steps on the card bit for bit in each cycle — the analysis ensemble, the
     inflation, the obs counts, O−B and O−A by group and the guess and
     analysis means — with every kernel launched as expected on the grid:
     #2 and #3 on every block's batch, #1 on every share's level chunks."""
     res = gpu_check.fused_grid_on_device(cuda_device, RADAR_CONFIG)
+    assert res["cycles"] == 2
     assert res["bit_equal"], res
     assert res["kernel_launches"] == res["expected_launches"], res
     assert res["nobs_used"] > 0
+
+
+# bench_fullsize's nine benches at coarse sizes (name → keyword arguments;
+# COARSE_LOAD coarsens the analysis benches' configuration, which has no
+# overrides of its own, to these columns with K = 20 members, so that the
+# solver is kernel #1)
+BENCH_COARSE = {
+    "radar": {"n_obs_target": 20_000},
+    "18km": {},
+    "radar_resident": {"n_obs_target": 20_000},
+    "18km_resident": {},
+    "radar_cycle": {"overrides": {"nx": 32, "ny": 32, "dx": 3000.0,
+                                  "dy": 3000.0},
+                    "members": 20, "n_obs_target": 20_000},
+    "18km_cycle": {"nsteps": 2, "overrides": {"nx": 48, "ny": 40},
+                   "members": 20, "n_sonde": 60, "n_ps": 100},
+    "18km_fullwindow": {"nsteps": 2, "slots": False,
+                        "overrides": {"nx": 48, "ny": 40}, "members": 20,
+                        "n_sonde": 60, "n_ps": 100},
+    "tendency_fused": {"nz": 12, "ny": 40, "nx": 48, "reps": 3},
+    "osse_impact": {"members": 20, "n_cycles": 2, "steps_per_cycle": 2,
+                    "spinup_steps": 0, "member_batch": 10, "tile_rows": 20,
+                    "n_sonde": 60, "n_ps": 100,
+                    "overrides": {"nx": 48, "ny": 40, "nz": 36,
+                                  "dx": 36000.0, "dy": 36000.0}},
+}
+COARSE_LOAD = {"radar": {"nx": 32, "ny": 32, "dx": 3000.0, "dy": 3000.0},
+               "18km": {"nx": 48, "ny": 40}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BENCH_COARSE))
+def test_cuda_bench_fullsize_coarse(cuda_device, monkeypatch, name):
+    """Each of bench_fullsize's nine benches runs on the card at a coarse
+    size with finite numbers; the analyses launch kernel #1, the tendency
+    bench #2 and #3 with the kernels within 2e-5 of the plain path (the
+    whole tendency's bound, relative to max|plain|); the OSSE's four curves
+    have a value a cycle (its analysis-below-guess check is the smoke's, at
+    the bench's width: this size and no spin-up need not show it)."""
+    import json
+    import math
+
+    from scale_letkf_torch import bench_fullsize
+    kind = "radar" if name.startswith("radar") else "18km"
+    if name in ("radar", "18km", "radar_resident", "18km_resident"):
+        load = bench_fullsize._load_cfg
+
+        def coarse(path, overrides=None):
+            cfg, grid, dycfg, dom = load(path, {**COARSE_LOAD[kind],
+                                                **(overrides or {})})
+            cfg.ensemble.member = 20
+            return cfg, grid, dycfg, dom
+        monkeypatch.setattr(bench_fullsize, "_load_cfg", coarse)
+    kw = dict(BENCH_COARSE[name])
+    if name != "tendency_fused":
+        kw["config"] = RADAR_CONFIG if kind == "radar" else CONFIG
+    kernels.reset_launches()
+    res = bench_fullsize.BENCHES[name](device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    json.dumps(res)
+
+    def numbers(x):
+        if isinstance(x, dict):
+            return [n for v in x.values() for n in numbers(v)]
+        if isinstance(x, list):
+            return [n for v in x for n in numbers(v)]
+        return [x] if isinstance(x, float) else []
+    assert all(math.isfinite(v) for v in numbers(res)), res
+    if name == "tendency_fused":
+        assert kernels.LAUNCHES["dyn_tendency"] > 0
+        assert kernels.LAUNCHES["adv_ud3"] > 0
+        assert res["fused_max_rel_err"] <= 2e-5, res
+    else:
+        assert kernels.LAUNCHES["invsqrt_ns"] > 0, res
+    if name == "osse_impact":
+        assert all(len(res[k]) == 2 for k in ("rmse_gues", "rmse_anal",
+                                              "rmse_ctrl", "spread_gues"))

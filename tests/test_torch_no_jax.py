@@ -33,7 +33,7 @@ def test_every_module_imports_without_jax():
               "da.fastcycle", "io.netcdf",
               "io.checkpoint", "io.convert", "cli.main", "synthetic",
               "gpu_check", "__main__", "parallel.mesh", "parallel.halo",
-              "parallel.distributed"):
+              "parallel.distributed", "bench_fullsize"):
         assert f"scale_letkf_torch.{m}" in mods, m
     code = (
         "import sys\n"
@@ -252,3 +252,33 @@ def test_grid_stream_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+def test_fullsize_benches_run_without_jax():
+    """scale_letkf_torch/bench_fullsize.py runs with jax and the JAX package
+    unimportable: the tendency bench and a coarse 18-km cycle on the CPU,
+    and its command line refuses a name it does not know."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['scale_letkf_tpu'] = None\n"
+        "from scale_letkf_torch import bench_fullsize as B\n"
+        "r = B.bench_tendency_fused(nz=6, ny=8, nx=12, reps=2, device='cpu')\n"
+        "assert r['fused_max_rel_err'] == 0.0\n"
+        "out = B.bench_18km_cycle(nsteps=2, overrides={'nx': 16, 'ny': 16,\n"
+        "    'nz': 12}, members=4, tile_rows=4, n_sonde=10, n_ps=10,\n"
+        "    device='cpu')\n"
+        "assert out['nobs_good'] > 0 and out['oma_rmse_T'] > 0\n"
+        "loaded = [k for k, v in sys.modules.items()\n"
+        "          if k.startswith(('jax', 'scale_letkf_tpu')) and v is not None]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+    res = subprocess.run([sys.executable, "-m",
+                          "scale_letkf_torch.bench_fullsize", "nonsense"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 2 and "invalid choice" in res.stderr
