@@ -84,10 +84,16 @@ class FusedCycle:
     elem/typ/lon/lat/lev/err fixed, `dat` values the input of each cycle.
     Radar obs preprocessed (dBZ + ref-zero relabelling); H08 refused.
     nsteps: forecast steps per cycle. timed: time the sections of step,
-    assimilate and run_osse in self.timer (CycleDriver's forecast
-    sections while they run, nature, state_trans, obsope, das_letkf,
-    state_trans_inv, monitor; on a grid `gather` and `transpose` inside)
-    on the device's clock (an EventTimer: no waits); off by default."""
+    assimilate and run_osse in self.timer on the device's clock (an
+    EventTimer: no waits); off by default. The sections: CycleDriver's
+    forecast sections while they run (`forecast` with `tendencies`,
+    `acoustic`, `sponge` and `physics` inside), `nature`, `state_trans`,
+    `obsope`, `qc` (the departures, the good mask and the step's obs
+    context), `das_letkf` (with analyze_points' `select`, `gather`,
+    `gram`, `solve`, `weights` and `apply` inside), `state_trans_inv` and
+    `monitor` (O−A and the step's diagnostics); on a grid `gather` and
+    `transpose` inside. Every statement of step and assimilate that works
+    on the device lies in one of them."""
 
     def __init__(self, driver, template: Observations, nsteps: int,
                  timed: bool = False):
@@ -276,13 +282,14 @@ class FusedCycle:
         del ens_f
         with timer.section("obsope"):
             y, qc_worst = self._hx_ens(gues)
-        mean_y = ensemble_mean(y)
-        obs_dat = obs_dat.to(y.dtype)
-        dep = obs_dat - mean_y
-        good = self._qc_mask(y, qc_worst, dep)
-        dctx = dataclasses.replace(self._dctx, dep=dep,
-                                   hdxb=(y - mean_y).T.contiguous(),
-                                   good=good)
+        with timer.section("qc"):
+            mean_y = ensemble_mean(y)
+            obs_dat = obs_dat.to(y.dtype)
+            dep = obs_dat - mean_y
+            good = self._qc_mask(y, qc_worst, dep)
+            dctx = dataclasses.replace(self._dctx, dep=dep,
+                                       hdxb=(y - mean_y).T.contiguous(),
+                                       good=good)
         del y
         with timer.section("das_letkf"):
             anal, infl, nobs, gues_mean, anal_mean, chunk = self._analyze(
@@ -298,15 +305,15 @@ class FusedCycle:
         # O−A in obs space from the analysis mean's H(x)
         with timer.section("monitor"):
             oma = obs_dat - self._hx(anal_mean)[0]
-        diag = {"nobs_used": good.sum(), "omb_rmse": rmse(dep, good),
-                "oma_rmse": rmse(oma, good),
-                "omb_by_group": {n: rmse(dep, good & m)
-                                 for n, m in self._groups.items()},
-                "oma_by_group": {n: rmse(oma, good & m)
-                                 for n, m in self._groups.items()},
-                "nobs_per_level": nobs.float().mean(dim=1),
-                "gues_mean": gues_mean, "anal_mean": anal_mean,
-                "chunk": chunk}
+            diag = {"nobs_used": good.sum(), "omb_rmse": rmse(dep, good),
+                    "oma_rmse": rmse(oma, good),
+                    "omb_by_group": {n: rmse(dep, good & m)
+                                     for n, m in self._groups.items()},
+                    "oma_by_group": {n: rmse(oma, good & m)
+                                     for n, m in self._groups.items()},
+                    "nobs_per_level": nobs.float().mean(dim=1),
+                    "gues_mean": gues_mean, "anal_mean": anal_mean,
+                    "chunk": chunk}
         return ens_out, (infl if infl is not None else infl0_zb), diag
 
     def _analyze(self, gues, dctx, infl0_zb):
@@ -321,7 +328,7 @@ class FusedCycle:
         if self.mesh is None:
             K, nv = gues.shape[:2]
             res = analyze_points(self._plan, dctx, gues.reshape(K, nv, nz, -1),
-                                 None, infl0_zb, *args)
+                                 None, infl0_zb, *args, timer=self.timer)
             gues_mean = ensemble_mean(gues)
             anal = res.anal.reshape(K, nv, nz, ny, nx)
             return (anal, res.infl, res.nobs, gues_mean, ensemble_mean(anal),
@@ -338,7 +345,8 @@ class FusedCycle:
             pts = mesh.share_index(b, ny, nx, g.device)
             outs["gues_mean"][b] = ensemble_mean(g)
             res = analyze_points(self._plan, dctx, g, None, infl0_zb[:, pts],
-                                 *(a[..., pts] for a in args))
+                                 *(a[..., pts] for a in args),
+                                 timer=self.timer)
             del g
             shares[b] = res.anal
             outs["anal_mean"][b] = ensemble_mean(res.anal)

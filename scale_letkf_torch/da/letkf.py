@@ -295,7 +295,8 @@ def analyze_points(plan: _Plan, dctx: DeviceObsContext,
     infl0 and z (nz, B): the prior multiplicative inflation and the
     heights; gp_x, gp_y, dist_bdy (B,): the gridpoints' coordinates
     (gridpoint_coords); det (nv, nz, B): a deterministic member, analysed
-    with the transmd weights of dctx.depd.
+    with the transmd weights of dctx.depd. timer, when given, gets the
+    sections 'select', 'gather', 'gram', 'solve', 'weights' and 'apply'.
 
     Returns a PointsResult."""
     K, nv, nz, B = members.shape
@@ -319,11 +320,9 @@ def analyze_points(plan: _Plan, dctx: DeviceObsContext,
               for v in plan.group_vars]
 
     for lev in range(nz):
-        with maybe_section(timer, "level"):
-            g_l = members[:, :, lev]                    # (K, nv, B) view
-            mean_l = (ensemble_mean(g_l) if mean is None
-                      else mean[:, lev])
-            logp_l = torch.log(torch.clamp(mean_l[IA_P], min=1e-3))
+        g_l = members[:, :, lev]                        # (K, nv, B) view
+        mean_l = ensemble_mean(g_l) if mean is None else mean[:, lev]
+        logp_l = torch.log(torch.clamp(mean_l[IA_P], min=1e-3))
         for b0 in range(0, B, chunk):
             sl = slice(b0, min(B, b0 + chunk))
             infl_c = infl0[lev, sl]
@@ -429,9 +428,9 @@ def analyze(
     in diag.stats) are gathered onto every process. Without a mesh the
     whole domain is the one share.
 
-    timer, when given, gets the sections 'level', 'select', 'gather',
-    'gram', 'solve', 'weights', 'apply' and 'addi', and under a mesh
-    'transpose' and 'collect'. Float32 products run in full FP32 whatever
+    timer, when given, gets the sections 'select', 'gather', 'gram',
+    'solve', 'weights', 'apply' and 'addi', and under a mesh 'transpose'
+    and 'collect'. Float32 products run in full FP32 whatever
     matmul precision the caller set (full_fp32)."""
     _check_inputs(cfg, ctx, addi_ens, gues_det)
     if mesh is not None:

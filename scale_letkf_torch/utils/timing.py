@@ -6,15 +6,30 @@ next one that waits (the USE_MPI_BARRIER analogue). A Timer with enabled
 False neither synchronises nor records: the untimed path of a caller that
 must not wait for the device (da/fastcycle.py). An EventTimer, the timed
 path of that caller, does not wait either: it times its sections on the
-device's clock."""
+device's clock.
+
+While torch.profiler records, an enabled section of either timer also
+opens a host range named by the section's full path ('forecast/acoustic',
+'das_letkf/select', ...), so the trace's host timeline nests as the
+timer's paths do. The range is host-only (an ordinary CPU op in the
+trace, not a user annotation, so it marks no device event); with no
+profiler, or in a disabled Timer, none is opened."""
 
 from __future__ import annotations
 
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 
 import torch
+
+
+def _profiler_range(name: str):
+    """A host-only range `name` in the profiler's trace while one
+    records, else nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return nullcontext()
 
 
 @dataclass
@@ -29,6 +44,17 @@ class Timer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _start(self):
+        """The section's start mark."""
+        self._sync()
+        return time.perf_counter()
+
+    def _stop(self, full: str, t0) -> None:
+        """Ends the section `full` that started at mark t0."""
+        self._sync()
+        self.records[full] = (self.records.get(full, 0.0)
+                              + time.perf_counter() - t0)
+
     @contextmanager
     def section(self, name: str):
         if not self.enabled:
@@ -36,16 +62,14 @@ class Timer:
             return
         full = "/".join(self._stack + [name])
         self._stack.append(name)
-        self._sync()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._sync()
-            dt = time.perf_counter() - t0
-            self.records[full] = self.records.get(full, 0.0) + dt
-            self.counts[full] = self.counts.get(full, 0) + 1
-            self._stack.pop()
+        with _profiler_range(full):
+            t0 = self._start()
+            try:
+                yield
+            finally:
+                self._stop(full, t0)
+                self.counts[full] = self.counts.get(full, 0) + 1
+                self._stack.pop()
 
     def report(self) -> str:
         """Sections as an indented table: seconds and calls."""
@@ -67,24 +91,19 @@ class EventTimer(Timer):
     with nothing to wait for)."""
     _pending: list = field(default_factory=list)
 
-    @contextmanager
-    def section(self, name: str):
+    def _start(self):
         if self.device.type != "cuda":
-            with super().section(name):
-                yield
-            return
-        full = "/".join(self._stack + [name])
-        self._stack.append(name)
-        t0 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        try:
-            yield
-        finally:
-            t1 = torch.cuda.Event(enable_timing=True)
-            t1.record()
-            self._pending.append((full, t0, t1))
-            self.counts[full] = self.counts.get(full, 0) + 1
-            self._stack.pop()
+            return super()._start()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _stop(self, full: str, t0) -> None:
+        if self.device.type != "cuda":
+            return super()._stop(full, t0)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t1.record()
+        self._pending.append((full, t0, t1))
 
     def settle(self) -> None:
         """Adds the pending sections' device times to records, waiting for
