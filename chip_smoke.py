@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the three hand-written CUDA kernels from scale_letkf_torch/csrc,
+Builds the four hand-written CUDA kernels from scale_letkf_torch/csrc,
 checks each against its plain PyTorch version (the stencil kernels in both
-lateral modes), and drives the port's paths once each at full size: at
+lateral modes, the acoustic substep kernel at the radar cell's and the
+18-km shapes), and drives the port's paths once each at full size: at
 the size of the 18-km Japan configuration (configs/18km_japan.toml,
 unchanged: 480×360×36 stretched levels, K = 50)
 the ensemble forecast (split-explicit core, dt 30 s, 10 acoustic substeps,
@@ -22,7 +23,7 @@ executors, the nested and the fused cycles; and the OSSE impact experiment
 of the full-size benches (a shallow bench_fullsize.bench_osse_impact):
 
   1. device         — the card, and nvidia-smi's name and power limit
-  2. build          — nvcc builds of the three kernels, all started
+  2. build          — nvcc builds of the four kernels, all started
                       together (seconds, ptxas reports, and each kernel's
                       SASS instruction count and opcode mix by cuobjdump);
                       fails if invsqrt_ns holds no tensor-core HMMA
@@ -41,6 +42,13 @@ of the full-size benches (a shallow bench_fullsize.bench_osse_impact):
                       states, kdiff4 0 and 1e-3, both lateral modes (the
                       open rows with both modes' times); then at the ragged
                       shapes with 1 and 6 tracers, both modes
+ 51. acoustic       — the acoustic substep kernel vs the plain substep loop
+                      on a stage of 4 substeps (random_dyn_state, its slow
+                      tendencies) at the radar cell's 100 × 48 × 128 × 128
+                      (stretched levels) and the 18-km 10 × 36 × 360 × 480
+                      (uniform): bit_equal per field, then both timed in
+                      turns at 4 and 8 substeps; a middle substep's time
+                      (the difference over 4) against its bound
   6. forecast       — synthetic restart ensemble made on the card →
                       make_driver → CycleDriver.forecast (2 steps), with
                       timer sections, member batch, peak memory, kernel
@@ -242,7 +250,9 @@ of the full-size benches (a shallow bench_fullsize.bench_osse_impact):
                       for REF (O−A below) and Vr; launches, peak, chunk,
                       and the synchronising calls of the run under
                       torch.cuda.set_sync_debug_mode('warn'), by site,
-                      beside phase 33's seconds
+                      beside phase 33's seconds; the acoustic kernel's
+                      launches, one a substep of each member batch and of
+                      the nature run
  45. mesh_fused_radar_cycle — the main path of this slice, run right
                       after phase 37 on its inputs (its seeded blob
                       ensemble and nature member, its dBZ template — kept
@@ -332,7 +342,7 @@ of the full-size benches (a shallow bench_fullsize.bench_osse_impact):
  44. mesh_radar_real — #2 and #3 vs plain on one extended radar block of
                       phase 43 at its member batch
 
-The phases run in the order 1–16, 40–42, 17, 18, 43, 44, 19–33, 47,
+The phases run in the order 1–5, 51, 6–16, 40–42, 17, 18, 43, 44, 19–33, 47,
 48, 34–37, 45, 46, 38, 39, 49, 50. Each
 phase prints one JSON line, with its seconds since the script's start as
 at_s (the smoke's timeline); any failed check raises, so the script
@@ -361,7 +371,10 @@ the larger of the bytes it must move over 3.35 TB/s and its operations
 over the rate of the units that do them, computed from those operands —
 67 TFLOP/s FP32 for the stencils, and for invsqrt_ns's 3xTF32 tensor-core
 products three TF32 passes at 495 TFLOP/s, with its FP32 bound beside it
-as bound_fp32_ms. The last line is {"ok": true, "device": {...}}. Without
+as bound_fp32_ms. The acoustic substep kernel's entry (it replaces no TPU
+kernel) gives its launches in phase 37 and phase 51's numbers at the
+radar cell's shape, both shapes' under `shapes`. The last line is
+{"ok": true, "device": {...}}. Without
 a CUDA device it exits 1 and prints no result.
 """
 
@@ -426,6 +439,14 @@ REPLACES = {
     "dyn_tendency": "scale_letkf_tpu/ops/pallas_tendency.py:257",
     "adv_ud3": "scale_letkf_tpu/ops/pallas_stencil.py:111",
 }
+# the acoustic substep kernel replaces no TPU kernel (the reference's
+# substeps are plain XLA); its shapes: the radar cell's 100 members at 48
+# stretched levels (150 m × 1.03ᵏ) of 128 × 128 columns, and the 18-km
+# configuration's member batch, 10 × 36 × 360 × 480 at uniform levels
+ACOUSTIC = "acoustic_substep"
+ACOUSTIC_SHAPES = {"radar_cell": ((100, 48, 128, 128), "stretched", 100.0),
+                   "18km": ((10, 36, 360, 480), "uniform", 18000.0)}
+ACOUSTIC_REPS = 3
 
 
 # the script's start on the host clock (main); each phase line carries its
@@ -540,9 +561,9 @@ def sass_mix(lib: Path) -> dict:
 def phase_build():
     from scale_letkf_torch.utils import kernels
     t0 = time.perf_counter()
-    libs = kernels.build_all(KERNELS)
+    libs = kernels.build_all((*KERNELS, ACOUSTIC))
     wall = time.perf_counter() - t0
-    for name in KERNELS:
+    for name in (*KERNELS, ACOUSTIC):
         log = kernels.BUILD_LOG[name]
         ptxas = [ln.strip() for ln in log["ptxas"].splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -1994,6 +2015,85 @@ def phase_stencil(device, s, rho_ref, p_ref):
     phase_ragged(device, "adv_ud3", "stencil")
 
 
+def acoustic_stage(device, shape, metric: str, dx: float):
+    """The acoustic substeps' operands at full size on the card: a stage
+    state of random_dyn_state, its slow tendencies (dycore.tendencies, #2
+    and #3) and a start state one step of them earlier; dt 0.5 s and the
+    metric at `metric` levels (stretched: 150 m × 1.03ᵏ, the radar cell's;
+    uniform: 300 m)."""
+    from scale_letkf_torch.model.dycore import (
+        DycoreConfig, DycoreState, make_vgrid, tendencies, uniform_vgrid)
+    B, nz, ny, nx = shape
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    s, rho_ref, p_ref = random_dyn_state(gen, B, nz, ny, nx, device)
+    cfg = DycoreConfig(dx=dx, dy=dx, dz=300.0, dt=0.5)
+    if metric == "stretched":
+        fz = np.concatenate([[0.0], np.cumsum(150.0 * 1.03 ** np.arange(nz))])
+        vg = make_vgrid(0.5 * (fz[1:] + fz[:-1]), fz, device)
+    else:
+        vg = uniform_vgrid(nz, 300.0, device)
+    slow = tendencies(s, cfg, rho_ref, p_ref, vg)
+    start = DycoreState(*(a - cfg.dt * b for a, b in zip(s, slow)))
+    return start, s, slow, cfg, vg
+
+
+def phase_acoustic(device) -> dict:
+    """The acoustic substep kernel against the plain substep loop at the
+    radar cell's and the 18-km shapes: a stage of 4 substeps both ways
+    (bit-equal expected), then both timed in turns at 4 and at 8 substeps.
+    A middle substep's time is the difference over 4 (the first and the
+    last launch also form and apply the deviations); its bound reads the
+    five deviations, the five slow tendencies, c² and θ once and writes the
+    five deviations once. Returns the kernels line's row."""
+    from scale_letkf_torch.model.dycore import DycoreState
+    from scale_letkf_torch.model.dycore_si import (
+        SplitConfig, acoustic_substeps_kernel, acoustic_substeps_plain)
+    from scale_letkf_torch.utils import kernels
+    rows = {}
+    for name, (shape, metric, dx) in ACOUSTIC_SHAPES.items():
+        start, s, slow, cfg, vg = acoustic_stage(device, shape, metric, dx)
+
+        def run(fn, n):
+            return fn(start, s, slow, cfg, SplitConfig(dtau=cfg.dt / n), n,
+                      cfg.dt, vg)
+
+        before = kernels.LAUNCHES[ACOUSTIC]
+        out = run(acoustic_substeps_kernel, 4)
+        launches = kernels.LAUNCHES[ACOUSTIC] - before
+        ref = run(acoustic_substeps_plain, 4)
+        torch.cuda.synchronize()
+        errs = field_errors(out, ref, DycoreState._fields)
+        equal = {n: bool(torch.equal(a, b))
+                 for n, a, b in zip(DycoreState._fields, out, ref)}
+        finite = all(bool(torch.isfinite(o).all()) for o in out)
+        del out, ref
+        t = {n: timed_turns(lambda n=n: run(acoustic_substeps_kernel, n),
+                            lambda n=n: run(acoustic_substeps_plain, n),
+                            ACOUSTIC_REPS) for n in (4, 8)}
+        ms = (t[8]["ms"] - t[4]["ms"]) / 4
+        plain_ms = (t[8]["plain_ms"] - t[4]["plain_ms"]) / 4
+        B, nz, ny, nx = shape
+        n, nw = B * nz * ny * nx, B * (nz + 1) * ny * nx
+        row = {"shape": list(shape), "metric": metric, "dx": dx,
+               "launches": launches, "bit_equal": equal, "finite": finite,
+               "fields": errs,
+               "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+               "stage_ms": t[4]["ms"], "plain_stage_ms": t[4]["plain_ms"],
+               "stage8_ms": t[8]["ms"], "plain_stage8_ms": t[8]["plain_ms"],
+               "ms": ms, "plain_ms": plain_ms,
+               **roofline(4 * (14 * n + 3 * nw), 0.0, ms)}
+        del start, s, slow
+        torch.cuda.empty_cache()
+        emit({"phase": "acoustic", "case": name, **row})
+        if not (finite and launches == 4
+                and all(e["rel_err"] <= 1e-5 for e in errs.values())):
+            raise AssertionError(f"acoustic kernel disagrees with its plain "
+                                 f"version ({name}): {row}")
+        rows[name] = row
+    return rows
+
+
 def phase_forecast(device):
     """The forecast slice at full size. Returns the phase's row and a copy of
     the first member batch of the forecast (the main path's kernel shapes,
@@ -3089,6 +3189,12 @@ def phase_fused_radar_cycle(device, radar_cycle_s: float,
     # + the nature run's batch of one each cycle
     for k in ("dyn_tendency", "adv_ud3"):
         expected[k] += FUSED_CYCLES * 3 * RADAR_STEPS
+    # the acoustic kernel: one launch a substep of every member batch and
+    # of the nature run
+    ns = driver.n_small
+    acoustic = {"launches": kernels.LAUNCHES[ACOUSTIC],
+                "expected": FUSED_CYCLES * RADAR_STEPS * (batches + 1)
+                * (max(1, ns // 3) + max(1, ns // 2) + ns)}
     finite = all(bool(torch.isfinite(f).all()) for f in (*ens, *truth))
     numbers = fused_series(series)
     groups = numbers["by_group"]
@@ -3106,7 +3212,7 @@ def phase_fused_radar_cycle(device, radar_cycle_s: float,
            "radar_cycle_s": radar_cycle_s, **numbers,
            "member_batch": driver.batch, "chunk": series["chunk"],
            "peak_mem_gb": peak, "kernel_launches": launches,
-           "expected_launches": expected,
+           "expected_launches": expected, "acoustic_launches": acoustic,
            "sync_calls": sum(syncs.values()),
            "sync_calls_per_cycle": sum(syncs.values()) / FUSED_CYCLES,
            "sync_sites": dict(syncs), "finite": finite}
@@ -3116,6 +3222,8 @@ def phase_fused_radar_cycle(device, radar_cycle_s: float,
     if launches != expected:
         raise AssertionError(f"kernel launches {launches}, expected "
                              f"{expected}")
+    if acoustic["launches"] != acoustic["expected"]:
+        raise AssertionError(f"acoustic kernel launches {acoustic}")
     if not all(n > 0 for n in row["nobs_used"]):
         raise AssertionError(f"no obs used: {row['nobs_used']}")
     if not all(a < b for a, b in zip(groups["REF"]["oma"],
@@ -3785,6 +3893,8 @@ def main() -> int:
     s, rho_ref, p_ref = phase_tendency(device)
     phase_stencil(device, s, rho_ref, p_ref)
     del s
+    torch.cuda.empty_cache()
+    acoustic_rows = phase_acoustic(device)
     fc, sample = phase_forecast(device)
     phase_forecast_real(sample)
     del sample
@@ -3961,12 +4071,23 @@ def main() -> int:
             "gb_per_s", "tflops", "shapes", "det_cycle", "physics_cycle",
             "radar_grid", "radar_block", "production_grams", "streamed_tile",
             "child_grid", "fused_grid", "streamed_grid", "osse_grams")
+    # the acoustic kernel's row: its launches in the fused radar cycle
+    # (phase 38) and phase acoustic's numbers at the radar cell's shape,
+    # with both shapes'
+    acoustic = {"name": ACOUSTIC, "route": "cuda",
+                "source": f"scale_letkf_torch/csrc/{ACOUSTIC}.cu",
+                "replaces": None,
+                "launches": fr["acoustic_launches"]["launches"],
+                **{k: acoustic_rows["radar_cell"][k]
+                   for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "bound_share", "gb_per_s")},
+                "shapes": acoustic_rows, "library_ms": None}
     emit({"kernels": [{"name": name, "route": "cuda",
                        "source": f"scale_letkf_torch/csrc/{name}.cu",
                        "replaces": REPLACES[name],
                        **{k: dc_rows[name][k] for k in keys},
                        "library_ms": None}
-                      for name in KERNELS]})
+                      for name in KERNELS] + [acoustic]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

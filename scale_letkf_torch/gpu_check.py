@@ -178,6 +178,26 @@ def metrics(nz: int, device: torch.device) -> dict:
                                            device)}
 
 
+def acoustic_operands(lead: tuple, nz: int, ny: int, nx: int,
+                      device: torch.device, lateral: str = "periodic",
+                      metric: str = "uniform", seed: int = 0):
+    """The acoustic substeps' operands at one shape: a stage state of
+    random_dyn_state with leading axes `lead` (() a single member), its
+    slow tendencies (dycore.tendencies) and a start state one step of them
+    earlier, with the 18-km dx and dt, `lateral` and one of metrics(nz).
+    Returns (start, stage, slow, DycoreConfig, VGrid)."""
+    B = int(np.prod(lead, dtype=np.int64))
+    s, rho_ref, p_pert = random_dyn_state(seed, B, nz, ny, nx, device)
+    p_ref = (dycore.moist_pressure(s.rhot, dycore.mixing_ratios(s))
+             - p_pert)[0, :, :1, :1]
+    s = dycore.DycoreState(*(f.reshape(*lead, *f.shape[1:]) for f in s))
+    cfg = dycore.DycoreConfig(dx=DX, dy=DX, dz=300.0, dt=DT, lateral=lateral)
+    vg = metrics(nz, device)[metric]
+    slow = dycore.tendencies(s, cfg, rho_ref, p_ref, vg)
+    start = dycore.DycoreState(*(a - cfg.dt * b for a, b in zip(s, slow)))
+    return start, s, slow, cfg, vg
+
+
 def dyn_operands(s, rho_ref, p_pert, vg, divdmp: float, kdiff4: float,
                  lateral: str = "periodic"):
     return (s.rho, s.rhou, s.rhov, s.rhow, s.rhot, p_pert, rho_ref, vg.dzc,

@@ -161,9 +161,12 @@ def _check_lateral(lateral: str) -> None:
 
 
 def tendencies(s: DycoreState, cfg: DycoreConfig, rho_ref: torch.Tensor,
-               p_ref: torch.Tensor, vg: VGrid | None = None) -> DycoreState:
+               p_ref: torch.Tensor, vg: VGrid | None = None,
+               p: torch.Tensor | None = None) -> DycoreState:
     """Flux-form tendencies. rho_ref/p_ref: (nz, 1, 1) reference column;
-    vg: stretched vertical metric (None ⇒ uniform cfg.dz).
+    vg: stretched vertical metric (None ⇒ uniform cfg.dz); p: the moist
+    pressure of s where the caller has it (the SI stage shares one with its
+    acoustic substeps), else computed here.
 
     The counterpart of the reference's pallas_tendency.tendencies_fused:
     p′ = moist_pressure − p_ref in plain torch (pow, no stencil), then the
@@ -175,10 +178,12 @@ def tendencies(s: DycoreState, cfg: DycoreConfig, rho_ref: torch.Tensor,
     _check_lateral(cfg.lateral)
     if s.rho.is_cuda and s.rho.dim() == 3:
         out = tendencies(DycoreState(*(f[None] for f in s)), cfg, rho_ref,
-                         p_ref, vg)
+                         p_ref, vg, None if p is None else p[None])
         return DycoreState(*(f[0] for f in out))
     vg = metric(s, cfg, vg)
-    p_pert = moist_pressure(s.rhot, mixing_ratios(s)) - p_ref
+    if p is None:
+        p = moist_pressure(s.rhot, mixing_ratios(s))
+    p_pert = p - p_ref
     dyn = dyn_tendencies(s.rho, s.rhou, s.rhov, s.rhow, s.rhot, p_pert,
                          rho_ref, vg.dzc, vg.dzf, cfg.dx, cfg.dy, cfg.kdiff4,
                          cfg.divdmp, cfg.dt, cfg.lateral)

@@ -111,9 +111,11 @@ def contravariant_w(s: DycoreState, m: TerrainMetrics,
 def tendencies_terrain(s: DycoreState, cfg: DycoreConfig,
                        rho_ref: torch.Tensor, p_ref: torch.Tensor,
                        m: TerrainMetrics,
-                       vg: VGrid | None = None) -> DycoreState:
+                       vg: VGrid | None = None,
+                       p: torch.Tensor | None = None) -> DycoreState:
     """Flux-form tendencies with terrain metrics; rho_ref/p_ref (nz, 1, 1),
-    vg the stretched vertical metric (None ⇒ uniform cfg.dz). Reduces to
+    vg the stretched vertical metric (None ⇒ uniform cfg.dz), p the moist
+    pressure of s where the caller has it (dycore.tendencies). Reduces to
     the flat core when the topography is zero (J = 1, Gx = Gy = 0)."""
     lat = cfg.lateral
     _check_lateral(lat)
@@ -135,7 +137,9 @@ def tendencies_terrain(s: DycoreState, cfg: DycoreConfig,
         acc += (zsl(fw_full, 1) - zsl(fw_full, None, -1)) / dzc
         return acc.div_(jac)
 
-    p_pert = moist_pressure(s.rhot, mixing_ratios(s)) - p_ref
+    if p is None:
+        p = moist_pressure(s.rhot, mixing_ratios(s))
+    p_pert = p - p_ref
 
     # fluxes: horizontal J-weighted at faces; vertical contravariant
     jac_xf = 0.5 * (jac + roll_x(jac, 1, lat))

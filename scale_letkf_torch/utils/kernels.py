@@ -1,11 +1,14 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one file `scale_letkf_torch/csrc/<name>.cu` with a plain C
-entry point (it may include the shared headers `csrc/*.cuh`). At first use
-it is compiled by nvcc for sm_90a into a shared library under
-`build/kernels/` at the repository root (gitignored), named by a hash of
-its source and the headers so an edited source is rebuilt, and loaded with
-ctypes. A missing nvcc or a failed build raises: there is no fallback.
+entry point (it may include the shared headers `csrc/*.cuh`): #1
+invsqrt_ns, #2 dyn_tendency, #3 adv_ud3 and #4 acoustic_substep (the split-
+explicit core's acoustic substep, model/dycore_si.py). At first use it is
+compiled by nvcc for sm_90a (with the kernel's EXTRA_FLAGS) into a shared
+library under `build/kernels/` at the repository root (gitignored), named
+by a hash of its source, the headers and the flags so an edited source is
+rebuilt, and loaded with ctypes. A missing nvcc or a failed build raises:
+there is no fallback.
 
 LAUNCHES counts, per kernel, the launches its wrapper made; callers that
 want to show a run went through a kernel reset it to 0 before the run.
@@ -45,7 +48,20 @@ _SIGNATURES = {
     "adv_ud3": ("adv_ud3_launch",
                 [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 5
                 + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]),
+    # the acoustic substep (model/dycore_si.py acoustic_substeps): the old
+    # deviations (or the start state), the stage state and the slow
+    # tendencies, 5 fields each; c2, theta; the level tables dzc, dzf, abf,
+    # abc, ga, gd; 5 outputs; B, nz, ny, nx; dtau, dt1b, g_half, grav,
+    # inv_dx, inv_dy; open, first, last; stream
+    "acoustic_substep": ("acoustic_substep_launch",
+                         [ctypes.c_void_p] * 28 + [ctypes.c_int64] * 4
+                         + [ctypes.c_float] * 6 + [ctypes.c_int] * 3
+                         + [ctypes.c_void_p]),
 }
+# nvcc flags of one kernel beyond NVCC_FLAGS: the acoustic substep rounds
+# every product and sum on its own, as the plain PyTorch passes it follows
+# do (no contraction into fused multiply-adds)
+EXTRA_FLAGS = {"acoustic_substep": ["-fmad=false"]}
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}
 BUILD_LOG: dict[str, dict] = {}
@@ -68,9 +84,10 @@ def nvcc() -> str:
 
 
 def _library(name: str) -> Path:
-    """Where csrc/<name>.cu, built from its current source and headers,
-    lives."""
+    """Where csrc/<name>.cu, built from its current source, headers and
+    flags, lives."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, [])).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
@@ -92,7 +109,8 @@ def build_all(names) -> dict[str, Path]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, []), "-o",
+               str(tmp), str(CSRC / f"{name}.cu")]
         running[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     failed = []

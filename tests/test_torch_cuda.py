@@ -15,7 +15,8 @@ with them, the Jacobi eigensolver, EFSO, the full-size executors
 the cycle verb with a nested child in the open lateral mode and the fused
 cycle on the card against the same runs on the CPU (which the parity tests
 hold against the reference package); the grid's SI halo step and its fused
-cycle against the undecomposed runs on the card.
+cycle against the undecomposed runs on the card; the acoustic substep
+kernel against its plain version, bit for bit.
 Stencil bounds per field, relative to max|plain|: 2e-5 for the whole
 tendency, 1e-5 for the tracers (the reference's bounds for its Pallas
 kernels).
@@ -264,6 +265,110 @@ def test_cuda_tendencies_launch_both_kernels(cuda_device):
     for a, b in zip(out, ref):
         assert float((a.cpu() - b).abs().max()) <= 2e-5 * float(
             b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps", [1, 2, 4])
+@pytest.mark.parametrize("metric", ["uniform", "stretched"])
+@pytest.mark.parametrize("lateral", ["periodic", "open"])
+@pytest.mark.parametrize("lead", [(3,), ()], ids=["batch", "single"])
+def test_cuda_acoustic_kernel_matches_plain(cuda_device, lead, lateral,
+                                            metric, n_steps):
+    """The acoustic substep kernel (one launch a substep) against
+    acoustic_substeps_plain on the card, 3 × 12 × 16 × 20 and a single
+    member: equal bit for bit. Tolerance 0: the kernel does the plain
+    path's float32 operations in its order — PyTorch's CUDA division by a
+    Python scalar as a product with the float32 reciprocal, every other
+    division IEEE — and is built with -fmad=false, so no product is fused
+    into a sum where the plain path's separate passes round twice."""
+    from scale_letkf_torch.model import dycore_si
+    start, s, slow, cfg, vg = gpu_check.acoustic_operands(
+        lead, 12, 16, 20, cuda_device, lateral, metric)
+    split = dycore_si.SplitConfig(dtau=cfg.dt / n_steps)
+    before = kernels.LAUNCHES["acoustic_substep"]
+    out = dycore_si.acoustic_substeps(start, s, slow, cfg, split, n_steps,
+                                      cfg.dt, vg)
+    assert kernels.LAUNCHES["acoustic_substep"] - before == n_steps
+    again = dycore_si.acoustic_substeps(start, s, slow, cfg, split, n_steps,
+                                        cfg.dt, vg)
+    ref = dycore_si.acoustic_substeps_plain(start, s, slow, cfg, split,
+                                            n_steps, cfg.dt, vg)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(dycore.DycoreState._fields, out, ref, again):
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, b), (
+            name, float((a - b).abs().max()) / float(b.abs().max()))
+        assert torch.equal(a, c), name
+
+
+def _constant_state(device, nz, dtype=torch.float32):
+    shape = (1, nz, 4, 2)
+    return dycore.DycoreState(
+        *(torch.ones(shape, dtype=dtype, device=device) for _ in range(3)),
+        torch.zeros((1, nz + 1, 4, 2), dtype=dtype, device=device),
+        torch.full(shape, 300.0, dtype=dtype, device=device),
+        torch.zeros((1, 6, nz, 4, 2), dtype=dtype, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["float64", "non_contiguous", "nz_1",
+                                   "nz_above_max"])
+def test_cuda_acoustic_kernel_refuses(cuda_device, fault):
+    """The kernel's wrapper raises on what the kernel does not take: float64
+    fields, a non-contiguous field, fewer than 2 levels or more than
+    ACOUSTIC_NZ_MAX; no launch is made."""
+    from scale_letkf_torch.model import dycore_si
+    nz = {"nz_1": 1, "nz_above_max": dycore_si.ACOUSTIC_NZ_MAX + 1}.get(
+        fault, 12)
+    dtype = torch.float64 if fault == "float64" else torch.float32
+    s = _constant_state(cuda_device, nz, dtype)
+    stage = s
+    if fault == "non_contiguous":
+        stage = s._replace(rhou=s.rhou.transpose(-1, -2).contiguous()
+                           .transpose(-1, -2))
+        assert not stage.rhou.is_contiguous()
+    cfg = dycore.DycoreConfig(dx=100.0, dy=100.0, dz=150.0, dt=0.5)
+    before = kernels.LAUNCHES["acoustic_substep"]
+    with pytest.raises((TypeError, ValueError)):
+        dycore_si.acoustic_substeps(s, stage, s, cfg,
+                                    dycore_si.SplitConfig(dtau=0.125), 4, 0.5)
+    assert kernels.LAUNCHES["acoustic_substep"] == before
+
+
+@pytest.mark.cuda
+def test_cuda_integrate_si_through_acoustic_kernel(cuda_device, monkeypatch):
+    """20 split-explicit steps of 2 members of the radar configuration
+    (configs/bda_1km_radar.toml: its 48 stretched levels, dt and n_small;
+    coarsened to 24 × 24 columns, 10 m/s wind) on the card: every substep
+    one launch of the acoustic kernel, and the forecast equal bit for bit
+    to the same steps with the plain substeps (the kernel test above's
+    reason, over 20 steps of feedback)."""
+    from scale_letkf_torch.cli.main import load_config_and_grid, make_driver
+    from scale_letkf_torch.model import dycore_si
+    from scale_letkf_torch.synthetic import synthetic_ens_dycore_device
+    cfg, grid, dycfg, dom = load_config_and_grid(RADAR_CONFIG, {"nx": 24,
+                                                                "ny": 24})
+    driver = make_driver(cfg, grid, dycfg, dom, cuda_device)
+    ens, _, _ = synthetic_ens_dycore_device(0, 2, grid, dom, cuda_device,
+                                            u0=10.0)
+    split = dycore_si.SplitConfig(dtau=dycfg.dt / driver.n_small)
+    args = (dycfg, split, driver.rho_ref, driver.p_ref, driver.z_centers, 20,
+            driver.n_small, driver.vg)
+    ns = driver.n_small
+    kernels.reset_launches()
+    out = dycore_si.integrate_si(ens, *args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["acoustic_substep"] == 20 * (
+        max(1, ns // 3) + max(1, ns // 2) + ns)
+    monkeypatch.setattr(dycore_si, "acoustic_substeps",
+                        dycore_si.acoustic_substeps_plain)
+    ref = dycore_si.integrate_si(ens, *args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(dycore.DycoreState._fields, out, ref):
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, b), (
+            name, float((a - b).abs().max()) / float(b.abs().max()))
+    assert not torch.equal(out.rhow, ens.rhow)
 
 
 @pytest.mark.cuda

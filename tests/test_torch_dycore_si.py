@@ -13,12 +13,16 @@ inputs.
   when its inputs are perturbed by one rounding (relative 2⁻²⁴·N(0,1)).
   The port must agree with the reference as closely as it agrees with
   itself.
+- `acoustic_substeps` on CPU tensors is its plain version bit for bit and
+  launches no kernel (the CUDA kernel's own checks, against the plain
+  version on the card, are in tests/test_torch_cuda.py).
 """
 
 import dataclasses
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 import jax.numpy as jnp
 
@@ -29,7 +33,9 @@ from scale_letkf_torch.cli.main import load_config_and_grid
 from scale_letkf_torch.io.convert import (
     dycore_state_to_numpy, dycore_state_to_torch, vgrid_to_torch,
 )
+from scale_letkf_torch import gpu_check
 from scale_letkf_torch.model import dycore, dycore_si, ideal
+from scale_letkf_torch.utils import kernels
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -129,3 +135,33 @@ def test_rk3_step_si_matches_reference_on_coarsened_18km():
         assert err <= scale + 2 * floor, (
             f"{name}: {err:.3e} > 1e-4·increment {scale:.3e} "
             f"+ 2·floor {floor:.3e}")
+
+
+@pytest.mark.parametrize("lead", [(), (3,)], ids=["single", "batch"])
+@pytest.mark.parametrize("metric", ["uniform", "stretched"])
+@pytest.mark.parametrize("lateral", ["periodic", "open"])
+def test_acoustic_substeps_cpu_takes_the_plain_path(lateral, metric, lead):
+    """acoustic_substeps on CPU tensors is acoustic_substeps_plain bit for
+    bit (a single member and a batch, both lateral modes, uniform and
+    stretched levels), and launches no kernel."""
+    start, s, slow, cfg, vg = gpu_check.acoustic_operands(
+        lead, 12, 16, 20, CPU, lateral, metric)
+    split = dycore_si.SplitConfig(dtau=cfg.dt / 4)
+    kernels.reset_launches()
+    out = dycore_si.acoustic_substeps(start, s, slow, cfg, split, 4, cfg.dt,
+                                      vg)
+    ref = dycore_si.acoustic_substeps_plain(start, s, slow, cfg, split, 4,
+                                            cfg.dt, vg)
+    assert kernels.LAUNCHES["acoustic_substep"] == 0
+    for name, a, b in zip(dycore.DycoreState._fields, out, ref):
+        assert torch.equal(a, b), name
+        assert bool(torch.isfinite(a).all()), name
+    assert not torch.equal(out.rhow, s.rhow)
+
+
+def test_acoustic_substeps_kernel_refuses_cpu_tensors():
+    start, s, slow, cfg, vg = gpu_check.acoustic_operands(
+        (2,), 12, 16, 20, CPU)
+    with pytest.raises(ValueError, match="CUDA"):
+        dycore_si.acoustic_substeps_kernel(
+            start, s, slow, cfg, dycore_si.SplitConfig(dtau=0.5), 4, cfg.dt)
