@@ -98,10 +98,10 @@ def make_driver(cfg, grid, dycfg, dom, device: torch.device):
     reference column (with the qv profile when qv_surface > 0), the core
     and its substeps, Kessler physics (use_physics), the physics suite of a
     [physics] section (its keys those of PhysicsConfig; others raise
-    ValueError), Davies relaxation toward a boundary file (bdy_file,
-    bdy_width, bdy_tau) and the topography of topo_file (an npz with key
-    'topo', as the pp verb writes it) and the process grid of [process]
-    (process_grid)."""
+    ValueError), either every phys_interval steps (default 5), Davies
+    relaxation toward a boundary file (bdy_file, bdy_width, bdy_tau) and the
+    topography of topo_file (an npz with key 'topo', as the pp verb writes
+    it) and the process grid of [process] (process_grid)."""
     import dataclasses
 
     from scale_letkf_torch.cycle import CycleDriver
@@ -128,6 +128,7 @@ def make_driver(cfg, grid, dycfg, dom, device: torch.device):
         phys_cfg = PhysicsConfig(**dom["physics"])
     return CycleDriver(grid, cfg, dycfg, rho_ref, p_ref,
                        use_physics=dom.get("use_physics", False),
+                       phys_interval=dom.get("phys_interval", 5),
                        topo=topo, phys_cfg=phys_cfg,
                        mesh=process_grid(cfg),
                        core=dom.get("core", "explicit"),

@@ -336,7 +336,7 @@ class CycleDriver:
         def suite(s, i, dt_phys):
             s, phys[0] = physics_step(s, phys[0], i, self.phys_cfg, dt_phys,
                                       self.dz_phys, self.z_centers,
-                                      self.dycfg.lateral)
+                                      self.dycfg.lateral, self.timer)
             return s
 
         s = self._chunks(s, nsteps, t0, self._stepper(bdy), suite)
@@ -567,7 +567,8 @@ class CycleDriver:
         With the physics suite the per-member slab skin temperature
         (self.tsfc) is cold-started on the first call and threaded across
         calls. Timed as section `forecast` (with `tendencies`, `acoustic`,
-        `sponge`, `physics` and `boundary` inside)."""
+        `sponge`, `physics` and `boundary` inside; the suite's
+        `microphysics`, `radiation` and `pbl` inside `physics`)."""
         with self.timer.section("forecast"):
             if self.mesh is not None:
                 return self._forecast_grid(ens, nsteps, np.float32(t0))

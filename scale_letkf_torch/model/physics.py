@@ -43,11 +43,19 @@ def temperature(s: DycoreState, q: torch.Tensor):
     return p / (s.rho * rtot), p
 
 
+def device_scalar(x, like: torch.Tensor) -> torch.Tensor:
+    """x (a number, or an array) as a tensor of like's dtype on like's
+    device. A number is filled there: a copy from the host would
+    synchronise a CUDA device at every call."""
+    if isinstance(x, (int, float)):
+        return torch.full((), x, dtype=like.dtype, device=like.device)
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+
+
 def fall_speed_cap(vt: torch.Tensor, dz, dt: float) -> torch.Tensor:
     """min(vt, 0.9·dz/dt): the sedimentation's CFL cap; dz a number or a
     per-level (nz, 1, 1) thickness."""
-    return torch.minimum(vt, torch.as_tensor(0.9 * dz / dt, dtype=vt.dtype,
-                                             device=vt.device))
+    return torch.minimum(vt, device_scalar(0.9 * dz / dt, vt))
 
 
 def sediment_upwind(q: torch.Tensor, rho: torch.Tensor, vt: torch.Tensor,

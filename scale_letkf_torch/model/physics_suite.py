@@ -8,7 +8,10 @@ prognostic (a slab of heat capacity slab_capacity; 0 holds it fixed).
 
 Fields carry any leading member axes; the physics state holds one skin
 temperature and one radiation cache per member. The step index is a Python
-int here (the reference's traced counter under `lax.cond`).
+int here (the reference's traced counter under `lax.cond`). A timer, where
+given, times the schemes as sections `microphysics`, `radiation` (the
+recomputation and the cached tendency's use) and `pbl` (the surface layer,
+the PBL diffusion and the slab).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from scale_letkf_torch.model.microphysics6 import nsw6_step
 from scale_letkf_torch.model.pbl import pbl_step
 from scale_letkf_torch.model.physics import CPDRY, kessler_step
 from scale_letkf_torch.model.radiation import SIGMA_SB, radiation_step
+from scale_letkf_torch.utils.timing import Timer, maybe_section
 
 
 @dataclass(frozen=True)
@@ -76,21 +80,25 @@ def init_physics_state(s: DycoreState, dz: float,
 
 
 def column_physics(s: DycoreState, phys: PhysicsState, step_index: int,
-                   pcfg: PhysicsConfig, dt: float, dz: float
+                   pcfg: PhysicsConfig, dt: float, dz: float,
+                   timer: Timer | None = None
                    ) -> tuple[DycoreState, torch.Tensor, torch.Tensor]:
     """The microphysics and radiation of a physics step, each column on its
     own. Returns (state, drhot_rad, rad_sfc): radiation recomputed when
-    step_index is a multiple of rad_interval, else the cache's."""
-    if pcfg.mp_scheme == "kessler":
-        s = kessler_step(s, dt, dz)
-    elif pcfg.mp_scheme == "nsw6":
-        s = nsw6_step(s, dt, dz)
+    step_index is a multiple of rad_interval, else the cache's. timer:
+    optional sections `microphysics` and `radiation`."""
+    with maybe_section(timer, "microphysics"):
+        if pcfg.mp_scheme == "kessler":
+            s = kessler_step(s, dt, dz)
+        elif pcfg.mp_scheme == "nsw6":
+            s = nsw6_step(s, dt, dz)
 
     drhot_rad, rad_sfc = phys.drhot_rad, phys.rad_sfc
     if pcfg.use_radiation:
-        if step_index % pcfg.rad_interval == 0:
-            drhot_rad, rad_sfc = _radiation(s, phys.tsfc, dz, pcfg)
-        s = s._replace(rhot=s.rhot + dt * drhot_rad)
+        with maybe_section(timer, "radiation"):
+            if step_index % pcfg.rad_interval == 0:
+                drhot_rad, rad_sfc = _radiation(s, phys.tsfc, dz, pcfg)
+            s = s._replace(rhot=s.rhot + dt * drhot_rad)
     return s, drhot_rad, rad_sfc
 
 
@@ -107,20 +115,24 @@ def slab_temperature(tsfc, rad_sfc, sfc, pcfg: PhysicsConfig, dt: float):
 
 def physics_step(s: DycoreState, phys: PhysicsState, step_index: int,
                  pcfg: PhysicsConfig, dt: float, dz: float,
-                 zc: torch.Tensor, lateral: str = "periodic"
+                 zc: torch.Tensor, lateral: str = "periodic",
+                 timer: Timer | None = None
                  ) -> tuple[DycoreState, PhysicsState]:
     """One physics step of length `dt` (the physics interval, possibly
     several dynamics steps). Radiation is recomputed when step_index is a
     multiple of rad_interval, else its cache is reused. lateral: the
     dynamical core's lateral mode (the PBL's face ↔ center averages, the
     suite's one horizontal operation; parallel/halo.py physics_step_blocks
-    is this step on a process grid's blocks)."""
-    s, drhot_rad, rad_sfc = column_physics(s, phys, step_index, pcfg, dt, dz)
+    is this step on a process grid's blocks). timer: optional sections
+    `microphysics`, `radiation` and `pbl`."""
+    s, drhot_rad, rad_sfc = column_physics(s, phys, step_index, pcfg, dt, dz,
+                                           timer)
     tsfc = phys.tsfc
     if pcfg.use_pbl:
-        res = pbl_step(s, dt, dz, zc, tsfc, z0=pcfg.z0, z0h=pcfg.z0h,
-                       beta=pcfg.beta, lateral=lateral)
-        s = res.state
-        tsfc = slab_temperature(tsfc, rad_sfc, res.sfc, pcfg, dt)
+        with maybe_section(timer, "pbl"):
+            res = pbl_step(s, dt, dz, zc, tsfc, z0=pcfg.z0, z0h=pcfg.z0h,
+                           beta=pcfg.beta, lateral=lateral)
+            s = res.state
+            tsfc = slab_temperature(tsfc, rad_sfc, res.sfc, pcfg, dt)
 
     return s, PhysicsState(tsfc=tsfc, drhot_rad=drhot_rad, rad_sfc=rad_sfc)

@@ -19,7 +19,7 @@ import torch
 
 from scale_letkf_torch.constants import PRE00, RD
 from scale_letkf_torch.model.dycore import DycoreState, moist_pressure
-from scale_letkf_torch.model.physics import CPDRY, tracer
+from scale_letkf_torch.model.physics import CPDRY, device_scalar, tracer
 from scale_letkf_torch.ops.finite_diff import zsl
 
 SIGMA_SB = 5.670374e-8
@@ -97,8 +97,7 @@ def radiation_step(s: DycoreState, dz, mu0, albedo: float = 0.2,
     net_lw = up - down                          # (..., nz+1, ny, nx), + upward
 
     # shortwave: direct beam attenuated from TOA
-    mu = torch.clamp(torch.as_tensor(mu0, dtype=rho.dtype, device=rho.device),
-                     min=0.0)
+    mu = torch.clamp(device_scalar(mu0, rho), min=0.0)
     dtau_sw = (K_SW_QV * qv + K_SW_CLOUD * (q_liq + q_ice)
                + K_SW_RAYLEIGH) * rho * dz
     mu_safe = torch.clamp(mu, min=1.0e-3)

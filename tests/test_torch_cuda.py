@@ -749,3 +749,37 @@ def test_cuda_bench_fullsize_coarse(cuda_device, monkeypatch, name):
     if name == "osse_impact":
         assert all(len(res[k]) == 2 for k in ("rmse_gues", "rmse_anal",
                                               "rmse_ctrl", "spread_gues"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mp_scheme", ["nsw6", "kessler"])
+def test_cuda_physics_step_does_not_synchronise(cuda_device, mp_scheme):
+    """Two physics-suite steps on the card (radiation recomputed, then
+    reused) make no synchronising call: the fall-speed cap and the sun's
+    angle are filled on the device, not copied from the host (80 calls a
+    unit of the 18-km forecast before)."""
+    from scale_letkf_torch.model import physics_suite as PS
+    cz = 150.0 + 300.0 * np.arange(12)
+    fz = 300.0 * np.arange(13)
+    topo = gpu_check.hills(16, 20)
+    fields, _, _ = gpu_check.terrain_state(3, 2, cz, fz, topo, 18e3, 18e3)
+    s = dycore.DycoreState(*(torch.as_tensor(a, device=cuda_device)
+                             for a in fields))
+    pcfg = PS.PhysicsConfig(mp_scheme=mp_scheme, slab_capacity=2.0e5)
+    zc = torch.as_tensor(cz, dtype=torch.float32, device=cuda_device)
+
+    def steps(s):
+        ph = PS.PhysicsState(PS.skin_temperature(s),
+                             torch.zeros_like(s.rhot),
+                             torch.zeros_like(s.rhot[:, 0]))
+        for i in range(2):
+            s, ph = PS.physics_step(s, ph, i, pcfg, 30.0, 300.0, zc)
+        return s
+    steps(s)                               # warm-up: allocations, kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = steps(s)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(out.rhot).all()
