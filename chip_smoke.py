@@ -23,7 +23,7 @@ executors, the nested and the fused cycles; and the OSSE impact experiment
 of the full-size benches (a shallow bench_fullsize.bench_osse_impact):
 
   1. device         — the card, and nvidia-smi's name and power limit
-  2. build          — nvcc builds of the four kernels, all started
+  2. build          — nvcc builds of the five kernels, all started
                       together (seconds, ptxas reports, and each kernel's
                       SASS instruction count and opcode mix by cuobjdump);
                       fails if invsqrt_ns holds no tensor-core HMMA
@@ -108,7 +108,7 @@ of the full-size benches (a shallow bench_fullsize.bench_osse_impact):
                       hills up to 400 m, tapered over 12 cells) through
                       CycleDriver(topo=), so every forecast, the nature run
                       included, runs the SI core with terrain metrics (the
-                      slow tendency plain PyTorch: kernels #2 and #3 are not
+                      slow tendency kernel #5: kernels #2 and #3 are not
                       launched, asserted); the states' qv capped at half
                       the base column's saturation; obs the conventional
                       network and an H08 network (all ten bands of a
@@ -122,11 +122,13 @@ of the full-size benches (a shallow bench_fullsize.bench_osse_impact):
  21. production_real — invsqrt_ns vs plain on one level chunk of phase 20's
                       Grams
  22. terrain_tendency — at full width, on phase 20's final ensemble (batch
-                      10) and nature state (batch 1): tendencies_terrain
-                      (plain PyTorch on the card) timed against
-                      dycore.tendencies (p′, then kernels #2 and #3) on the
-                      same states, with the byte bound of each; flat
-                      metrics must give dycore.tendencies' result
+                      10) and nature state (batch 1): kernel #5
+                      (tendencies_terrain on the card) bit-equal to
+                      tendencies_terrain_plain in two launches a call, and
+                      timed against it and against dycore.tendencies (p′,
+                      then kernels #2 and #3) on the same states, with the
+                      byte bound of each and its share; flat metrics must
+                      give dycore.tendencies' result
  23. terrain_small  — the terrain dynamics, an unforced terrain forecast's
                       Σ J·ρ·dzc, the pp step's smoothing, H08 H(x) and a
                       coarsened production cycle with H08 on the card
@@ -447,6 +449,10 @@ ACOUSTIC = "acoustic_substep"
 ACOUSTIC_SHAPES = {"radar_cell": ((100, 48, 128, 128), "stretched", 100.0),
                    "18km": ((10, 36, 360, 480), "uniform", 18000.0)}
 ACOUSTIC_REPS = 3
+# the terrain tendency kernel (#5) replaces no TPU kernel either (the
+# reference's terrain tendency is plain XLA); phase terrain_tendency holds
+# and times it
+TERRAIN = "terrain_tendency"
 
 
 # the script's start on the host clock (main); each phase line carries its
@@ -561,9 +567,9 @@ def sass_mix(lib: Path) -> dict:
 def phase_build():
     from scale_letkf_torch.utils import kernels
     t0 = time.perf_counter()
-    libs = kernels.build_all((*KERNELS, ACOUSTIC))
+    libs = kernels.build_all((*KERNELS, ACOUSTIC, TERRAIN))
     wall = time.perf_counter() - t0
-    for name in (*KERNELS, ACOUSTIC):
+    for name in (*KERNELS, ACOUSTIC, TERRAIN):
         log = kernels.BUILD_LOG[name]
         ptxas = [ln.strip() for ln in log["ptxas"].splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -896,8 +902,10 @@ def phase_cycle(device, phase: str = "cycle", steps: int = CYCLE_STEPS,
     expected = expected_launches(cfg, grid, steps, batches,
                                  info["diag"].chunk)
     if production:
-        # the terrain tendency is plain PyTorch: the stencil kernels idle
-        expected.update(dyn_tendency=0, adv_ud3=0)
+        from scale_letkf_torch.model.terrain import TERRAIN_LAUNCHES
+        # the terrain tendency is kernel #5: the stencil kernels idle
+        expected.update(terrain_tendency=TERRAIN_LAUNCHES
+                        * expected["dyn_tendency"], dyn_tendency=0, adv_ud3=0)
     finite = all(bool(torch.isfinite(f).all()) for f in (*ens, *truth)) \
         and all(bool(torch.isfinite(info[k]).all()) for k in (
             "gues_mean", "gues_sprd", "anal_mean", "anal_sprd"))
@@ -920,7 +928,7 @@ def phase_cycle(device, phase: str = "cycle", steps: int = CYCLE_STEPS,
            "member_batch": driver.batch, "batches": batches,
            "chunk": info["diag"].chunk,
            "chunks_per_level": -(-grid.ny * grid.nx // info["diag"].chunk),
-           "kernel_launches": {k: launches[k] for k in KERNELS},
+           "kernel_launches": {k: launches[k] for k in expected},
            "expected_launches": expected, "peak_mem_gb": peak / 2 ** 30,
            "peak_by_step": peaks,
            "omb_rmse": omb, "oma_rmse": oma,
@@ -1255,15 +1263,19 @@ def phase_physics_small(device):
 
 
 def phase_terrain_tendency(operands) -> list:
-    """tendencies_terrain (plain PyTorch on the card) against
-    dycore.tendencies (plain p′, then kernels #2 and #3) on the production
-    cycle's final ensemble (its first ten members) and nature state (a
-    batch of one), at full width: both timed in turns, with the byte bound
-    of each (every input read once, every output written once); the
-    terrain tendency on flat metrics must give dycore.tendencies' result
-    (the kernels' bounds, TOL_TENDENCY and TOL_STENCIL)."""
+    """Kernel #5 (tendencies_terrain on the card) against
+    tendencies_terrain_plain and against dycore.tendencies (plain p′, then
+    kernels #2 and #3) on the production cycle's final ensemble (its first
+    ten members) and nature state (a batch of one), at full width, the
+    moist pressure handed in as the SI stage hands it: the kernel must give
+    the plain path's fields bit for bit in TERRAIN_LAUNCHES launches; the
+    three are timed in turns, each with its byte bound (every input read
+    once, every output written once) and its share of it; the terrain
+    tendency on flat metrics must give dycore.tendencies' result (the
+    kernels' bounds, TOL_TENDENCY and TOL_STENCIL)."""
     from scale_letkf_torch.gpu_check import TOL_STENCIL, TOL_TENDENCY
     from scale_letkf_torch.model import dycore, terrain
+    from scale_letkf_torch.utils import kernels
     rho_ref, p_ref, vg, dycfg = operands["column"]
     m = operands["metrics"]
     # the metrics of flat topography: J = 1, no slopes
@@ -1273,37 +1285,62 @@ def phase_terrain_tendency(operands) -> list:
     for label, s in (("ensemble", operands["ensemble10"]),
                      ("nature", operands["nature"])):
         s = type(s)(*(f.contiguous() for f in s))
+        p = dycore.moist_pressure(s.rhot, dycore.mixing_ratios(s))
 
-        def run_terrain(metrics=m):
+        def run_kernel(metrics=m):
             return terrain.tendencies_terrain(s, dycfg, rho_ref, p_ref,
-                                              metrics, vg)
+                                              metrics, vg, p)
 
-        def run_kernels():
-            return dycore.tendencies(s, dycfg, rho_ref, p_ref, vg)
+        def run_plain():
+            return terrain.tendencies_terrain_plain(s, dycfg, rho_ref, p_ref,
+                                                    m, vg, p)
 
-        want, got = run_kernels(), run_terrain(flat)
+        def run_flat():
+            return dycore.tendencies(s, dycfg, rho_ref, p_ref, vg, p)
+
+        kernels.reset_launches()
+        got = run_kernel()
+        launches = kernels.LAUNCHES["terrain_tendency"]
+        want = run_plain()
+        bit_equal = {n: bool(torch.equal(a, b))
+                     for n, a, b in zip(s._fields, got, want)}
+        del got, want
+        want, got = run_flat(), run_kernel(flat)
         errs = {n: float((a - b).abs().max()) / float(b.abs().max())
                 for n, a, b in zip(s._fields, got, want)}
         tols = {n: TOL_STENCIL if n == "rhoq" else TOL_TENDENCY
                 for n in s._fields}
         del want, got
-        t = timed_turns(run_kernels, run_terrain)
+        t = timed_turns(run_kernel, run_plain)
+        f = timed_turns(run_flat, run_kernel)
         state = nbytes(*s)
+        bound = (2 * state + nbytes(p, *m)) / HBM_BYTES_PER_S * 1e3
         row = {"phase": "terrain_tendency", "run": label,
                "batch": int(s.rho.shape[0]),
-               "terrain_ms": t["plain_ms"], "kernels_ms": t["ms"],
+               "kernel_launches": launches,
+               "expected_launches": terrain.TERRAIN_LAUNCHES,
+               "bit_equal": bit_equal,
+               "terrain_kernel_ms": t["ms"], "terrain_ms": t["plain_ms"],
+               "terrain_kernel_ms_runs": t["ms_runs"] + f["plain_ms_runs"],
                "terrain_ms_runs": t["plain_ms_runs"],
-               "kernels_ms_runs": t["ms_runs"],
-               "terrain_over_kernels": t["plain_ms"] / t["ms"],
-               "terrain_bound_ms": (2 * state + nbytes(*m)) / HBM_BYTES_PER_S
-               * 1e3,
-               "kernels_bound_ms": (2 * state + nbytes(rho_ref, p_ref))
+               "kernels_ms": f["ms"], "kernels_ms_runs": f["ms_runs"],
+               "terrain_over_kernel": t["plain_ms"] / t["ms"],
+               "terrain_kernel_over_kernels": t["ms"] / f["ms"],
+               "terrain_bound_ms": bound,
+               "terrain_kernel_bound_share": bound / t["ms"],
+               "terrain_bound_share": bound / t["plain_ms"],
+               "kernels_bound_ms": (2 * state + nbytes(p, rho_ref, p_ref))
                / HBM_BYTES_PER_S * 1e3,
                "flat_metrics_rel_err": errs, "tol": tols}
-        row["terrain_bound_share"] = row["terrain_bound_ms"] / t["plain_ms"]
-        row["kernels_bound_share"] = row["kernels_bound_ms"] / t["ms"]
+        row["kernels_bound_share"] = row["kernels_bound_ms"] / f["ms"]
         emit(row)
         rows.append(row)
+        if launches != terrain.TERRAIN_LAUNCHES:
+            raise AssertionError(f"kernel #5 launched {launches} times a "
+                                 f"call: {row}")
+        if not all(bit_equal.values()):
+            raise AssertionError(f"kernel #5 is not the plain terrain "
+                                 f"tendency bit for bit: {row}")
         if not all(errs[n] <= tols[n] for n in s._fields):
             raise AssertionError(f"the terrain tendency on flat metrics is "
                                  f"not dycore.tendencies: {row}")

@@ -15,8 +15,8 @@ advance in batches sized from free device memory — a leading member axis
 through the whole step, in place of the reference's jax.vmap. Over flat
 ground every batch runs the two hand-written tendency kernels on a CUDA
 device; with topography the slow tendencies are terrain.tendencies_terrain,
-plain PyTorch on either device, as the physics and the relaxation are: all
-three were plain XLA in the reference. The analysis step runs the obs operator
+hand-written kernel #5 on a CUDA device, and the physics and the relaxation
+plain PyTorch on either device: all three were plain XLA in the reference. The analysis step runs the obs operator
 on the whole ensemble (a leading member axis), the host obs context, and
 `analyze`, whose solver is the hand-written Newton–Schulz kernel; a
 deterministic member (DET_RUN) goes through H(x) beside the ensemble and is
@@ -101,13 +101,16 @@ from scale_letkf_torch.utils.timing import Timer
 # 51.5, a relaxation 18.1.
 FORECAST_MEMORY_SHARE = 0.5
 FORECAST_FIELDS_PER_MEMBER = 98
-# The same with terrain metrics: the slow tendency is plain PyTorch
-# (terrain.tendencies_terrain) and its temporaries — the tracers' face
-# fluxes and ∇⁴, the face winds, the metric products — add to the step's
-# working set. Measured at the 18-km size on an NVIDIA H100 80GB HBM3 at
-# 700.00 W (chip_smoke.py's production_cycle, batch 9): 106.4 fields a
-# member for the forecast with the physics suite and Davies relaxation; a
-# terrain dynamics step alone takes 88.1 above its input.
+# The same with terrain metrics, sized when the slow tendency was plain
+# PyTorch (terrain.tendencies_terrain, whose temporaries — the tracers'
+# face fluxes and ∇⁴, the face winds, the metric products — added to the
+# step's working set). Measured at the 18-km size on an NVIDIA H100 80GB
+# HBM3 at 700.00 W (chip_smoke.py's production_cycle, batch 9): 106.4
+# fields a member for the forecast with the physics suite and Davies
+# relaxation; a terrain dynamics step alone took 88.1 above its input,
+# 89.1 at batch 10. With kernel #5 (only its outputs beside the stage) the
+# step takes 63.2 at batch 10 and the production forecast 86.5 at batch
+# 13: the batches could grow, which is left to a later change.
 FORECAST_FIELDS_PER_MEMBER_TERRAIN = 107
 
 

@@ -1249,6 +1249,34 @@ def terrain_state(seed: int, B: int, cz, fz, topo: np.ndarray, dx: float,
             np.asarray(p1d[:, None, None], np.float32))
 
 
+def terrain_operands(device: torch.device, batch: int | None, lateral: str,
+                     levels: str, divdmp: float, seed: int = 0,
+                     shape=(12, 24, 40)):
+    """The operands of tendencies_terrain on `device`: `batch` of
+    terrain_state's members over hills(ny, nx) (None: one member as (nz,
+    ny, nx) fields), dx = DX and dy = 0.75·DX (so a swapped axis shows),
+    'stretched' levels (300 m × 1.04ᵏ) or 'uniform' ones (vg None, cfg.dz
+    300 m). Returns (s, cfg, (rho_ref, p_ref), metrics, vg)."""
+    from scale_letkf_torch.model import terrain
+    nz, ny, nx = shape
+    fz = (np.concatenate([[0.0], np.cumsum(300.0 * 1.04 ** np.arange(nz))])
+          if levels == "stretched" else 300.0 * np.arange(nz + 1))
+    cz = 0.5 * (fz[1:] + fz[:-1])
+    topo = hills(ny, nx)
+    cfg = dycore.DycoreConfig(dx=DX, dy=0.75 * DX, dz=300.0, dt=DT,
+                              divdmp=divdmp, lateral=lateral)
+    fields, rho_ref, p_ref = terrain_state(seed, batch or 1, cz, fz, topo,
+                                           cfg.dx, cfg.dy)
+    s = dycore.DycoreState(*(torch.as_tensor(f if batch else f[0],
+                                             device=device)
+                             for f in fields))
+    vg = dycore.make_vgrid(cz, fz, device) if levels == "stretched" else None
+    m = terrain.make_metrics(torch.as_tensor(topo, device=device), cz, fz,
+                             cfg.dx, cfg.dy)
+    cols = tuple(torch.as_tensor(a, device=device) for a in (rho_ref, p_ref))
+    return s, cfg, cols, m, vg
+
+
 def production_driver(cfg, grid, dycfg, dom: dict, device: torch.device,
                       topo=None, bdy_width: int | None = None):
     """The reference bench's production composition

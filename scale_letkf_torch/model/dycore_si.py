@@ -4,9 +4,9 @@ Port of scale_letkf_tpu/model/dycore_si.py: the Wicker–Skamarock (2002)
 scheme around the explicit core in dycore.py. Each RK3 stage evaluates the
 full slow tendencies at the stage state — dycore.tendencies (on CUDA
 tensors the two hand-written kernels), or with terrain metrics
-terrain.tendencies_terrain (plain PyTorch on either device) — then integrates n acoustic
-substeps linearized around it: horizontal momenta explicit; w, ρ and ρθ
-implicit in the vertical, one tridiagonal solve per column (Thomas
+terrain.tendencies_terrain (on CUDA tensors kernel #5) — then integrates
+n acoustic substeps linearized around it: horizontal momenta explicit; w, ρ
+and ρθ implicit in the vertical, one tridiagonal solve per column (Thomas
 algorithm). p'' = c²·(ρθ)'' with c² = (cp/cv)·p*/(ρθ)*. The acoustic step
 is limited only by the horizontal sound CFL.
 

@@ -27,13 +27,17 @@ Differences from the JAX module:
 - `rk3_step_terrain` takes the optional timer sections `tendencies` and
   `sponge`, as dycore.rk3_step does.
 
-This is plain PyTorch on either device: the reference computes it in plain
-XLA, and no kernel stands behind it (kernels #2 and #3 carry the flat
-metric only).
+The reference computes the tendency in plain XLA. Here the device decides
+the path: CUDA tensors go through the hand-written kernel #5
+(csrc/terrain_tendency.cu, tendencies_terrain_kernel: two launches a call,
+bit-equal to the plain path on the card), CPU tensors through
+tendencies_terrain_plain, this module's plain PyTorch (kernels #2 and #3
+carry the flat metric only).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -47,6 +51,8 @@ from scale_letkf_torch.model.dycore import (
 from scale_letkf_torch.ops.finite_diff import (
     hyperdiff4, roll_x, roll_y, ud3_face_x, ud3_face_y, ud3_face_z, zsl,
 )
+from scale_letkf_torch.ops.stencil import _check_cuda_f32, lateral_flag
+from scale_letkf_torch.utils import kernels
 from scale_letkf_torch.utils.timing import Timer, maybe_section
 
 
@@ -116,7 +122,27 @@ def tendencies_terrain(s: DycoreState, cfg: DycoreConfig,
     """Flux-form tendencies with terrain metrics; rho_ref/p_ref (nz, 1, 1),
     vg the stretched vertical metric (None ⇒ uniform cfg.dz), p the moist
     pressure of s where the caller has it (dycore.tendencies). Reduces to
-    the flat core when the topography is zero (J = 1, Gx = Gy = 0)."""
+    the flat core when the topography is zero (J = 1, Gx = Gy = 0). CUDA
+    tensors go through kernel #5 (tendencies_terrain_kernel; views are made
+    contiguous first), CPU tensors through tendencies_terrain_plain."""
+    if s.rho.is_cuda:
+        s, m = (type(t)(*(f.contiguous() for f in t)) for t in (s, m))
+        rho_ref, p_ref = rho_ref.contiguous(), p_ref.contiguous()
+        return tendencies_terrain_kernel(s, cfg, rho_ref, p_ref, m, vg,
+                                         None if p is None
+                                         else p.contiguous())
+    if s.rho.device.type == "cpu":
+        return tendencies_terrain_plain(s, cfg, rho_ref, p_ref, m, vg, p)
+    raise ValueError(f"tendencies_terrain has no path for {s.rho.device}")
+
+
+def tendencies_terrain_plain(s: DycoreState, cfg: DycoreConfig,
+                             rho_ref: torch.Tensor, p_ref: torch.Tensor,
+                             m: TerrainMetrics,
+                             vg: VGrid | None = None,
+                             p: torch.Tensor | None = None) -> DycoreState:
+    """tendencies_terrain in plain PyTorch: the CPU path and the kernel's
+    yardstick on the card."""
     lat = cfg.lateral
     _check_lateral(lat)
     dx, dy = cfg.dx, cfg.dy
@@ -241,6 +267,92 @@ def tendencies_terrain(s: DycoreState, cfg: DycoreConfig,
     drhow = torch.cat([zeros_face, drhow_int, zeros_face], dim=-3)
     return DycoreState(rho=drho, rhou=drhou, rhov=drhov, rhow=drhow,
                        rhot=drhot, rhoq=drhoq)
+
+
+# launches of kernel #5 a call of tendencies_terrain_kernel (the dynamics,
+# the scalars)
+TERRAIN_LAUNCHES = 2
+
+
+def tendencies_terrain_kernel(s: DycoreState, cfg: DycoreConfig,
+                              rho_ref: torch.Tensor, p_ref: torch.Tensor,
+                              m: TerrainMetrics,
+                              vg: VGrid | None = None,
+                              p: torch.Tensor | None = None) -> DycoreState:
+    """tendencies_terrain_plain's contract on the CUDA kernel
+    (csrc/terrain_tendency.cu): fields (..., nz, ny, nx), ρw (..., nz+1, ny,
+    nx), ρq (..., NQ, nz, ny, nx), the leading axes run as one batch (a
+    single member as a batch of one); p (the moist pressure, computed here
+    in plain passes when None) like ρ; rho_ref, p_ref, vg's dzc (nz,) or
+    (nz, 1, 1), dzf (nz-1,) or (nz-1, 1, 1); the metrics (ny, nx), (nz, ny,
+    nx), (nz+1, ny, nx); nz, ny, nx ≥ 2; float32, contiguous, on one CUDA
+    device; x/y periodic or open. Two launches on the current stream (the
+    dynamics, then ρθ and the tracers), no synchronisation. Raises on what
+    the kernel does not take (TypeError for another dtype, ValueError
+    else), RuntimeError on a non-zero launch status."""
+    name = "tendencies_terrain_kernel"
+    open_ = lateral_flag(cfg.lateral)
+    vg = metric(s, cfg, vg)
+    fields = {**s._asdict(), **m._asdict()}
+    cols = {"rho_ref": rho_ref, "p_ref": p_ref, "dzc": vg.dzc,
+            "dzf": vg.dzf}
+    _check_cuda_f32(name, s.rho.device, **fields, **cols)
+    if s.rho.dim() < 3:
+        raise ValueError(f"{name} takes (..., nz, ny, nx) fields, got "
+                         f"{tuple(s.rho.shape)}")
+    *lead, nz, ny, nx = s.rho.shape
+    nq = s.rhoq.shape[-4] if s.rhoq.dim() >= 4 else -1
+    want = {"rhou": s.rho.shape, "rhov": s.rho.shape, "rhot": s.rho.shape,
+            "rhow": (*lead, nz + 1, ny, nx), "rhoq": (*lead, nq, nz, ny, nx),
+            "jac": (ny, nx), "gx": (nz, ny, nx), "gy": (nz, ny, nx),
+            "gx_zf": (nz + 1, ny, nx), "gy_zf": (nz + 1, ny, nx)}
+    for k, shape in want.items():
+        if fields[k].shape != shape:
+            raise ValueError(f"{name}: {k} has shape "
+                             f"{tuple(fields[k].shape)}, expected {shape}")
+    for k, n in (("rho_ref", nz), ("p_ref", nz), ("dzc", nz),
+                 ("dzf", nz - 1)):
+        if cols[k].numel() != n:
+            raise ValueError(f"{name}: {k} has {cols[k].numel()} values, "
+                             f"expected {n} (one a level)")
+    if nz < 2 or ny < 2 or nx < 2 or (nz + 1) * ny * nx >= 2 ** 31:
+        raise ValueError(f"{name} takes 2 <= nz, ny, nx and fewer than "
+                         f"2**31 points a member, got {nz} × {ny} × {nx}")
+    if p is None:
+        p = moist_pressure(s.rhot, mixing_ratios(s))
+    _check_cuda_f32(name, s.rho.device, p=p)
+    if p.shape != s.rho.shape:
+        raise ValueError(f"{name}: p has shape {tuple(p.shape)}, expected "
+                         f"{tuple(s.rho.shape)}")
+    if not s.rho.is_cuda:
+        raise ValueError(f"{name} takes CUDA tensors, got {s.rho.device}")
+    out = DycoreState(*(torch.empty_like(f) for f in s))
+    B = math.prod(lead)
+    if B == 0:
+        return out
+    # the float32 reciprocals PyTorch multiplies by where the plain path
+    # divides a CUDA tensor by a Python float
+    def inv(d):
+        return float(np.float32(1.0) / np.float32(d))
+    damp = cfg.divdmp > 0
+    alpha_h = cfg.divdmp * cfg.dx * cfg.dx / cfg.dt if damp else 0.0
+    lib = kernels.load("terrain_tendency")
+    dev = s.rho.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.terrain_tendency_launch(
+            *(f.data_ptr() for f in s), p.data_ptr(),
+            *(cols[k].data_ptr() for k in ("p_ref", "rho_ref")),
+            *(f.data_ptr() for f in m),
+            *(cols[k].data_ptr() for k in ("dzc", "dzf")),
+            *(f.data_ptr() for f in out), B, nq, nz, ny, nx,
+            inv(cfg.dx), inv(cfg.dy), cfg.kdiff4, alpha_h, cfg.divdmp,
+            inv(cfg.dt), GRAV, int(damp), open_, stream)
+    if status != 0:
+        raise RuntimeError(f"terrain_tendency kernel launch failed: CUDA "
+                           f"error {status}")
+    kernels.LAUNCHES["terrain_tendency"] += TERRAIN_LAUNCHES
+    return out
 
 
 def rk3_step_terrain(s: DycoreState, cfg: DycoreConfig, rho_ref, p_ref,

@@ -2,13 +2,14 @@
 
 Each kernel is one file `scale_letkf_torch/csrc/<name>.cu` with a plain C
 entry point (it may include the shared headers `csrc/*.cuh`): #1
-invsqrt_ns, #2 dyn_tendency, #3 adv_ud3 and #4 acoustic_substep (the split-
-explicit core's acoustic substep, model/dycore_si.py). At first use it is
-compiled by nvcc for sm_90a (with the kernel's EXTRA_FLAGS) into a shared
-library under `build/kernels/` at the repository root (gitignored), named
-by a hash of its source, the headers and the flags so an edited source is
-rebuilt, and loaded with ctypes. A missing nvcc or a failed build raises:
-there is no fallback.
+invsqrt_ns, #2 dyn_tendency, #3 adv_ud3, #4 acoustic_substep (the split-
+explicit core's acoustic substep, model/dycore_si.py) and #5
+terrain_tendency (the slow tendency over terrain, model/terrain.py). At
+first use it is compiled by nvcc for sm_90a (with the kernel's
+EXTRA_FLAGS) into a shared library under `build/kernels/` at the
+repository root (gitignored), named by a hash of its source, the headers
+and the flags so an edited source is rebuilt, and loaded with ctypes. A
+missing nvcc or a failed build raises: there is no fallback.
 
 LAUNCHES counts, per kernel, the launches its wrapper made; callers that
 want to show a run went through a kernel reset it to 0 before the run.
@@ -57,11 +58,21 @@ _SIGNATURES = {
                          [ctypes.c_void_p] * 28 + [ctypes.c_int64] * 4
                          + [ctypes.c_float] * 6 + [ctypes.c_int] * 3
                          + [ctypes.c_void_p]),
+    # the slow tendency over terrain (model/terrain.py tendencies_terrain):
+    # rho, rhou, rhov, rhow, rhot, rhoq, p, p_ref, rho_ref, jac, gx, gy,
+    # gx_zf, gy_zf, dzc, dzf, 6 outputs; B, nq, nz, ny, nx; inv_dx, inv_dy,
+    # kdiff4, alpha_h, divdmp, inv_dt, grav; damp, open; stream. Two
+    # launches a call (the dynamics, the scalars)
+    "terrain_tendency": ("terrain_tendency_launch",
+                         [ctypes.c_void_p] * 22 + [ctypes.c_int64] * 5
+                         + [ctypes.c_float] * 7 + [ctypes.c_int] * 2
+                         + [ctypes.c_void_p]),
 }
-# nvcc flags of one kernel beyond NVCC_FLAGS: the acoustic substep rounds
-# every product and sum on its own, as the plain PyTorch passes it follows
-# do (no contraction into fused multiply-adds)
-EXTRA_FLAGS = {"acoustic_substep": ["-fmad=false"]}
+# nvcc flags of one kernel beyond NVCC_FLAGS: the acoustic substep and the
+# terrain tendency round every product and sum on their own, as the plain
+# PyTorch passes they follow do (no contraction into fused multiply-adds)
+EXTRA_FLAGS = {"acoustic_substep": ["-fmad=false"],
+               "terrain_tendency": ["-fmad=false"]}
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}
 BUILD_LOG: dict[str, dict] = {}

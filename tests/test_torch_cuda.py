@@ -16,7 +16,8 @@ the cycle verb with a nested child in the open lateral mode and the fused
 cycle on the card against the same runs on the CPU (which the parity tests
 hold against the reference package); the grid's SI halo step and its fused
 cycle against the undecomposed runs on the card; the acoustic substep
-kernel against its plain version, bit for bit.
+kernel and the terrain tendency kernel against their plain versions, bit
+for bit.
 Stencil bounds per field, relative to max|plain|: 2e-5 for the whole
 tendency, 1e-5 for the tracers (the reference's bounds for its Pallas
 kernels).
@@ -448,7 +449,7 @@ def test_cuda_physics_paths_match_cpu(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_terrain_modules_match_cpu(cuda_device):
-    """tendencies_terrain (plain PyTorch on the card) on hills, uniform
+    """tendencies_terrain (kernel #5 on the card) on hills, uniform
     fluxes kept away from zero, to 2e-5·max|CPU| plus twice the CPU's own
     rounding floor, and two SI steps with terrain metrics as the forecast
     checks, both lateral modes; an unforced terrain forecast keeps
@@ -464,35 +465,75 @@ def test_cuda_terrain_modules_match_cpu(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_terrain_tendencies_launch_no_stencil_kernel(cuda_device):
-    """With terrain metrics the slow tendency leaves kernels #2 and #3;
-    flat metrics on the card give dycore.tendencies' result (the kernels')
-    to the kernels' bounds."""
+    """With terrain metrics the slow tendency leaves kernels #2 and #3 and
+    launches kernel #5 TERRAIN_LAUNCHES times a call; flat metrics on the
+    card give dycore.tendencies' result (the kernels') to the kernels'
+    bounds."""
     from scale_letkf_torch.model import terrain
-    nz, ny, nx = 12, 24, 40
-    fz = np.concatenate([[0.0], np.cumsum(300.0 * 1.04 ** np.arange(nz))])
-    cz = 0.5 * (fz[1:] + fz[:-1])
-    topo = gpu_check.hills(ny, nx)
-    fields, rho_ref, p_ref = gpu_check.terrain_state(0, 2, cz, fz, topo,
-                                                     gpu_check.DX,
-                                                     gpu_check.DX)
-    s = dycore.DycoreState(*(torch.as_tensor(f, device=cuda_device)
-                             for f in fields))
-    cfg = dycore.DycoreConfig(dx=gpu_check.DX, dy=gpu_check.DX, dz=300.0,
-                              dt=gpu_check.DT)
-    vg = dycore.make_vgrid(cz, fz, cuda_device)
-    cols = [torch.as_tensor(a, device=cuda_device) for a in (rho_ref, p_ref)]
-    m = terrain.make_metrics(torch.as_tensor(topo, device=cuda_device), cz,
-                             fz, cfg.dx, cfg.dy)
+    s, cfg, cols, m, vg = gpu_check.terrain_operands(cuda_device, 2,
+                                                     "periodic", "stretched",
+                                                     0.05)
     kernels.reset_launches()
     terrain.tendencies_terrain(s, cfg, *cols, m, vg)
     assert kernels.LAUNCHES["dyn_tendency"] == kernels.LAUNCHES["adv_ud3"] == 0
-    flat = terrain.make_metrics(torch.zeros_like(m.jac), cz, fz, cfg.dx,
-                                cfg.dy)
+    assert kernels.LAUNCHES["terrain_tendency"] == terrain.TERRAIN_LAUNCHES
+    # the metrics of flat topography: J = 1, no slopes
+    flat = terrain.TerrainMetrics(torch.ones_like(m.jac),
+                                  *(torch.zeros_like(f) for f in m[1:]))
     got = terrain.tendencies_terrain(s, cfg, *cols, flat, vg)
     want = dycore.tendencies(s, cfg, *cols, vg)
     for name, a, b in zip(s._fields, got, want):
         tol = gpu_check.TOL_STENCIL if name == "rhoq" else gpu_check.TOL_TENDENCY
         assert float((a - b).abs().max()) <= tol * float(b.abs().max()), name
+
+
+@pytest.mark.cuda
+def test_cuda_flat_tendencies_launch_no_terrain_kernel(cuda_device):
+    """dycore.tendencies (no metrics) launches #2 and #3 once each and
+    kernel #5 not at all."""
+    s, cfg, cols, _, vg = gpu_check.terrain_operands(cuda_device, 2,
+                                                     "periodic", "stretched",
+                                                     0.05)
+    kernels.reset_launches()
+    dycore.tendencies(s, cfg, *cols, vg)
+    assert kernels.LAUNCHES["terrain_tendency"] == 0
+    assert kernels.LAUNCHES["dyn_tendency"] == kernels.LAUNCHES["adv_ud3"] == 1
+
+
+TERRAIN_CASES = [(batch, lateral, levels, divdmp)
+                 for batch in (2, None) for lateral in ("periodic", "open")
+                 for levels in ("stretched", "uniform")
+                 for divdmp in (0.0, 0.05)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,lateral,levels,divdmp", TERRAIN_CASES)
+def test_cuda_terrain_kernel_bit_equal_to_plain(cuda_device, batch, lateral,
+                                                levels, divdmp):
+    """Kernel #5 gives tendencies_terrain_plain's eleven outputs (ρ, ρu, ρv,
+    ρw, ρθ and each of the six tracers) on the card bit for bit, over
+    gpu_check.hills, batched (2 members) and single-member, both lateral
+    modes, stretched and uniform levels, divergence damping on and off; p
+    from the call (batched) or the caller (single, as the SI stage)."""
+    from scale_letkf_torch.model import terrain
+    s, cfg, cols, m, vg = gpu_check.terrain_operands(cuda_device, batch,
+                                                     lateral, levels, divdmp)
+    p = (None if batch else
+         dycore.moist_pressure(s.rhot, dycore.mixing_ratios(s)))
+    kernels.reset_launches()
+    got = terrain.tendencies_terrain(s, cfg, *cols, m, vg, p)
+    assert kernels.LAUNCHES["terrain_tendency"] == terrain.TERRAIN_LAUNCHES
+    want = terrain.tendencies_terrain_plain(s, cfg, *cols, m, vg, p)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["terrain_tendency"] == terrain.TERRAIN_LAUNCHES
+    for name, a, b in zip(s._fields, got, want):
+        assert bool(torch.isfinite(a).all()), name
+        if name == "rhoq":
+            for q in range(a.shape[-4]):
+                assert torch.equal(a[..., q, :, :, :], b[..., q, :, :, :]), q
+        else:
+            assert torch.equal(a, b), name
+    assert float(got.rhow.abs().max()) > 0
 
 
 @pytest.mark.cuda
